@@ -14,7 +14,12 @@ FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "torchstore_tp
 
 
 def port_sources() -> list[Path]:
-    return sorted((ROOT / "torchstore_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The port, its smoke script, and the module its spawned test ranks
+    import."""
+    return sorted((ROOT / "torchstore_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py",
+        ROOT / "tests" / "test_torch_sp_worker.py",
+    ]
 
 
 def forbidden_imports(path: Path) -> list[str]:
@@ -47,7 +52,10 @@ def test_import_leaves_no_jax_or_reference_module():
     code = (
         "import json, sys\n"
         "import torchstore_tpu_torch, torchstore_tpu_torch.direct_weight_sync\n"
-        "import torchstore_tpu_torch.workloads\n"
+        "import torchstore_tpu_torch.workloads, torchstore_tpu_torch.parallel\n"
+        "import torchstore_tpu_torch.ops.flash_attention, torchstore_tpu_torch.ops.ring_attention\n"
+        "import torchstore_tpu_torch.ops._sharded, torchstore_tpu_torch.ops.ulysses_attention\n"
+        "import torchstore_tpu_torch.models.llama, torchstore_tpu_torch.models.generate\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN_ROOTS)!r})\n"
         "print(json.dumps(bad))\n"

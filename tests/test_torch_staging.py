@@ -9,6 +9,7 @@ between frameworks). The CUDA kernel's own tests need a GPU and skip here.
 """
 
 import math
+import os
 import shutil
 
 import jax.numpy as jnp
@@ -116,7 +117,7 @@ def test_kernel_refuses_cpu_tensor():
 
 
 def test_build_without_nvcc_raises():
-    if shutil.which("nvcc") or staging.os.path.exists("/usr/local/cuda/bin/nvcc"):
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is present: the build would succeed")
     with pytest.raises(RuntimeError, match="nvcc"):
         staging.CastKernel().build()

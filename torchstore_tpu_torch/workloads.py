@@ -6,13 +6,18 @@ layer, two norms and the seven projections), as torch tensors filled from an
 explicit ``torch.Generator``. At the Llama-3-8B geometry that is 291
 tensors and 8.03 B parameters. ``llama_shapes`` gives the same inventory as
 shapes, so a test can fill it from numpy for both packages.
+``llama3_8b_config`` is the model side's configuration at the same width.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import dataclasses
+
 import torch
+
+from torchstore_tpu_torch.models.llama import LlamaConfig
 
 LLAMA3_8B = dict(
     hidden=4096, intermediate=14336, vocab=128256, layers=32, heads=32, kv_heads=8
@@ -64,3 +69,10 @@ def llama_state_dict(
         return torch.randn(node, generator=generator, device=device, dtype=dtype)
 
     return fill(llama_shapes(**geo))
+
+
+def llama3_8b_config(layers: int) -> LlamaConfig:
+    """``LlamaConfig.llama3_8b()`` at ``layers`` layers: depth is the only
+    cut, every width stays (vocab 128256, hidden 4096, intermediate 14336,
+    32 q / 8 kv heads of 128)."""
+    return dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=layers)
