@@ -6,8 +6,11 @@
 Phases, each printing one JSON line:
 
 1. device       - the card, its power limit, /dev/shm and host memory;
-2. build        - nvcc builds csrc/cast.cu and csrc/flash_attention.cu from
-                  the checkout, both at once;
+2. build        - nvcc builds csrc/cast.cu, csrc/flash_attention.cu (the
+                  simt flash kernel) and csrc/flash_attention_sm90.cu (the
+                  Hopper flash kernel) from the checkout, all at once, and
+                  prints each library's ptxas registers and spills; fails if
+                  the sm90 kernel spills or ptxas ignored its setmaxnreg;
 3. parity       - the cast kernel against its plain version on the card, bit
                   for bit outside NaN (NaN positions equal), for every
                   covered dtype pair at ragged sizes, Llama-3-8B shapes and
@@ -18,17 +21,23 @@ Phases, each printing one JSON line:
                   port's entry points: initialize, a buffered put/get, a
                   direct publish/pull, a refresh after an in-place update,
                   shutdown; the cast kernel's launch count on that path;
-6. flash_parity - the flash kernel, stats mode (K2) and normalized mode (K3),
-                  against their plain versions on the card: Llama-3-8B
-                  attention width, MHA, d = 64 and 256, lengths 1024 to 8192
-                  and ragged ones, fp32 and bf16, causal and not;
-7. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens,
-                  beside their bound, the plain versions and SDPA;
+6. flash_parity - the flash kernels, stats mode (K2) and normalized mode
+                  (K3), against their plain versions on the card: Llama-3-8B
+                  attention width, MHA, d = 64, 72 and 256, lengths 1 to 8192
+                  and ragged ones, batch up to 4, a packed qkv projection
+                  view, fp32 and bf16, causal and not. Each case names the
+                  variant ``sm90_eligible`` picked; the sm90 cases are held
+                  against the blockwise plain version and against the fp32
+                  one with SDPA's error as the yardstick;
+7. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
+                  (and K2 at 4096) on the sm90 kernel, and at 8192 on the
+                  simt kernel, beside their bound, the plain versions and
+                  SDPA;
 8. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
-                  Llama-3-8B attention width, forward at 8192 and forward
-                  and backward at 4096, held against the einsum body and the
-                  plain version; K2's launches on that path, and K3's from
-                  the public ``flash_attention`` entry point;
+                  Llama-3-8B attention width: a bf16 path (forward at 8192,
+                  forward and backward at 4096) and an fp32 forward path at
+                  2048, held against the einsum body and the plain version;
+                  K2's and K3's launches per variant on each path;
 9. model        - the RL loop at Llama-3-8B width (depth cut): a learner
                   trains two steps and publishes with direct=True, a bf16
                   generator pulls and decodes greedily;
@@ -125,19 +134,29 @@ def phase_device(torch) -> dict:
 
 
 def phase_build(staging, flash) -> dict:
+    import re
+
     from torchstore_tpu_torch.ops._nvcc import build_all
 
-    libs = {"cast": staging.cast_kernel.lib, "flash": flash.stats_kernel.lib}
+    libs = {"cast": staging.cast_kernel.lib,
+            **{f"flash_{name}": lib for name, lib in flash.stats_kernel.libs.items()}}
     t0 = time.perf_counter()
     build_all(list(libs.values()))
     out = {"phase": "build", "seconds": time.perf_counter() - t0}
     for name, lib in libs.items():
-        ptxas = [
-            line.strip()
-            for line in lib.build_log.splitlines()
-            if "registers" in line or "spill" in line or "Compiling entry" in line
-        ]
-        out[name] = {"seconds": lib.build_seconds, "ptxas": ptxas[:48]}
+        log = lib.build_log.splitlines()
+        spills = [int(n) for line in log
+                  for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+        out[name] = {
+            "seconds": lib.build_seconds,
+            "registers": [int(n) for line in log for n in re.findall(r"Used (\d+) registers", line)],
+            "spill_bytes": sum(spills),
+            "warnings": [line.strip() for line in log if "warning" in line.lower()][:8],
+        }
+    sm90 = out["flash_sm90"]
+    sm90["setmaxnreg_ignored"] = any("C7508" in w or "setmaxnreg ignored" in w
+                                     for w in sm90["warnings"])
+    out["ok"] = sm90["spill_bytes"] == 0 and not sm90["setmaxnreg_ignored"]
     return out
 
 
@@ -540,7 +559,8 @@ def phase_main(torch, staging) -> dict:
 # attention: the flash kernel, ring attention, the model
 # --------------------------------------------------------------------------
 
-# (label, b, sq, sk, h, hk, d); "8b" is Llama-3-8B attention width.
+# (label, b, sq, sk, h, hk, d); "8b" is Llama-3-8B attention width. A
+# "packed" case slices q, k and v from one (b, s, h + 2 hk, d) projection.
 FLASH_CASES = (
     ("8b-1024", 1, 1024, 1024, HEADS, KV_HEADS, HEAD_DIM),
     ("8b-4096", 1, 4096, 4096, HEADS, KV_HEADS, HEAD_DIM),
@@ -553,15 +573,34 @@ FLASH_CASES = (
     ("mha-d256-sq1024-sk1000", 1, 1024, 1000, 16, 16, 256),
     ("gqa-d256-4096", 1, 4096, 4096, 16, 4, 256),
     ("gqa-d72-300", 1, 300, 300, 4, 2, 72),
+    ("8b-sq77-sk40", 1, 77, 40, HEADS, KV_HEADS, HEAD_DIM),
+    ("8b-sq8192-sk1", 1, 8192, 1, HEADS, KV_HEADS, HEAD_DIM),
+    ("8b-sq1000-sk1537-b4", 4, 1000, 1537, HEADS, KV_HEADS, HEAD_DIM),
+    ("packed-8b-2048", 1, 2048, 2048, HEADS, KV_HEADS, HEAD_DIM),
 )
 FLASH_TOL = {
     "stats": "m, l: |got - want| <= 1e-5 + 1e-4 |want|; acc the same after dividing "
              "got and want by want's l (fp32 and bf16 inputs)",
     "o_fp32": "|got - want| <= 1e-5 + 1e-4 |want|",
     "o_bf16": "|got - want| <= 1e-5 + 2 bf16 ulps of want",
+    "sm90_vs_blockwise": "against stats_blockwise_reference (the same arithmetic: bf16 p, "
+                         "block_k 128): m, l as 'stats'; acc (on o's scale) within "
+                         "1e-5 + 1e-4 |want| + flip, o within 1e-5 + 2 bf16 ulps + flip, "
+                         "where flip = 2**-6 max_k |v_kd| / l: the two fp32 p differ in "
+                         "their last bits (q.k^T summed in another order) and can round to "
+                         "adjacent bf16 values, one bf16 ulp (<= 2**-7 p) per term; flip "
+                         "allows two such terms at the row's largest weight (p <= 1). "
+                         "'strict_outside' counts acc values outside 1e-5 + 1e-4 |want|",
+    "sm90_vs_fp32": "against the fp32 plain version, with SDPA (is_causal, enable_gqa) on "
+                    "the same inputs as the yardstick: the kernel's o and acc/l each have "
+                    "a worst error <= 2x SDPA's worst error against attention_reference; "
+                    "m, l as 'stats' (both sum the fp32 p). bf16 p before P.V, as in "
+                    "SDPA's own kernels, is the rounding the fp32 version does not make",
 }
+SDPA_YARDSTICK = 2.0  # the sm90 kernel's worst error may be this multiple of SDPA's
 # The timed shapes: b, s, h, hk, d (bf16).
 FLASH_TIMED = (1, 8192, HEADS, KV_HEADS, HEAD_DIM)
+FLASH_TIMED_SHORT = 4096  # the ring phase's backward length
 
 
 def _bf16_ulp(torch, x):
@@ -570,25 +609,90 @@ def _bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
 
 
-def _within(torch, got, want, rtol=1e-4, atol=1e-5, ulps=None) -> dict:
+def _within(torch, got, want, rtol=1e-4, atol=1e-5, ulps=None, extra=None) -> dict:
     """Worst error of ``got`` against ``want`` and the count of values
     outside the tolerance: atol + rtol |want|, or ``ulps`` bf16 ulps (plus
-    ``atol``)."""
+    ``atol``), plus the tensor ``extra`` where given."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     if ulps is None:
         allowed = atol + rtol * want.abs()
     else:
         allowed = atol + ulps * _bf16_ulp(torch, want)
+    if extra is not None:
+        allowed = allowed + extra
     bad = int((err > allowed).sum().item()) + int((~torch.isfinite(got)).sum().item())
     return {"max_abs_err": float(err.max().item()) if err.numel() else 0.0, "outside": bad}
 
 
-def _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype):
+def _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype, packed=False):
+    if packed:  # one projection output, sliced: q, k, v are strided views
+        qkv = torch.randn((b, sq, h + 2 * hk, d), generator=gen, device=dev).to(dtype)
+        return qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]
     q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, sk, hk, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, sk, hk, d), generator=gen, device=dev).to(dtype)
     return q, k, v
+
+
+def _sdpa(torch, q, k, v, causal):
+    """SDPA on (b, s, h, d) tensors: the yardstick, never called by the port."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+        enable_gqa=True,
+    ).transpose(1, 2)
+
+
+def _flash_counts(flash) -> dict:
+    return {"flash_stats": dict(flash.stats_kernel.launches_by_variant),
+            "flash": dict(flash.attention_kernel.launches_by_variant)}
+
+
+def _reset_flash_counts(flash, counts=None) -> None:
+    """Set both modes' launch counts to 0, or back to ``counts``."""
+    for name, kernel in (("flash_stats", flash.stats_kernel), ("flash", flash.attention_kernel)):
+        by = counts[name] if counts else {v: 0 for v in kernel.launches_by_variant}
+        kernel.launches_by_variant = dict(by)
+        kernel.launches = sum(by.values())
+
+
+def _flip_allowance(torch, v, l, h):
+    """2**-6 max_k |v_kd| / l per (b, h, sq, d): two bf16 roundings of p
+    that went to adjacent values, at a weight p <= 1 (FLASH_TOL)."""
+    vmax = v.float().abs().amax(dim=1).repeat_interleave(h // v.shape[2], dim=1)  # (b, h, d)
+    return 2.0**-6 * vmax[:, :, None, :] / l[..., None]
+
+
+def _check_sm90(torch, flash, q, k, v, causal, got, o) -> dict:
+    """The two comparisons of an sm90 case: against the blockwise plain
+    version, and against the fp32 one with SDPA as the yardstick."""
+    h = q.shape[2]
+    bw = flash.stats_blockwise_reference(q, k, v, causal, 128)
+    n = bw[2][..., None]
+    flip = _flip_allowance(torch, v, bw[2], h)
+    res = {"bw_acc": _within(torch, got[0] / n, bw[0] / n, extra=flip)}
+    res["bw_acc"]["strict_outside"] = _within(torch, got[0] / n, bw[0] / n)["outside"]
+    res.update({f"bw_{name}": _within(torch, g, w) for name, g, w in zip("ml", got[1:], bw[1:])})
+    bw_o = flash._normalize(bw[0], bw[2], q.dtype)
+    res["bw_o"] = _within(torch, o, bw_o, atol=1e-5, ulps=2, extra=flip.transpose(1, 2))
+    del bw, bw_o, flip
+    want = flash.stats_reference(q, k, v, causal)
+    res.update({name: _within(torch, g, w) for name, g, w in zip("ml", got[1:], want[1:])})
+    o_ref = want[0] / want[2][..., None]  # fp32 o, (b, h, sq, d)
+    o_want = flash._normalize(want[0], want[2], q.dtype)
+    sdpa = _sdpa(torch, q, k, v, causal)
+    yard = _within(torch, sdpa, o_want, atol=1e-5, ulps=2)
+    kernel_o = float((o.float() - o_want.float()).abs().max().item())
+    kernel_acc = float((got[0] / got[2][..., None] - o_ref).abs().max().item())
+    limit = SDPA_YARDSTICK * yard["max_abs_err"]
+    res["vs_fp32"] = {
+        "sdpa_max_abs_err": yard["max_abs_err"], "sdpa_outside_2ulps": yard["outside"],
+        "o_max_abs_err": kernel_o, "acc_over_l_max_abs_err": kernel_acc,
+        "outside": int(kernel_o > limit) + int(kernel_acc > limit),
+    }
+    return res
 
 
 def phase_flash_parity(torch, flash) -> dict:
@@ -597,51 +701,78 @@ def phase_flash_parity(torch, flash) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    cases, worst = [], {"stats": 0.0, "o": 0.0}
+    cases = []
+    worst = {f"{mode}_{variant}": 0.0 for mode in ("stats", "o") for variant in ("sm90", "simt")}
     for label, b, sq, sk, h, hk, d in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype)
+            q, k, v = _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype,
+                           packed=label.startswith("packed"))
+            # Every case's strides pass TMA's rule, so dtype and d decide.
+            variant = "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
             for causal in (False, True):
+                before = _flash_counts(flash)
                 got = flash.stats_kernel(q, k, v, causal)
-                want = flash.stats_reference(q, k, v, causal)
-                torch.cuda.synchronize()
-                # acc is a sum of sk terms whose magnitudes add up to ~l E|v|, so
-                # it is held on the scale of o = acc / l (want's l for both).
-                l_want = want[2][..., None]
-                res = {"acc": _within(torch, got[0] / l_want, want[0] / l_want)}
-                res["acc"]["raw_max_abs_err"] = float((got[0] - want[0]).abs().max().item())
-                res.update({n: _within(torch, g, w) for n, g, w in zip("ml", got[1:], want[1:])})
-                del got, want, l_want
                 o = flash.attention_kernel(q, k, v, causal)
-                o_want = flash.attention_reference(q, k, v, causal)
                 torch.cuda.synchronize()
-                if dtype == torch.bfloat16:
-                    res["o"] = _within(torch, o, o_want, atol=1e-5, ulps=2)
+                after = _flash_counts(flash)
+                ran = {mode: [n for n in after[mode] if after[mode][n] != before[mode][n]]
+                       for mode in after}
+                if variant == "sm90":
+                    res = _check_sm90(torch, flash, q, k, v, causal, got, o)
+                    err_stats = max(res["bw_acc"]["max_abs_err"], res["m"]["max_abs_err"],
+                                    res["l"]["max_abs_err"])
+                    err_o = res["vs_fp32"]["o_max_abs_err"]
                 else:
-                    res["o"] = _within(torch, o, o_want)
-                del o, o_want
-                ok = all(r["outside"] == 0 for r in res.values())
-                worst["stats"] = max(worst["stats"], *(res[n]["max_abs_err"] for n in ("m", "l")),
-                                     res["acc"]["raw_max_abs_err"])
-                worst["o"] = max(worst["o"], res["o"]["max_abs_err"])
+                    want = flash.stats_reference(q, k, v, causal)
+                    # acc is a sum of sk terms whose magnitudes add up to ~l E|v|, so
+                    # it is held on the scale of o = acc / l (want's l for both).
+                    l_want = want[2][..., None]
+                    res = {"acc": _within(torch, got[0] / l_want, want[0] / l_want)}
+                    res["acc"]["raw_max_abs_err"] = float((got[0] - want[0]).abs().max().item())
+                    res.update({n: _within(torch, g, w) for n, g, w in zip("ml", got[1:], want[1:])})
+                    del want, l_want
+                    o_want = flash.attention_reference(q, k, v, causal)
+                    if dtype == torch.bfloat16:
+                        res["o"] = _within(torch, o, o_want, atol=1e-5, ulps=2)
+                    else:
+                        res["o"] = _within(torch, o, o_want)
+                    del o_want
+                    err_stats = max(res["m"]["max_abs_err"], res["l"]["max_abs_err"],
+                                    res["acc"]["raw_max_abs_err"])
+                    err_o = res["o"]["max_abs_err"]
+                del got, o
+                ok = all(r["outside"] == 0 for r in res.values()) and ran == {
+                    "flash_stats": [variant], "flash": [variant]}
+                worst[f"stats_{variant}"] = max(worst[f"stats_{variant}"], err_stats)
+                worst[f"o_{variant}"] = max(worst[f"o_{variant}"], err_o)
                 cases.append({
                     "case": f"{label} {str(dtype)[6:]} {'causal' if causal else 'full'}",
-                    "ok": ok, **res,
+                    "variant": variant, "launched": ran, "ok": ok, **res,
                 })
             del q, k, v
             torch.cuda.empty_cache()
-    flash.stats_kernel.launches = 0  # comparison launches are not path launches
-    flash.attention_kernel.launches = 0
+    _reset_flash_counts(flash)  # comparison launches are not path launches
     failed = [c for c in cases if not c["ok"]]
+    rows = []
+    for c in cases:
+        row = {"case": c["case"], "variant": c["variant"]}
+        if c["variant"] == "sm90":
+            row.update({"bw_acc": c["bw_acc"]["max_abs_err"],
+                        "bw_acc_strict_outside": c["bw_acc"]["strict_outside"],
+                        "bw_o": c["bw_o"]["max_abs_err"], **c["vs_fp32"]})
+            row.pop("outside")
+        else:
+            row.update({"acc": c["acc"]["max_abs_err"], "o": c["o"]["max_abs_err"]})
+        rows.append(row)
     return {
         "phase": "flash_parity",
         "ok": not failed,
         "cases": len(cases),
+        "sm90_cases": sum(c["variant"] == "sm90" for c in cases),
         "failed": failed[:10],
         "worst": worst,
         "tolerance": FLASH_TOL,
-        "rows": [{"case": c["case"], "acc": c["acc"]["max_abs_err"], "o": c["o"]["max_abs_err"]}
-                 for c in cases],
+        "rows": rows,
     }
 
 
@@ -662,57 +793,73 @@ def flash_bound(b, sq, sk, h, hk, d, causal, in_bytes, stats) -> dict:
 
 
 def phase_flash_timing(torch, flash) -> dict:
-    import torch.nn.functional as F
-
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     b, s, h, hk, d = FLASH_TIMED
     # Two input sets of 96 MB each: every call reads memory that is not in L2.
-    inputs = [_qkv(torch, gen, dev, b, s, s, h, hk, d, torch.bfloat16) for _ in range(2)]
-    before = (flash.stats_kernel.launches, flash.attention_kernel.launches)
+    inputs = {n: [_qkv(torch, gen, dev, b, n, n, h, hk, d, torch.bfloat16) for _ in range(2)]
+              for n in (s, FLASH_TIMED_SHORT)}
+    before = _flash_counts(flash)
 
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-            enable_gqa=True,
-        )
+    def stats(causal, variant=None):
+        return lambda q, k, v: flash.stats_kernel(q, k, v, causal, _variant=variant)
 
+    def attention(causal, variant=None):
+        return lambda q, k, v: flash.attention_kernel(q, k, v, causal, _variant=variant)
+
+    sdpa = lambda causal: lambda q, k, v: _sdpa(torch, q, k, v, causal)  # noqa: E731
+    # name: (tokens, causal, stats mode, variant, kernel, plain, library). The
+    # simt rows time the kernel alone: plain and library are the sm90 row's.
     plan = {
-        "flash_stats": (False, True, lambda q, k, v: flash.stats_kernel(q, k, v, False),
-                        lambda q, k, v: flash.stats_reference(q, k, v, False), None),
+        "flash_stats": (s, False, True, "sm90", stats(False),
+                        lambda q, k, v: flash.stats_reference(q, k, v, False), sdpa(False)),
         "flash_stats_causal_diag": (
-            True, True, lambda q, k, v: flash.stats_kernel(q, k, v, True),
-            lambda q, k, v: flash.stats_reference(q, k, v, True), None),
-        "flash_causal": (True, False, lambda q, k, v: flash.attention_kernel(q, k, v, True),
-                         lambda q, k, v: flash.attention_reference(q, k, v, True), sdpa),
+            s, True, True, "sm90", stats(True),
+            lambda q, k, v: flash.stats_reference(q, k, v, True), sdpa(True)),
+        "flash_causal": (s, True, False, "sm90", attention(True),
+                         lambda q, k, v: flash.attention_reference(q, k, v, True), sdpa(True)),
+        "flash_stats_4096": (
+            FLASH_TIMED_SHORT, False, True, "sm90", stats(False),
+            lambda q, k, v: flash.stats_reference(q, k, v, False), sdpa(False)),
+        "flash_stats_simt": (s, False, True, "simt", stats(False, "simt"), None, None),
+        "flash_stats_causal_diag_simt": (s, True, True, "simt", stats(True, "simt"), None, None),
+        "flash_causal_simt": (s, True, False, "simt", attention(True, "simt"), None, None),
     }
     rows = {}
-    for name, (causal, stats, kernel, plain, library) in plan.items():
-        fns = {"kernel": kernel, "plain": plain}
-        order = ["kernel", "plain", "plain", "kernel"]
-        if library is not None:
-            fns["library"] = library
+    for name, (n, causal, is_stats, variant, kernel, plain, library) in plan.items():
+        fns = {"kernel": kernel}
+        order = ["kernel", "kernel"]
+        if plain is not None:
+            fns.update({"plain": plain, "library": library})
             order = ["kernel", "plain", "library", "library", "plain", "kernel"]
-        runs = {n: [] for n in fns}
-        for n in order:  # in turns; each reports the better of its two runs
-            runs[n].append(_time_ms(torch, lambda qkv: fns[n](*qkv), inputs, iters=5))
-        bound = flash_bound(b, s, s, h, hk, d, causal, 2, stats)
+        runs = {x: [] for x in fns}
+        mode = flash.stats_kernel if is_stats else flash.attention_kernel
+        launched = mode.launches_by_variant[variant]
+        for x in order:  # in turns; each reports the better of its two runs
+            runs[x].append(_time_ms(torch, lambda qkv: fns[x](*qkv), inputs[n], iters=5))
+        bound = flash_bound(b, n, n, h, hk, d, causal, 2, is_stats)
         ms = min(runs["kernel"])
+        twin = name[:-len("_simt")] if variant == "simt" else name
         rows[name] = {
-            "shape": {"b": b, "sq": s, "sk": s, "h": h, "hk": hk, "d": d, "dtype": "bfloat16"},
+            "shape": {"b": b, "sq": n, "sk": n, "h": h, "hk": hk, "d": d, "dtype": "bfloat16"},
             "causal": causal,
+            "variant": variant,
+            "ran_on_variant": mode.launches_by_variant[variant] > launched,
             "ms": ms,
-            "plain_ms": min(runs["plain"]),
-            "library_ms": min(runs["library"]) if library is not None else None,
+            "plain_ms": min(runs["plain"]) if plain is not None else rows[twin]["plain_ms"],
+            "library_ms": min(runs["library"]) if plain is not None else rows[twin]["library_ms"],
+            "library": ("SDPA, " + ("causal" if causal else "not causal")
+                        + (", computes o, not (acc, m, l)" if is_stats else "")),
             "runs_ms": runs,
             **bound,
             "share_of_bound": bound["bound_ms"] / ms,
             "tflop_per_s": bound["flop"] / ms / 1e9,
         }
         torch.cuda.empty_cache()
-    flash.stats_kernel.launches, flash.attention_kernel.launches = before
-    return {"phase": "flash_timing", "rows": rows,
+    _reset_flash_counts(flash, before)
+    ok = all(r["ran_on_variant"] for r in rows.values())
+    return {"phase": "flash_timing", "ok": ok, "rows": rows,
             "peaks": {"bf16_flop_per_s": BF16_FLOP_PER_S, "hbm_bytes_per_s": HBM_BYTES_PER_S}}
 
 
@@ -726,19 +873,23 @@ def _free_port() -> int:
 
 def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None) -> dict:
     """Ring attention over a one-rank sp mesh (the caller holds the process
-    group), then K3 through ``flash_attention``: forward at ``fwd_seq`` and
-    forward + backward at ``bwd_seq``, causal and not. The launch counts are
-    read right after the path; the comparisons follow."""
+    group), then K3 through ``flash_attention``: a bf16 path, forward at
+    ``fwd_seq`` and forward + backward at ``bwd_seq``, causal and not; then
+    an fp32 path (a learner computing attention in fp32), forward and K3 at
+    half ``bwd_seq``. Each path's per-variant launch counts are set to 0 just
+    before it and read right after; the comparisons follow."""
     from torchstore_tpu_torch.ops import flash_attention, ring_attention_sharded
     from torchstore_tpu_torch.parallel import make_mesh
 
     h, hk, d = heads or (HEADS, KV_HEADS, HEAD_DIM)
+    fp32_seq = bwd_seq // 2
     mesh = make_mesh({"sp": 1}, dev.type)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     bf16 = torch.bfloat16
     fwd = _qkv(torch, gen, dev, 1, fwd_seq, fwd_seq, h, hk, d, bf16)
     bwd = _qkv(torch, gen, dev, 1, bwd_seq, bwd_seq, h, hk, d, bf16)
+    f32 = _qkv(torch, gen, dev, 1, fp32_seq, fp32_seq, h, hk, d, torch.float32)
     weight = torch.randn((1, bwd_seq, h, d), generator=gen, device=dev)
 
     def with_grads(fn, causal):
@@ -750,54 +901,106 @@ def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None) -> dic
     ring = lambda impl: lambda q, k, v, causal: ring_attention_sharded(  # noqa: E731
         q, k, v, mesh, "sp", causal=causal, impl=impl)
 
-    flash.stats_kernel.launches = 0
-    flash.attention_kernel.launches = 0
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    _reset_flash_counts(flash)
     t0 = time.perf_counter()
-    path = {}
+    path, steps_s = {}, {}
     for causal in (False, True):
-        path[("fwd", causal)] = ring("auto")(*fwd, causal)
-        path[("bwd", causal)] = with_grads(ring("auto"), causal)
-        path[("k3", causal)] = flash_attention(*fwd, causal=causal)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        for step, fn in (("fwd", lambda: ring("auto")(*fwd, causal)),
+                         ("bwd", lambda: with_grads(ring("auto"), causal)),
+                         ("k3", lambda: flash_attention(*fwd, causal=causal))):
+            t1 = time.perf_counter()
+            path[(step, causal)] = fn()
+            sync()
+            steps_s[f"{step} {'causal' if causal else 'full'}"] = time.perf_counter() - t1
     path_s = time.perf_counter() - t0
-    launches = {"flash_stats": flash.stats_kernel.launches,
-                "flash": flash.attention_kernel.launches}
-    ring_calls, k3_calls = 4, 2
+    launches = _flash_counts(flash)
+
+    _reset_flash_counts(flash)
+    t0 = time.perf_counter()
+    for causal in (False, True):
+        path[("fp32", causal)] = ring("auto")(*f32, causal)
+        path[("fp32_k3", causal)] = flash_attention(*f32, causal=causal)
+    sync()
+    fp32_path_s = time.perf_counter() - t0
+    fp32_launches = _flash_counts(flash)
+    _reset_flash_counts(flash)
+    ring_calls, k3_calls = 4, 2  # each path's calls: bf16 on sm90, fp32 on simt
+    expected = {"flash_stats": {"sm90": ring_calls, "simt": 0}, "flash": {"sm90": k3_calls, "simt": 0}}
+    fp32_expected = {"flash_stats": {"sm90": 0, "simt": 2}, "flash": {"sm90": 0, "simt": 2}}
+
+    def yardstick(label, got, want, inputs, causal):
+        """``got`` against ``want`` with SDPA on the same inputs as the
+        yardstick: got's worst error <= SDPA_YARDSTICK x SDPA's."""
+        sdpa = _within(torch, _sdpa(torch, *inputs, causal), want, atol=1e-5, ulps=2)
+        res = _within(torch, got, want, atol=1e-5, ulps=2)
+        return {"check": label, "max_abs_err": res["max_abs_err"],
+                "outside_2ulps": res["outside"], "sdpa_max_abs_err": sdpa["max_abs_err"],
+                "outside": int(res["max_abs_err"] > SDPA_YARDSTICK * sdpa["max_abs_err"])}
 
     checks = []
     for causal in (False, True):
         tag = "causal" if causal else "full"
         got = path[("fwd", causal)]
-        checks.append({"check": f"fwd {fwd_seq} {tag} vs einsum body",
-                       **_within(torch, got, ring("einsum")(*fwd, causal), atol=1e-5, ulps=2)})
-        checks.append({"check": f"fwd {fwd_seq} {tag} vs plain",
-                       **_within(torch, got, flash.attention_reference(*fwd, causal),
-                                 atol=1e-5, ulps=2)})
+        checks.append(yardstick(f"fwd {fwd_seq} {tag} vs einsum body", got,
+                                ring("einsum")(*fwd, causal), fwd, causal))
+        checks.append(yardstick(f"fwd {fwd_seq} {tag} vs plain", got,
+                                flash.attention_reference(*fwd, causal), fwd, causal))
+        same = bool(torch.equal(path[("k3", causal)], got))
         checks.append({"check": f"K3 {fwd_seq} {tag} vs ring (K2 + normalization)",
                        **_within(torch, path[("k3", causal)], got, atol=1e-5, ulps=2),
-                       "bit_equal": bool(torch.equal(path[("k3", causal)], got))})
+                       "bit_equal": same})
+        checks[-1]["outside"] += int(not same)
         out, grads = path[("bwd", causal)]
         e_out, e_grads = with_grads(ring("einsum"), causal)
-        checks.append({"check": f"fwd {bwd_seq} {tag} vs einsum body",
-                       **_within(torch, out, e_out, atol=1e-5, ulps=2)})
-        for name, g, w in zip("qkv", grads, e_grads):
+        checks.append(yardstick(f"fwd {bwd_seq} {tag} vs einsum body", out, e_out, bwd, causal))
+        # The stats op's backward recomputes through stats_reference, but its
+        # cotangents carry the forward's acc and l: D = rowsum(dO o) takes the
+        # forward's bf16-p rounding, as in SDPA's own backward. So the grads
+        # follow the SDPA yardstick too; the fixed-ulp rule is reported beside it.
+        _, s_grads = with_grads(lambda q, k, v, c: _sdpa(torch, q, k, v, c), causal)
+        for name, g, w, sg in zip("qkv", grads, e_grads, s_grads):
             scale = float(w.float().abs().max().item())
+            res = _within(torch, g, w, atol=1e-5 * scale, ulps=2)
+            sdpa_err = _within(torch, sg, w)["max_abs_err"]
             checks.append({"check": f"d{name} {bwd_seq} {tag} vs einsum body",
-                           **_within(torch, g, w, atol=1e-5 * scale, ulps=2)})
-        del e_out, e_grads
+                           "max_abs_err": res["max_abs_err"], "outside_2ulps": res["outside"],
+                           "sdpa_max_abs_err": sdpa_err,
+                           "outside": int(res["max_abs_err"] > SDPA_YARDSTICK * sdpa_err)})
+        del e_out, e_grads, s_grads
+        got = path[("fp32", causal)]
+        checks.append({"check": f"fp32 fwd {fp32_seq} {tag} vs einsum body",
+                       **_within(torch, got, ring("einsum")(*f32, causal))})
+        same = bool(torch.equal(path[("fp32_k3", causal)], got))
+        checks.append({"check": f"fp32 K3 {fp32_seq} {tag} vs ring (K2 + normalization)",
+                       **_within(torch, path[("fp32_k3", causal)], got), "bit_equal": same})
+        checks[-1]["outside"] += int(not same)
     on_card = dev.type == "cuda"
     ok = all(c["outside"] == 0 for c in checks)
     if on_card:
-        ok = ok and launches == {"flash_stats": ring_calls, "flash": k3_calls}
+        ok = ok and launches == expected and fp32_launches == fp32_expected
     return {
         "ok": ok,
         "launches": launches,
-        "launches_expected": {"flash_stats": ring_calls, "flash": k3_calls},
+        "launches_expected": expected,
         "path_seconds": path_s,
+        "steps_seconds": steps_s,
+        "fp32_launches": fp32_launches,
+        "fp32_launches_expected": fp32_expected,
+        "fp32_path_seconds": fp32_path_s,
         "checks": checks,
-        "tolerance": "outputs within 1e-5 + 2 bf16 ulps; grads within 2 bf16 ulps + 1e-5 max|want|",
-        "shapes": {"fwd": [1, fwd_seq, h, hk, d], "bwd": [1, bwd_seq, h, hk, d], "dtype": "bfloat16"},
+        "tolerance": (
+            "bf16 outputs and grads: worst error <= 2x SDPA's (is_causal, enable_gqa; its own "
+            "backward for the grads) worst error against the same comparator on the same "
+            "inputs (bf16 p before P.V; the backward's D = rowsum(dO o) takes the forward's "
+            "rounding); 'outside_2ulps' counts values outside the fixed 1e-5 + 2 bf16 ulps "
+            "(outputs) or 2 ulps + 1e-5 max|want| (grads); K3 bit-equal to the ring's K2 + "
+            "normalization; fp32 outputs within 1e-5 + 1e-4 |want|"),
+        "shapes": {"fwd": [1, fwd_seq, h, hk, d], "bwd": [1, bwd_seq, h, hk, d],
+                   "fp32": [1, fp32_seq, h, hk, d], "dtype": "bfloat16 (fp32 path: float32)"},
     }
 
 
@@ -941,11 +1144,12 @@ def phase_model(torch, staging) -> dict:
 
 
 def phase_kernels(results: dict) -> dict:
-    """One entry per ported kernel. The cast's times are for one publish of
-    the main phase's state dict: the per-shape times of the timing phase,
-    weighted by how many tensors of each shape the path casts. The flash
-    kernel's are one call at FLASH_TIMED (flash_timing), its launches those
-    of the ring phase's path."""
+    """One entry per ported kernel, and per (mode, variant) of the flash
+    kernels. The cast's times are for one publish of the main phase's state
+    dict: the per-shape times of the timing phase, weighted by how many
+    tensors of each shape the path casts. The flash kernels' are one call at
+    FLASH_TIMED (flash_timing), their launches those of the ring phase's
+    paths (bf16: sm90, fp32: simt)."""
     needed = ("parity", "timing", "main", "flash_parity", "flash_timing", "ring")
     missing = [p for p in needed if p not in results]
     if missing:
@@ -988,28 +1192,36 @@ def phase_kernels(results: dict) -> dict:
     within = "within tolerance" if fparity["ok"] else "differs"
     b, s, h, hk, d = FLASH_TIMED
     per = f"one call, b={b} sq=sk={s} h={h} hk={hk} d={d} bf16"
-    for name, row_key, launches, err in (
-        ("flash_stats", "flash_stats", ring["launches"]["flash_stats"], fparity["worst"]["stats"]),
-        ("flash", "flash_causal", ring["launches"]["flash"], fparity["worst"]["o"]),
-    ):
-        row = ftiming[row_key]
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": "torchstore_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "torchstore_tpu/ops/flash_attention.py:205",
-            "launches": launches,
-            "max_abs_err": err,
-            "parity": within,
-            "ms": row["ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-            "per": per + (", causal" if row["causal"] else ", not causal"),
-        })
+    sources = {"sm90": "torchstore_tpu_torch/csrc/flash_attention_sm90.cu",
+               "simt": "torchstore_tpu_torch/csrc/flash_attention.cu"}
+    # launches: the sm90 kernel's on the ring phase's bf16 path, the simt
+    # kernel's on its fp32 path.
+    path_launches = {"sm90": ring["launches"], "simt": ring["fp32_launches"]}
+    for variant in ("sm90", "simt"):
+        suffix = "" if variant == "sm90" else "_simt"
+        for name, row_key, err in (("flash_stats", "flash_stats", "stats"),
+                                   ("flash", "flash_causal", "o")):
+            row = ftiming[row_key + suffix]
+            entries.append({
+                "name": f"{name}_{variant}",
+                "route": "cuda",
+                "source": sources[variant],
+                "replaces": "torchstore_tpu/ops/flash_attention.py:205",
+                "launches": path_launches[variant][name][variant],
+                "max_abs_err": fparity["worst"][f"{err}_{variant}"],
+                "parity": within,
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "library": row["library"],
+                "per": per + (", causal" if row["causal"] else ", not causal")
+                + ("; launches from the fp32 ring path" if variant == "simt" else ""),
+            })
     print(json.dumps({"kernels": entries}), flush=True)
-    ok = parity["ok"] and main["launches"] is not None and fparity["ok"] and ring["ok"]
+    ok = (parity["ok"] and main["launches"] is not None and fparity["ok"] and ring["ok"]
+          and all(e["launches"] for e in entries))
     return {"phase": "kernels", "ok": ok}
 
 

@@ -9,6 +9,11 @@ Without a card every test skips. Tolerances as chip_smoke.py's
 flash_parity phase: m, l and o within 1e-5 + 1e-4 |want| (o in bf16 within
 1e-5 + 2**-7 |want|, about two bf16 ulps), acc the same after dividing by
 the plain version's l (acc sums sk terms whose magnitudes add up to ~l).
+Calls that ``sm90_eligible`` sends to the sm90 kernel are held against its
+arithmetic twin ``stats_blockwise_reference`` with the same bounds plus
+``flip_allowance``: both round an fp32 p to bf16, and where the two p differ
+in their last bits they can round to adjacent values (one bf16 ulp, at most
+2**-7 p_j |v_j| / l in o); the allowance covers two such terms at p <= 1.
 """
 
 import importlib
@@ -34,6 +39,48 @@ def qkv(seed, b, sq, sk, h, hk, d, dtype, device):
             for s in shapes]
 
 
+def flip_allowance(v, l, h):
+    """2**-6 max_k |v_kd| / l per (b, h, sq, d) (see the module docstring)."""
+    vmax = v.float().abs().amax(dim=1).repeat_interleave(h // v.shape[2], dim=1)
+    return 2.0**-6 * vmax[:, :, None, :] / l[..., None]
+
+
+def counts():
+    return (dict(fa.stats_kernel.launches_by_variant),
+            dict(fa.attention_kernel.launches_by_variant))
+
+
+def run_and_check(q, k, v, causal, dtype):
+    """Both modes against the plain version of the variant that ran; returns
+    the variant."""
+    variant = "sm90" if fa.sm90_eligible(q, k, v) else "simt"
+    before = counts()
+    acc, m, l = fa.flash_attention_stats(q, k, v, causal_diag=causal)
+    o = fa.flash_attention(q, k, v, causal=causal)
+    after = counts()
+    for b_, a_ in zip(before, after):
+        assert a_ == {**b_, variant: b_[variant] + 1}
+    if variant == "sm90":
+        want_acc, want_m, want_l = fa.stats_blockwise_reference(q, k, v, causal, 128)
+        flip = flip_allowance(v, want_l, q.shape[2])
+        want_o = fa.attention_blockwise_reference(q, k, v, causal, 128)
+    else:
+        want_acc, want_m, want_l = fa.stats_reference(q, k, v, causal)
+        flip = torch.zeros((), device=q.device)
+        want_o = fa.attention_reference(q, k, v, causal)
+    norm = want_l[..., None]
+    err = (acc / norm - want_acc / norm).abs()
+    assert bool((err <= 1e-5 + 1e-4 * (want_acc / norm).abs() + flip).all()), float(err.max())
+    torch.testing.assert_close(m, want_m, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(l, want_l, rtol=1e-4, atol=1e-5)
+    assert o.dtype == dtype and o.shape == q.shape
+    rtol = 1e-4 if dtype == torch.float32 else 2.0**-7
+    o_err = (o.float() - want_o.float()).abs()
+    allowed = 1e-5 + rtol * want_o.float().abs() + (flip.transpose(1, 2) if flip.dim() else flip)
+    assert bool((o_err <= allowed).all()), float(o_err.max())
+    return variant
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -42,20 +89,44 @@ def qkv(seed, b, sq, sk, h, hk, d, dtype, device):
 def test_kernel_matches_plain_version_on_cuda(cuda, shape, causal, dtype):
     b, sq, sk, h, hk, d = shape
     q, k, v = qkv(9, b, sq, sk, h, hk, d, dtype, cuda)
-    before = (fa.stats_kernel.launches, fa.attention_kernel.launches)
-    acc, m, l = fa.flash_attention_stats(q, k, v, causal_diag=causal)
-    want_acc, want_m, want_l = fa.stats_reference(q, k, v, causal)
-    o = fa.flash_attention(q, k, v, causal=causal)
-    want_o = fa.attention_reference(q, k, v, causal)
-    assert (fa.stats_kernel.launches, fa.attention_kernel.launches) == (before[0] + 1,
-                                                                          before[1] + 1)
-    norm = want_l[..., None]
-    torch.testing.assert_close(acc / norm, want_acc / norm, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(m, want_m, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(l, want_l, rtol=1e-4, atol=1e-5)
-    assert o.dtype == dtype and o.shape == q.shape
-    rtol = 1e-4 if dtype == torch.float32 else 2.0**-7
-    torch.testing.assert_close(o.float(), want_o.float(), rtol=rtol, atol=1e-5)
+    variant = run_and_check(q, k, v, causal, dtype)
+    assert variant == ("sm90" if dtype == torch.bfloat16 and d == 64 else "simt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", [(1, 200, 333, 8, 2, 128), (2, 130, 130, 4, 4, 64)])
+def test_sm90_matches_blockwise_reference_on_cuda(cuda, shape, causal):
+    b, sq, sk, h, hk, d = shape
+    q, k, v = qkv(10, b, sq, sk, h, hk, d, torch.bfloat16, cuda)
+    assert run_and_check(q, k, v, causal, torch.bfloat16) == "sm90"
+
+
+@pytest.mark.cuda
+def test_ineligible_bf16_head_dim_launches_simt(cuda):
+    q, k, v = qkv(11, 1, 77, 40, 6, 3, 72, torch.bfloat16, cuda)
+    assert not fa.sm90_eligible(q, k, v)
+    assert run_and_check(q, k, v, True, torch.bfloat16) == "simt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_sm90_reads_packed_projection_views(cuda, causal):
+    """q, k, v sliced from one (b, s, h + 2 hk, d) tensor run on sm90 through
+    their strides and give what contiguous copies give, bit for bit."""
+    b, s, h, hk, d = 2, 300, 8, 2, 128
+    rng = np.random.default_rng(12)
+    qkv_ = torch.from_numpy(rng.standard_normal((b, s, h + 2 * hk, d)).astype(np.float32))
+    qkv_ = qkv_.to(cuda, torch.bfloat16)
+    views = (qkv_[:, :, :h], qkv_[:, :, h:h + hk], qkv_[:, :, h + hk:])
+    assert not views[0].is_contiguous() and fa.sm90_eligible(*views)
+    copies = tuple(x.contiguous() for x in views)
+    got = fa.flash_attention_stats(*views, causal_diag=causal)
+    want = fa.flash_attention_stats(*copies, causal_diag=causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(fa.flash_attention(*views, causal=causal),
+                       fa.flash_attention(*copies, causal=causal))
 
 
 @pytest.mark.cuda

@@ -6,8 +6,11 @@ run it), on the same numpy inputs. Tolerances: rtol/atol 2e-5 on the fp32
 stats and fp32 outputs, as tests/test_ring_attention.py uses (two fp32
 implementations summing in other orders); one bf16 ulp (rtol 2**-7) on the
 bf16 output, since both round an fp32 value that may differ in its last
-bits; 3e-5 on gradients, as the reference's ring gradient test. The CUDA
-kernel's own tests are in tests/test_torch_cuda.py (they need the card).
+bits; 3e-5 on gradients, as the reference's ring gradient test. The sm90
+kernel's plain twin, ``stats_blockwise_reference``, rounds p to bf16 before
+P.V; its tolerance is derived in ``test_blockwise_reference_matches_reference``.
+The CUDA kernels' own tests are in tests/test_torch_cuda.py (they need the
+card).
 """
 
 import importlib
@@ -154,3 +157,112 @@ def test_kernel_refuses_unsupported_dtype():
     q, k, v = (t.half() for t in to_torch(inputs(0, 1, 8, 2, 2, 8), "float32"))
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         fa.attention_kernel(q, k, v, False)
+
+
+def p_abs_v_over_l(arrays, causal):
+    """(P.|V|) / l per element of o, (b, h, sq, d), from fp32 numpy: the
+    scale of the error that rounding each p to bf16 can make in o."""
+    q, k, v = (a.astype(np.float64) for a in arrays)
+    g = q.shape[2] // k.shape[2]
+    k, v = np.repeat(k, g, axis=2), np.repeat(v, g, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[3])
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[-2:], bool)), s, ref.NEG_INF)
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    return np.einsum("bhqk,bkhd->bhqd", p, np.abs(v)) / p.sum(axis=-1)[..., None]
+
+
+# "tiled": lengths the Pallas kernel tiles (interpret mode); "ragged": lengths
+# it refuses, held against its dense twin ``_stats_ref``.
+BLOCKWISE_LENGTHS = {"tiled": (128, 256), "ragged": (100, 200)}
+
+
+@pytest.mark.parametrize("lengths", BLOCKWISE_LENGTHS)
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_blockwise_reference_matches_reference(causal, heads, block_k, lengths):
+    """The sm90 kernel's plain twin against the JAX package on bf16 inputs.
+    m and l are sums of fp32 p, so they agree to 2e-5. o = acc / l differs by
+    the bf16 rounding of each p before P.V: round-to-nearest moves p_j by at
+    most 2**-8 p_j, so o moves by at most 2**-8 (P.|V|)_d / l, computed from
+    the fp32 reference, plus 1e-5 for the fp32 summation order."""
+    h, hk = HEADS[heads]
+    sq, sk = BLOCKWISE_LENGTHS[lengths]
+    arrays = inputs(7, 2, sq, h, hk, 16, "bfloat16", sk=sk)
+    if lengths == "tiled":
+        want = ref.flash_attention_stats(*to_jax(arrays, "float32"), causal_diag=causal,
+                                         interpret=True)
+    else:
+        want = ref._stats_ref(*to_jax(arrays, "float32"), causal)
+    want_acc, want_m, want_l = (np.asarray(w) for w in want)
+    acc, m, l = fa.stats_blockwise_reference(*to_torch(arrays, "bfloat16"), causal, block_k)
+    np.testing.assert_allclose(m.numpy(), want_m, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l.numpy(), want_l, rtol=2e-5, atol=2e-5)
+    o, want_o = acc.numpy() / l.numpy()[..., None], want_acc / want_l[..., None]
+    bound = 1e-5 + 2.0**-8 * p_abs_v_over_l(arrays, causal)
+    assert np.all(np.abs(o - want_o) <= bound), float(np.max(np.abs(o - want_o) - bound))
+    assert np.any(np.abs(o - want_o) > 2e-5)  # the rounding is there
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_blockwise_reference_unrounded_matches_stats_reference(causal, heads, block_k):
+    """Without the bf16 rounding of p the blockwise structure alone remains:
+    the same function as the dense plain version, summed in another order."""
+    h, hk = HEADS[heads]
+    q, k, v = to_torch(inputs(8, 1, 100, h, hk, 32, "bfloat16", sk=300), "bfloat16")
+    got = fa.stats_blockwise_reference(q, k, v, causal, block_k, _round_p=False)
+    want = fa.stats_reference(q, k, v, causal)
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5, msg=name)
+
+
+def _packed(b, s, h, hk, d):
+    qkv = torch.zeros((b, s, h + 2 * hk, d), dtype=torch.bfloat16)
+    return qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]
+
+
+def _contiguous(b, s, h, hk, d, dtype=torch.bfloat16):
+    return (torch.zeros((b, s, h, d), dtype=dtype), torch.zeros((b, s, hk, d), dtype=dtype),
+            torch.zeros((b, s, hk, d), dtype=dtype))
+
+
+def _strided_d(b, s, h, hk, d):
+    return tuple(x[..., ::2] for x in _contiguous(b, s, h, hk, 2 * d))
+
+
+def _seq_stride_4(b, s, h, hk, d):
+    """Head dim 128 cut from rows of 132: the sequence stride is 132
+    elements, not a multiple of 8."""
+    return tuple(x[..., :d] for x in _contiguous(b, s, h, hk, d + 4))
+
+
+ELIGIBILITY = {
+    "bf16-d128-contiguous": (lambda: _contiguous(2, 64, 8, 2, 128), True),
+    "bf16-d64-contiguous": (lambda: _contiguous(1, 64, 4, 4, 64), True),
+    "packed-projection-view": (lambda: _packed(2, 64, 8, 2, 128), True),
+    "fp32": (lambda: _contiguous(2, 64, 8, 2, 128, torch.float32), False),
+    "d72": (lambda: _contiguous(2, 64, 8, 2, 72), False),
+    "d256": (lambda: _contiguous(2, 64, 8, 2, 256), False),
+    "d-stride-2": (lambda: _strided_d(2, 64, 8, 2, 128), False),
+    "seq-stride-not-8": (lambda: _seq_stride_4(2, 64, 1, 1, 128), False),
+}
+
+
+@pytest.mark.parametrize("case", ELIGIBILITY)
+def test_sm90_eligible(case):
+    make, want = ELIGIBILITY[case]
+    q, k, v = make()
+    assert fa.sm90_eligible(q, k, v) is want
+
+
+def test_cpu_path_counts_no_launches_by_variant():
+    q, k, v = to_torch(inputs(0, 1, 128, 8, 2, 128, "bfloat16"), "bfloat16")
+    assert fa.sm90_eligible(q, k, v)
+    before = (dict(fa.stats_kernel.launches_by_variant), dict(fa.attention_kernel.launches_by_variant))
+    fa.flash_attention_stats(q, k, v, causal_diag=True)
+    fa.flash_attention(q, k, v, causal=True)
+    assert (fa.stats_kernel.launches_by_variant, fa.attention_kernel.launches_by_variant) == before
+    assert set(before[0]) == {"sm90", "simt"}
