@@ -11,16 +11,23 @@ Phases, each printing one JSON line:
                   Hopper flash kernel) from the checkout, all at once, and
                   prints each library's ptxas registers and spills; fails if
                   the sm90 kernel spills or ptxas ignored its setmaxnreg;
-3. parity       - the cast kernel against its plain version on the card, bit
-                  for bit outside NaN (NaN positions equal), for every
-                  covered dtype pair at ragged sizes, Llama-3-8B shapes and
-                  misaligned views;
-4. timing       - the cast kernel at the shapes the main path casts, beside
-                  its memory bound, the plain version and one library call;
+3. parity       - the grouped cast kernel against its plain version on the
+                  card, bit for bit outside NaN (NaN positions equal), for
+                  every covered dtype pair: single tensors (groups of one) at
+                  ragged sizes, Llama-3-8B shapes and misaligned views, and
+                  groups that mix sizes 0 to 2**20 + 3, the Llama-3-8B shapes
+                  and views at every storage offset, over one chunk, many
+                  chunks and more tensors than one table holds; each group's
+                  launches equal to the planner's chunks;
+4. timing       - the cast kernel at the shapes the main path casts (groups
+                  of one), and one publish: cast_group over the 291 fp32
+                  tensors of the Llama-3-8B state dict, beside its memory
+                  bound, the plain version and a loop of x.to();
 5. main         - the weight-sync round trip at Llama-3-8B width through the
                   port's entry points: initialize, a buffered put/get, a
                   direct publish/pull, a refresh after an in-place update,
-                  shutdown; the cast kernel's launch count on that path;
+                  shutdown; the cast kernel's launches on each step, equal to
+                  the planner's chunk count;
 6. flash_parity - the flash kernels, stats mode (K2) and normalized mode
                   (K3), against their plain versions on the card: Llama-3-8B
                   attention width, MHA, d = 64, 72 and 256, lengths 1 to 8192
@@ -39,7 +46,8 @@ Phases, each printing one JSON line:
                   2048, held against the einsum body and the plain version;
                   K2's and K3's launches per variant on each path;
 9. model        - the RL loop at Llama-3-8B width (depth cut): a learner
-                  trains two steps and publishes with direct=True, a bf16
+                  trains two steps and publishes with direct=True (cast
+                  launches equal to the planner's chunk count), a bf16
                   generator pulls and decodes greedily;
 10. kernels     - one line listing every ported kernel.
 
@@ -231,6 +239,26 @@ def phase_parity(torch, staging) -> dict:
         worst = max(worst, res["max_abs_err"])
         cases.append({"case": label, "ok": good, **res})
 
+    def check_group(xs, dst, label, max_chunk_bytes=staging.DEFAULT_CHUNK_BYTES):
+        """One cast_group call: every output against x.to(), and its launches
+        against the planner's chunks."""
+        nonlocal worst, ok
+        chunks = len(staging.plan_chunks(xs, dst, max_chunk_bytes))
+        before = staging.cast_kernel.launches
+        got = staging.cast_group(xs, dst, max_chunk_bytes=max_chunk_bytes)
+        launches = staging.cast_kernel.launches - before
+        torch.cuda.synchronize()
+        res = [compare_cast(torch, y, staging.cast_reference(x, dst)) for x, y in zip(xs, got)]
+        mism = sum(r["bit_mismatches"] for r in res)
+        nan_ok = all(r["nan_positions_equal"] for r in res)
+        err = max(r["max_abs_err"] for r in res)
+        good = mism == 0 and nan_ok and launches == chunks
+        ok &= good
+        worst = max(worst, err)
+        cases.append({"case": label, "ok": good, "tensors": len(xs), "launches": launches,
+                      "chunks": chunks, "bit_mismatches": mism, "nan_positions_equal": nan_ok,
+                      "max_abs_err": err})
+
     sizes = (1, 7, 1023, 1025, 4096 * 1024 + 3)
     for src, dst in staging.PAIRS:
         name = f"{str(src)[6:]}->{str(dst)[6:]}"
@@ -250,6 +278,20 @@ def phase_parity(torch, staging) -> dict:
             check(flat[:n].view(shape), dst, f"{name} {label} {shape}")
             check(flat[1:].view(shape), dst, f"{name} {label} {shape} misaligned")
             del flat
+        group = []
+        for n in (0, 1, 7, 8, 9, 1023, (1 << 20) + 3):
+            x = _random_bits(torch, src, n, gen, dev)
+            k = min(n, special.numel())
+            x[:k] = special[:k]
+            group.append(x)
+        views = _random_bits(torch, src, 100_000, gen, dev)
+        views[: special.numel()] = special
+        group += [views[k:] for k in range(9)]  # every storage offset
+        group += [_random_values(torch, src, shape, gen, dev) for shape in CAST_SHAPES.values()]
+        check_group(group, dst, f"{name} group mixed")
+        check_group(group[:16], dst, f"{name} group in 256 KiB chunks", 1 << 18)
+        check_group([views[k : k + 3] for k in range(1200)], dst, f"{name} group 1200 tensors")
+        del group, views
     failed = [c for c in cases if not c["ok"]]
     return {
         "phase": "parity",
@@ -329,7 +371,77 @@ def phase_timing(torch, staging) -> dict:
         )
         del inputs
         torch.cuda.empty_cache()
+    rows.append(_publish_row(torch, staging, gen, dev))
+    torch.cuda.empty_cache()
     return {"phase": "timing", "rows": rows, "hbm_bytes_per_s": HBM_BYTES_PER_S}
+
+
+def _publish_row(torch, staging, gen, dev) -> dict:
+    """One publish's cast: cast_group over the 291 fp32 tensors of the
+    Llama-3-8B state dict at full width (32.1 GB in, 16.06 GB out), CUDA
+    events around the whole call (planning, allocation and launches
+    included), three calls after one warm-up, in turns with the plain
+    version and a Python loop of x.to() (the library yardstick). host_ms is
+    each call's host time until it returns, without a sync."""
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    leaves = list(_leaves(llama_state_dict(gen, device=dev, dtype=torch.float32)))
+    n = sum(t.numel() for t in leaves)
+    chunks = len(staging.plan_chunks(leaves, bf16))
+    fns = {
+        "kernel": lambda: staging.cast_group(leaves, bf16),
+        "plain": lambda: staging.cast_group_reference(leaves, bf16),
+        "library": lambda: [x.to(bf16) for x in leaves],
+    }
+    before = staging.cast_kernel.launches
+
+    def timed(fn) -> tuple[list[float], list[float]]:
+        """Device ms (events) and host ms (until the call returns, no sync)
+        of three calls."""
+        fn()  # warm-up; its outputs are dropped at once
+        torch.cuda.synchronize()
+        dev_ms, host_ms = [], []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            res = fn()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            del res
+            torch.cuda.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+        return dev_ms, host_ms
+
+    runs = {name: [] for name in fns}
+    host = {name: [] for name in fns}
+    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
+        dev_ms, host_ms = timed(fns[name])
+        runs[name] += dev_ms
+        host[name] += host_ms
+    launches_per_call = (staging.cast_kernel.launches - before) / 8
+    staging.cast_kernel.launches = before  # timing launches are not path launches
+    del leaves, fns
+    b = bound_ms(n, 4, 2)
+    k = min(runs["kernel"])
+    return {
+        "pair": "float32->bfloat16",
+        "shape": "publish",
+        "tensors": 291,
+        "n": n,
+        "chunks": chunks,
+        "launches_per_call": launches_per_call,
+        "ms": k,
+        "runs_ms": runs,
+        "host_ms": host,
+        "bound_ms": b,
+        "share_of_bound": b / k if k > 0 else None,
+        "plain_ms": min(runs["plain"]),
+        "library_ms": min(runs["library"]),
+        "bytes_per_elem": 6,
+    }
 
 
 def main() -> int:
@@ -458,6 +570,8 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
             t.zero_()
         torch.cuda.synchronize()
 
+    # The cast launches each step needs: one per chunk of the fp32 leaves.
+    chunks = len(staging.plan_chunks(list(_leaves(src)), bf16))
     out: dict = {"layers": layers, "tensors": n_tensors, "params": n_params,
                  "wire_bytes": wire_bytes, "source_bytes": 4 * n_params}
     checks = []
@@ -523,7 +637,7 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
                 "register": launches_register,
                 "refresh": launches_refresh,
             },
-            "launches_needed": 2 * n_tensors,
+            "launches_needed": {"buffered": chunks, "register": chunks, "refresh": chunks},
             "timings": timings,
             "gb_per_s": {
                 step: wire_bytes / timings[f"{step}_s"] / 1e9
@@ -536,9 +650,8 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
     )
     out["ok"] = (
         all(c["bit_equal"] for c in checks)
-        and launches_register >= n_tensors
-        and launches_refresh >= n_tensors
-        and launches >= 2 * n_tensors
+        and (dev.type != "cuda"
+             or launches_buffered == launches_register == launches_refresh == chunks)
         and not alive
         and not leaked
     )
@@ -1064,6 +1177,7 @@ async def _model_path(torch, staging, cfg, dev, seq: int = 2049, prompt_len: int
     gen_cfg = dataclasses.replace(cfg, param_dtype=bf16)
     generator = Llama(gen_cfg, dev)
     targets = generator.state_dict()
+    chunks = len(staging.plan_chunks(list(state.values()), bf16))
     staging.cast_kernel.launches = 0
     await tst.initialize(store_name="rl")
     pids = [p.pid for p in multiprocessing.active_children()]
@@ -1111,6 +1225,7 @@ async def _model_path(torch, staging, cfg, dev, seq: int = 2049, prompt_len: int
         "publish_s": publish_s,
         "pull_s": pull_s,
         "cast_launches": cast_launches,
+        "cast_chunks": chunks,
         "pulled_mismatched": mismatched[:5],
         "tokens_equal": bool(torch.equal(pulled_tokens, local_tokens)),
         "tokens_shape": list(pulled_tokens.shape),
@@ -1126,7 +1241,7 @@ async def _model_path(torch, staging, cfg, dev, seq: int = 2049, prompt_len: int
         and not mismatched
         and out["tokens_equal"]
         and not alive
-        and (dev.type != "cuda" or cast_launches == len(state))
+        and (dev.type != "cuda" or cast_launches == chunks)
     )
     return out
 
@@ -1145,48 +1260,37 @@ def phase_model(torch, staging) -> dict:
 
 def phase_kernels(results: dict) -> dict:
     """One entry per ported kernel, and per (mode, variant) of the flash
-    kernels. The cast's times are for one publish of the main phase's state
-    dict: the per-shape times of the timing phase, weighted by how many
-    tensors of each shape the path casts. The flash kernels' are one call at
-    FLASH_TIMED (flash_timing), their launches those of the ring phase's
-    paths (bf16: sm90, fp32: simt)."""
+    kernels. The cast's times are the timing phase's measured publish row
+    (cast_group over the 291 tensors of the Llama-3-8B state dict), its
+    launches those of one publish (register) on the main phase. The flash
+    kernels' are one call at FLASH_TIMED (flash_timing), their launches
+    those of the ring phase's paths (bf16: sm90, fp32: simt)."""
     needed = ("parity", "timing", "main", "flash_parity", "flash_timing", "ring")
     missing = [p for p in needed if p not in results]
     if missing:
         print(f"chip_smoke: the kernels line needs the phases {missing}", file=sys.stderr)
         return {"phase": "kernels", "ok": False, "missing": missing}
-    timing = results["timing"]["rows"]
     main = results["main"]
     parity = results["parity"]
-    layers = main.get("layers", LAYERS)
-    counts = {
-        "embed/lm_head": 2,
-        "gate/up": 2 * layers,
-        "down": layers,
-        "q/o": 2 * layers,
-        "k/v": 2 * layers,
-        "norm": 2 * layers + 1,
-    }
-    rows = {r["shape"]: r for r in timing if r["pair"] == "float32->bfloat16"}
-    total = {}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        total[key] = (
-            sum(rows[s][key] * c for s, c in counts.items()) if set(counts) <= set(rows) else None
-        )
+    (publish,) = [r for r in results["timing"]["rows"] if r["shape"] == "publish"]
+    steps = main["launches_by_step"]
     entries = [{
         "name": "cast",
         "route": "cuda",
         "source": "torchstore_tpu_torch/csrc/cast.cu",
         "replaces": "torchstore_tpu/ops/staging.py:78",
-        "launches": main.get("launches"),
+        "launches": steps["register"],
         "max_abs_err": parity["max_abs_err"],
         "parity": "bit-equal" if parity["ok"] else "differs",
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
+        "ms": publish["ms"],
+        "plain_ms": publish["plain_ms"],
+        "bound_ms": publish["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": total["library_ms"],
-        "per": f"one publish: fp32->bf16 of all {sum(counts.values())} tensors",
+        "library_ms": publish["library_ms"],
+        "library": "a Python loop of x.to(torch.bfloat16)",
+        "per": f"one publish: cast_group over the {publish['tensors']} fp32 tensors of the "
+               f"Llama-3-8B state dict; launches of one publish on main (buffered "
+               f"{steps['buffered']}, register {steps['register']}, refresh {steps['refresh']})",
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"
@@ -1220,8 +1324,7 @@ def phase_kernels(results: dict) -> dict:
                 + ("; launches from the fp32 ring path" if variant == "simt" else ""),
             })
     print(json.dumps({"kernels": entries}), flush=True)
-    ok = (parity["ok"] and main["launches"] is not None and fparity["ok"] and ring["ok"]
-          and all(e["launches"] for e in entries))
+    ok = parity["ok"] and fparity["ok"] and ring["ok"] and all(e["launches"] for e in entries)
     return {"phase": "kernels", "ok": ok}
 
 

@@ -1,4 +1,5 @@
-"""The port's flash kernel against its plain versions on an NVIDIA GPU.
+"""The port's flash kernel and grouped cast kernel against their plain
+versions on an NVIDIA GPU.
 
 This file imports torch, numpy and the port only (no JAX), so it runs on a
 machine with the card:
@@ -9,6 +10,7 @@ Without a card every test skips. Tolerances as chip_smoke.py's
 flash_parity phase: m, l and o within 1e-5 + 1e-4 |want| (o in bf16 within
 1e-5 + 2**-7 |want|, about two bf16 ulps), acc the same after dividing by
 the plain version's l (acc sums sk terms whose magnitudes add up to ~l).
+The grouped cast is bit-equal to ``x.to()`` outside NaN, NaN positions equal.
 Calls that ``sm90_eligible`` sends to the sm90 kernel are held against its
 arithmetic twin ``stats_blockwise_reference`` with the same bounds plus
 ``flip_allowance``: both round an fp32 p to bf16, and where the two p differ
@@ -21,6 +23,8 @@ import importlib
 import numpy as np
 import pytest
 import torch
+
+from torchstore_tpu_torch.ops import staging
 
 fa = importlib.import_module("torchstore_tpu_torch.ops.flash_attention")
 
@@ -145,3 +149,74 @@ def test_kernel_refuses_strided_head_dim(cuda):
     q, k, v = qkv(0, 1, 16, 16, 2, 2, 16, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fa.stats_kernel(q[..., ::2], k[..., ::2], v[..., ::2], False)
+
+
+# --------------------------------------------------------------------------
+# the grouped cast kernel
+# --------------------------------------------------------------------------
+
+_INT = {4: (torch.int32, np.uint32), 2: (torch.int16, np.uint16)}
+
+
+def random_bits(dtype, n, seed, device):
+    """``n`` random bit patterns of ``dtype`` (every class of value)."""
+    int_t, np_t = _INT[torch.empty((), dtype=dtype).element_size()]
+    raw = np.random.default_rng(seed).integers(0, np.iinfo(np_t).max + 1, n, dtype=np.uint64)
+    return torch.from_numpy(raw.astype(np_t).view(np_t)).view(int_t).view(dtype).to(device)
+
+
+def assert_bits_equal(got, want):
+    """Bit-equal outside NaN, NaN positions equal."""
+    int_t = _INT[got.element_size()][0]
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(int_t)[~nan], want.view(int_t)[~nan])
+
+
+def mixed_group(src, device, seed):
+    """Sizes 0 to 2**20 + 3 and views at every storage offset in one group."""
+    ts = [random_bits(src, n, seed + n, device)
+          for n in (0, 1, 7, 8, 9, 1023, 4096, 4097, (1 << 20) + 3)]
+    base = random_bits(src, 10_000, seed, device)
+    return ts + [base[k:] for k in range(1, 9)] + [base[3:9000].view(-1, 8997)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", staging.PAIRS, ids=str)
+def test_cast_group_matches_plain_version_on_cuda(cuda, src, dst):
+    ts = mixed_group(src, cuda, seed=3)
+    before = staging.cast_kernel.launches
+    got = staging.cast_group(ts, dst)
+    assert staging.cast_kernel.launches - before == len(staging.plan_chunks(ts, dst)) == 1
+    for x, y in zip(ts, got):
+        assert y.dtype == dst and y.shape == x.shape and y.is_contiguous()
+        assert_bits_equal(y, staging.cast_reference(x, dst))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_chunk_bytes", [1 << 16, 1 << 30])
+def test_cast_group_launches_once_per_chunk(cuda, max_chunk_bytes):
+    rng = np.random.default_rng(5)
+    ts = [random_bits(torch.float32, int(n), i, cuda)
+          for i, n in enumerate(rng.integers(1, 40_000, 60))]
+    ts += [random_bits(torch.float16, 3, i, cuda) for i in range(1200)]  # > one table
+    plan = staging.plan_chunks(ts, torch.bfloat16, max_chunk_bytes)
+    assert len(plan) >= 2
+    before = staging.cast_kernel.launches
+    got = staging.cast_group(ts, torch.bfloat16, max_chunk_bytes=max_chunk_bytes)
+    assert staging.cast_kernel.launches - before == len(plan)
+    for x, y in zip(ts, got):
+        assert_bits_equal(y, x.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cast_group_refuses_what_it_does_not_take(cuda):
+    ok = torch.zeros(8, device=cuda)
+    before = staging.cast_kernel.launches
+    with pytest.raises(TypeError, match="does not cover"):
+        staging.cast_group([ok, torch.zeros(8, dtype=torch.float64, device=cuda)], torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        staging.cast_group([ok, torch.zeros(8)], torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        staging.cast_group([ok, torch.zeros(8, 8, device=cuda).t()], torch.bfloat16)
+    assert staging.cast_kernel.launches == before

@@ -5,12 +5,14 @@ Port of the host path of ``torchstore_tpu/direct_weight_sync.py``:
 
 - ``DirectWeightSyncSource.register`` stages every tensor leaf once into a
   buffer of its own (a ``/dev/shm`` segment, or process memory without
-  shared memory). A CUDA floating leaf is first cast to the transfer dtype
-  on the card by ``ops.device_cast`` (the hand-written cast kernel), so the
-  device-to-host copy moves the transfer dtype's bytes. ``refresh``
-  re-stages current values into the same buffers, so published handles stay
-  valid across training steps, under a generation seqlock (odd while the
-  buffers are being overwritten, +2 per publish).
+  shared memory). The CUDA floating leaves are first cast to the transfer
+  dtype on the card by the hand-written grouped cast kernel, one launch per
+  chunk of ``ops.plan_chunks``, so the device-to-host copies move the
+  transfer dtype's bytes; each chunk's outputs are copied out and dropped
+  before the next chunk launches. ``refresh`` re-stages current values into
+  the same buffers, so published handles stay valid across training steps,
+  under a generation seqlock (odd while the buffers are being overwritten,
+  +2 per publish).
 - ``_PeerReadServer`` serves ranged reads of the buffers over TCP and the
   generation (``_GET_GEN``).
 - ``DirectWeightSyncDest.pull`` builds a transfer plan once, reads each
@@ -35,12 +37,12 @@ from typing import Any, Optional
 import torch
 
 from torchstore_tpu_torch.logging import LatencyTracker, get_logger
-from torchstore_tpu_torch.ops import device_cast
+from torchstore_tpu_torch.ops.staging import cast_kernel, cast_reference
 from torchstore_tpu_torch.runtime.actors import BIND_HOST
 from torchstore_tpu_torch.runtime.serialization import tensor_bytes
 from torchstore_tpu_torch.state_dict_utils import flatten_state_dict, unflatten_state_dict
 from torchstore_tpu_torch.transport import shared_memory as shm
-from torchstore_tpu_torch.transport.types import TensorMeta, TensorSlice, full_slice
+from torchstore_tpu_torch.transport.types import TensorMeta, TensorSlice, dtype_name, full_slice
 from torchstore_tpu_torch.utils import Box, get_destination_view, get_hostname, intersect_boxes
 
 logger = get_logger("torchstore_tpu_torch.direct")
@@ -169,14 +171,46 @@ class DirectWeightSyncSource:
         with self._gen_lock:
             self._busy += 1 if on else -1
 
-    def _staged_value(self, value: torch.Tensor) -> torch.Tensor:
-        """``value`` in the transfer dtype, cast where it lives: a CUDA leaf
-        on the card through the cast kernel, a CPU leaf by the plain cast."""
-        value = value.detach()
+    def _staged_dtype(self, value: torch.Tensor) -> torch.dtype:
+        """The dtype ``value`` is staged in: the transfer dtype for a
+        floating leaf, its own otherwise."""
         dtype = self._transfer_dtype
-        if dtype is not None and value.is_floating_point() and value.dtype != dtype:
-            value = device_cast(value.contiguous(), dtype)
-        return value
+        if dtype is not None and value.is_floating_point():
+            return dtype
+        return value.dtype
+
+    def _stage(self, keys: list[str]) -> None:
+        """Write the current values of ``keys`` into their staging buffers,
+        cast where they live: the CUDA leaves that need the transfer dtype on
+        the card through the grouped cast kernel, chunk by chunk (each
+        chunk's outputs copied out and dropped before the next launch), a
+        CPU leaf by the plain cast. Leaves that alias their buffer are
+        skipped; every leaf is checked against its buffer before any copy."""
+        on_card: list[tuple[torch.Tensor, torch.Tensor]] = []
+        for flat_key in keys:
+            value = self._sources[flat_key].detach()
+            (handle,) = self.handles[flat_key]
+            staged = self.server.buffers[handle.buffer_id]
+            if _aliases(staged, value):
+                # The trainer writes straight into the published buffer
+                # (staging_state_dict): nothing to copy.
+                continue
+            dtype = self._staged_dtype(value)
+            if tuple(value.shape) != tuple(staged.shape) or dtype != staged.dtype:
+                raise ValueError(
+                    f"refresh of {flat_key!r}: value is now {tuple(value.shape)} "
+                    f"{dtype} but {tuple(staged.shape)} {staged.dtype} was "
+                    "registered; re-register after changing a param's shape or dtype"
+                )
+            if dtype != value.dtype and value.is_cuda:
+                on_card.append((value.contiguous(), staged))
+                continue
+            staged.copy_(cast_reference(value, dtype))  # device-to-host for CUDA leaves
+        if on_card:
+            values = [v for v, _ in on_card]
+            for chunk, outs in cast_kernel.chunks(values, self._transfer_dtype):
+                for i, out in zip(chunk.indices, outs):
+                    on_card[i][1].copy_(out)
 
     async def register(
         self,
@@ -193,12 +227,14 @@ class DirectWeightSyncSource:
         hostname = get_hostname()
         tracker = LatencyTracker("direct_register")
         nbytes = 0
+        keys = []
         for flat_key, value in flat.items():
             if not isinstance(value, torch.Tensor):
                 continue  # non-tensor leaves don't take the direct path
+            keys.append(flat_key)
             self._sources[flat_key] = value
-            staged_value = self._staged_value(value)
-            meta = TensorMeta.of(staged_value)
+            meta = TensorMeta(tuple(int(s) for s in value.shape),
+                              dtype_name(self._staged_dtype(value)))
             buffer_id = self._next_id
             self._next_id += 1
             shm_name = None
@@ -208,8 +244,7 @@ class DirectWeightSyncSource:
                 staged = seg.view(meta)
                 shm_name = seg.name
             else:
-                staged = torch.empty(meta.shape, dtype=staged_value.dtype)
-            staged.copy_(staged_value)  # device-to-host for CUDA leaves
+                staged = torch.empty(meta.shape, dtype=meta.torch_dtype)
             nbytes += meta.nbytes
             self.server.buffers[buffer_id] = staged
             self.handles[flat_key] = [
@@ -223,6 +258,7 @@ class DirectWeightSyncSource:
                     source_rank=rank,
                 )
             ]
+        self._stage(keys)
         tracker.track_step("stage", nbytes)
         tracker.log_summary(level=20)
         self._registered = True
@@ -234,27 +270,10 @@ class DirectWeightSyncSource:
             raise RuntimeError("register() must run before refresh()")
         self._set_busy(True)  # reported odd while buffers are overwritten
         try:
-            self._refresh_host()
+            self._stage(list(self._sources))
         finally:
             self._bump_gen(2)
             self._set_busy(False)
-
-    def _refresh_host(self) -> None:
-        for flat_key, value in self._sources.items():
-            (handle,) = self.handles[flat_key]
-            staged = self.server.buffers[handle.buffer_id]
-            if _aliases(staged, value):
-                # The trainer writes straight into the published buffer
-                # (staging_state_dict): nothing to copy.
-                continue
-            value = self._staged_value(value)
-            if tuple(value.shape) != tuple(staged.shape) or value.dtype != staged.dtype:
-                raise ValueError(
-                    f"refresh of {flat_key!r}: value is now {tuple(value.shape)} "
-                    f"{value.dtype} but {tuple(staged.shape)} {staged.dtype} was "
-                    "registered; re-register after changing a param's shape or dtype"
-                )
-            staged.copy_(value)
 
     def staging_state_dict(self) -> Optional[Any]:
         """The registered staging buffers in the original structure: a

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from torchstore_tpu_torch.logging import LatencyTracker, get_logger
+from torchstore_tpu_torch.ops.staging import cast_group, cast_reference
 
 logger = get_logger("torchstore_tpu_torch.state_dict")
 
@@ -161,12 +162,24 @@ def _is_floating(value: Any) -> bool:
 
 
 def cast_floating_tensors(flat: dict[str, Any], transfer_dtype) -> dict[str, Any]:
-    """Cast floating leaves to ``transfer_dtype`` before transfer: a plain
-    ``.to()``, on the card for CUDA leaves (the reference leaves this cast
-    to XLA, outside its Pallas kernel)."""
-    return {
-        k: v.to(transfer_dtype) if _is_floating(v) else v for k, v in flat.items()
-    }
+    """Cast floating leaves to ``transfer_dtype`` before transfer: the CUDA
+    leaves of each device through the grouped cast kernel (``cast_group``,
+    one launch per chunk), CPU leaves by the plain cast. Leaves already in
+    ``transfer_dtype`` pass as they are. (The reference leaves this cast to
+    XLA's ``astype``, outside its Pallas kernel.)"""
+    out = dict(flat)
+    on_card: dict[torch.device, list[str]] = {}
+    for k, v in flat.items():
+        if not _is_floating(v) or v.dtype == transfer_dtype:
+            continue
+        if v.is_cuda:
+            on_card.setdefault(v.device, []).append(k)
+        else:
+            out[k] = cast_reference(v, transfer_dtype)
+    for keys in on_card.values():
+        cast = cast_group([flat[k].contiguous() for k in keys], transfer_dtype)
+        out.update(zip(keys, cast))
+    return out
 
 
 # --------------------------------------------------------------------------
