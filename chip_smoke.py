@@ -27,8 +27,19 @@ Phases, each printing one JSON line:
                   port's entry points: initialize, a buffered put/get, a
                   direct publish/pull, a refresh after an in-place update,
                   shutdown; the cast kernel's launches on each step, equal to
-                  the planner's chunk count;
-6. flash_parity - the flash kernels, stats mode (K2) and normalized mode
+                  the planner's chunk count, no cast outside the kernel
+                  (cast_fallbacks 0), and the seconds spent page-locking the
+                  direct-sync buffers;
+6. reshard      - the same state dict put in an FSDP trainer's layout (8
+                  ranks, Shard(0) of every tensor: 2328 shards, views of the
+                  fp32 source on the card) and fetched by 4 tensor-parallel
+                  generator ranks into bf16 targets on the card, buffered and
+                  then direct (publish, pull, refresh, repull): every target
+                  bit-equal to its box of the source's bf16 cast; the cast
+                  kernel's launches per step equal to the planner's chunks;
+                  the regions fetched equal to the count the phase works out
+                  from the two layouts; a DTensor leg on a one-rank mesh;
+7. flash_parity - the flash kernels, stats mode (K2) and normalized mode
                   (K3), against their plain versions on the card: Llama-3-8B
                   attention width, MHA, d = 64, 72 and 256, lengths 1 to 8192
                   and ragged ones, batch up to 4, a packed qkv projection
@@ -36,20 +47,20 @@ Phases, each printing one JSON line:
                   variant ``sm90_eligible`` picked; the sm90 cases are held
                   against the blockwise plain version and against the fp32
                   one with SDPA's error as the yardstick;
-7. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
+8. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
                   (and K2 at 4096) on the sm90 kernel, and at 8192 on the
                   simt kernel, beside their bound, the plain versions and
                   SDPA;
-8. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
+9. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
                   Llama-3-8B attention width: a bf16 path (forward at 8192,
                   forward and backward at 4096) and an fp32 forward path at
                   2048, held against the einsum body and the plain version;
                   K2's and K3's launches per variant on each path;
-9. model        - the RL loop at Llama-3-8B width (depth cut): a learner
+10. model       - the RL loop at Llama-3-8B width (depth cut): a learner
                   trains two steps and publishes with direct=True (cast
                   launches equal to the planner's chunk count), a bf16
                   generator pulls and decodes greedily;
-10. kernels     - one line listing every ported kernel.
+11. kernels     - one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints no
@@ -70,7 +81,7 @@ import sys
 import time
 
 ALL_PHASES = (
-    "device", "build", "parity", "timing", "main",
+    "device", "build", "parity", "timing", "main", "reshard",
     "flash_parity", "flash_timing", "ring", "model", "kernels",
 )
 
@@ -474,6 +485,8 @@ def main() -> int:
             res = phase_timing(torch, staging)
         elif phase == "main":
             res = phase_main(torch, staging)
+        elif phase == "reshard":
+            res = phase_reshard(torch, staging)
         elif phase == "flash_parity":
             res = phase_flash_parity(torch, flash)
         elif phase == "flash_timing":
@@ -577,6 +590,8 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
     checks = []
     timings = {}
     staging.cast_kernel.launches = 0  # count the main path's launches only
+    staging.cast_kernel.fallbacks = 0
+    fallbacks = {}
     t0 = time.perf_counter()
     await tst.initialize()
     timings["initialize_s"] = time.perf_counter() - t0
@@ -592,6 +607,7 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
         timings["get_s"] = time.perf_counter() - t0
         checks.append(check("buffered get"))
         launches_buffered = staging.cast_kernel.launches
+        fallbacks["buffered"] = staging.cast_kernel.fallbacks
 
         clear_targets()
         t0 = time.perf_counter()
@@ -599,6 +615,7 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
         torch.cuda.synchronize()
         timings["publish_s"] = time.perf_counter() - t0
         launches_register = staging.cast_kernel.launches - launches_buffered
+        fallbacks["register"] = staging.cast_kernel.fallbacks - fallbacks["buffered"]
         t0 = time.perf_counter()
         await tst.get_state_dict("policy_direct", targets, direct=True)
         torch.cuda.synchronize()
@@ -613,11 +630,14 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
         torch.cuda.synchronize()
         timings["republish_s"] = time.perf_counter() - t0
         launches_refresh = staging.cast_kernel.launches - launches_buffered - launches_register
+        fallbacks["refresh"] = (staging.cast_kernel.fallbacks - fallbacks["buffered"]
+                                - fallbacks["register"])
         t0 = time.perf_counter()
         await tst.get_state_dict("policy_direct", targets, direct=True)
         torch.cuda.synchronize()
         timings["repull_s"] = time.perf_counter() - t0
         checks.append(check("direct pull after refresh"))
+        pinning = _pinning(tst, "policy_direct", dev)
     finally:
         await tst.shutdown()
     launches = staging.cast_kernel.launches
@@ -638,6 +658,8 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
                 "refresh": launches_refresh,
             },
             "launches_needed": {"buffered": chunks, "register": chunks, "refresh": chunks},
+            "cast_fallbacks": fallbacks,
+            "pinning": pinning,
             "timings": timings,
             "gb_per_s": {
                 step: wire_bytes / timings[f"{step}_s"] / 1e9
@@ -652,10 +674,21 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
         all(c["bit_equal"] for c in checks)
         and (dev.type != "cuda"
              or launches_buffered == launches_register == launches_refresh == chunks)
+        and not any(fallbacks.values())
+        and pinning["staging_pinned"] is not False
         and not alive
         and not leaked
     )
     return out
+
+
+def _pinning(tst, key: str, dev, store_name: str = "default") -> dict:
+    """The seconds the direct sync of ``key`` spent page-locking, and on the
+    card whether its first staging buffer reads as pinned."""
+    stats = tst.direct_sync_stats(key, store_name=store_name)
+    first = next(_leaves(tst.direct_staging_buffers(key, store_name=store_name)))
+    first = getattr(first, "data", first)  # a Shard's buffer
+    return {**stats, "staging_pinned": first.is_pinned() if dev.type == "cuda" else None}
 
 
 def phase_main(torch, staging) -> dict:
@@ -665,6 +698,245 @@ def phase_main(torch, staging) -> dict:
     res = asyncio.run(_main_path(torch, staging, layers, torch.device("cuda", 0)))
     res["phase"] = "main"
     res["sizing"] = sizing
+    return res
+
+
+# --------------------------------------------------------------------------
+# reshard: a trainer's FSDP layout to a generator's tensor-parallel one
+# --------------------------------------------------------------------------
+
+FSDP = 8  # trainer: Shard(0) of every tensor over 8 coordinates
+TP = 4  # generator: tensor-parallel over 4 coordinates
+# The generator's split dimension of each tensor kind in the (in, out)
+# layout of workloads.py: column-parallel q/k/v/gate/up and lm_head split
+# their output dimension (1), row-parallel o/down and the embedding their
+# input dimension (0); the norms are replicated (None).
+TP_DIM = {"q_proj": 1, "k_proj": 1, "v_proj": 1, "gate_proj": 1, "up_proj": 1, "lm_head": 1,
+          "o_proj": 0, "down_proj": 0, "embed": 0,
+          "attn_norm": None, "mlp_norm": None, "final_norm": None}
+
+
+def _split_bounds(n: int, k: int) -> list:
+    """[lo, hi) of each of k pieces of n as torch's Shard splits it: pieces
+    of ceil(n / k), the last ones smaller or empty."""
+    size = -(-n // k)
+    return [(min(i * size, n), min((i + 1) * size, n)) for i in range(k)]
+
+
+def _layout(tst, shape: tuple, dim, k: int) -> list:
+    """The TensorSlice of each of k coordinates of a tensor of ``shape``,
+    ``dim`` split as torch's Shard does (None: every coordinate holds all)."""
+    out = []
+    for c in range(k):
+        offsets, local = [0] * len(shape), list(shape)
+        if dim is not None:
+            lo, hi = _split_bounds(shape[dim], k)[c]
+            offsets[dim], local[dim] = lo, hi - lo
+        out.append(tst.TensorSlice(tuple(offsets), tuple(local), tuple(shape), (c,), (k,)))
+    return out
+
+
+def _overlap(a, b) -> bool:
+    """Whether two slices share an element: every dimension's intervals
+    overlap (the phase's own arithmetic, not the store's)."""
+    return all(max(ao, bo) < min(ao + an, bo + bn)
+               for ao, an, bo, bn in zip(a.offsets, a.local_shape, b.offsets, b.local_shape))
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", k, v
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+async def _reshard_path(torch, staging, layers: int, dev, geometry=None) -> dict:
+    """The Llama-3-8B state dict (fp32 on the card) put by the FSDP trainer's
+    8 ranks (each a state dict of Shard views of the source, as one host
+    puts all its shards) and fetched by the generator's 4 tensor-parallel
+    ranks into bf16 targets on the card, buffered and then direct (publish,
+    pull, refresh after an in-place step, repull). Every target must be
+    bit-equal to its box of the source's bf16 cast."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.transport.shared_memory import PREFIX, SHM_DIR
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers, **(geometry or {}))
+    leaves = list(_flat(src))  # (path, kind, tensor)
+    n_params = sum(t.numel() for _, _, t in leaves)
+    wire_bytes = 2 * n_params
+    fsdp = {path: _layout(tst, tuple(t.shape), 0, FSDP) for path, _, t in leaves}
+    tp = {path: _layout(tst, tuple(t.shape), TP_DIM[kind], TP) for path, kind, t in leaves}
+    trainer = [_nest({path: tst.Shard(t[fsdp[path][r].box.to_index()], fsdp[path][r])
+                      for path, _, t in leaves}) for r in range(FSDP)]
+    generator = [_nest({path: tst.Shard(torch.zeros(tp[path][c].local_shape, dtype=bf16,
+                                                    device=dev), tp[path][c])
+                        for path, _, _ in leaves}) for c in range(TP)]
+    sources = {path: t for path, _, t in leaves}
+    # What the two layouts need, by the phase's own box arithmetic and the
+    # cast planner: regions fetched per get (summed over the TP ranks), and
+    # launches per step (summed over the FSDP ranks).
+    regions = sum(_overlap(f, t) for path in tp for t in tp[path] for f in fsdp[path])
+    chunks = sum(len(staging.plan_chunks([s.data for s in _leaves(tree)], bf16))
+                 for tree in trainer)
+
+    def check(label: str) -> dict:
+        bad = 0
+        for tree in generator:
+            for path, _, shard in _flat(tree):
+                want = sources[path][shard.tensor_slice.box.to_index()].to(bf16)
+                bad += not torch.equal(shard.data.view(torch.int16), want.view(torch.int16))
+        return {"check": label, "bit_equal": not bad, "mismatched_shards": bad}
+
+    def clear_targets() -> None:
+        for tree in generator:
+            for shard in _leaves(tree):
+                shard.data.zero_()
+        torch.cuda.synchronize()
+
+    def counts() -> tuple:
+        return staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+
+    out: dict = {"layers": layers, "tensors": len(leaves), "params": n_params,
+                 "wire_bytes": wire_bytes, "fsdp": FSDP, "tp": TP,
+                 "stored_shards": FSDP * len(leaves), "tp_targets": TP * len(leaves),
+                 "target_bytes": sum(s.data.numel() * 2 for t in generator for s in _leaves(t))}
+    checks, timings, launches, fallbacks, fetched = [], {}, {}, {}, {}
+
+    async def step(name: str, fn):
+        before = counts(), tst.client().parts_fetched
+        t0 = time.perf_counter()
+        pulled = await fn()
+        torch.cuda.synchronize()
+        timings[f"{name}_s"] = time.perf_counter() - t0
+        launches[name] = counts()[0] - before[0][0]
+        fallbacks[name] = counts()[1] - before[0][1]
+        fetched[name] = tst.client().parts_fetched - before[1] if pulled is None else pulled
+
+    async def put():
+        for tree in trainer:
+            await tst.put_state_dict("reshard", tree, transfer_dtype=bf16)
+
+    async def get():
+        for tree in generator:
+            await tst.get_state_dict("reshard", tree)
+
+    async def publish():
+        for r, tree in enumerate(trainer):
+            await tst.put_state_dict("reshard_direct", tree, transfer_dtype=bf16, direct=True,
+                                     rank=r, num_ranks=FSDP)
+
+    async def pull():
+        regions_pulled = 0
+        for tree in generator:
+            await tst.get_state_dict("reshard_direct", tree, direct=True)
+            regions_pulled += tst.direct_sync_stats("reshard_direct")["pulled_regions"]
+        return regions_pulled
+
+    staging.cast_kernel.launches = 0  # count the reshard path's launches only
+    staging.cast_kernel.fallbacks = 0
+    t0 = time.perf_counter()
+    await tst.initialize()
+    timings["initialize_s"] = time.perf_counter() - t0
+    pids = [p.pid for p in multiprocessing.active_children()]
+    try:
+        await step("put", put)
+        await step("get", get)
+        checks.append(check("buffered get"))
+        clear_targets()
+        await step("publish", publish)
+        await step("pull", pull)
+        checks.append(check("direct pull"))
+        for t in sources.values():
+            t.add_(1.0)  # the training step, in place: the Shards are views
+        clear_targets()
+        await step("republish", publish)
+        await step("repull", pull)
+        checks.append(check("direct pull after refresh"))
+        pinning = _pinning(tst, "reshard_direct", dev)
+        out["dtensor"] = await _dtensor_round_trip(torch, tst, sources["layers/0/q_proj"], dev)
+    finally:
+        await tst.shutdown()
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children()]
+    own = set(pids) | {os.getpid()}
+    leaked = [n for n in os.listdir(SHM_DIR)
+              if n.startswith(PREFIX) and int(n[len(PREFIX):].split("_")[0]) in own]
+    steps = ("put", "publish", "republish")
+    out.update({
+        "checks": checks,
+        "launches_by_step": {k: launches[k] for k in steps},
+        "launches_needed": {k: chunks for k in steps},
+        "cast_fallbacks": fallbacks,
+        "fetched_regions": {k: fetched[k] for k in ("get", "pull", "repull")},
+        "regions_needed": regions,
+        "pinning": pinning,
+        "timings": timings,
+        "gb_per_s": {k: wire_bytes / timings[f"{k}_s"] / 1e9
+                     for k in ("put", "get", "publish", "pull", "republish", "repull")},
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "processes_left": alive,
+        "segments_left": leaked[:5],
+    })
+    out["ok"] = (
+        all(c["bit_equal"] for c in checks)
+        and (dev.type != "cuda" or all(launches[k] == chunks for k in steps))
+        and not any(fallbacks.values())
+        and fetched["get"] == fetched["pull"] == fetched["repull"] == regions
+        and pinning["staging_pinned"] is not False
+        and out["dtensor"]["ok"]
+        and not alive
+        and not leaked
+    )
+    return out
+
+
+async def _dtensor_round_trip(torch, tst, weight, dev) -> dict:
+    """One DTensor leg on a one-rank mesh of the card: Shard(0) there is the
+    whole tensor, so it is stored as a plain tensor, and a get into a
+    DTensor target fills its local tensor in place."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh(dev.type, (1,))
+        await tst.put("reshard_dtensor", distribute_tensor(weight, mesh, [Shard(0)]))
+        target = distribute_tensor(torch.zeros_like(weight), mesh, [Shard(0)])
+        got = await tst.get("reshard_dtensor", target)
+        ok = got is target and torch.equal(target.to_local(), weight)
+    finally:
+        dist.destroy_process_group()
+    return {"shape": list(weight.shape), "filled_in_place": got is target, "ok": bool(ok)}
+
+
+def phase_reshard(torch, staging) -> dict:
+    layers, sizing = plan_layers()
+    if layers < LAYERS:
+        emit({"reduced": {"reshard_layers": layers}, **sizing})
+    res = asyncio.run(_reshard_path(torch, staging, layers, torch.device("cuda", 0)))
+    res["phase"] = "reshard"
+    res["sizing"] = sizing
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     return res
 
 
@@ -1290,7 +1562,9 @@ def phase_kernels(results: dict) -> dict:
         "library": "a Python loop of x.to(torch.bfloat16)",
         "per": f"one publish: cast_group over the {publish['tensors']} fp32 tensors of the "
                f"Llama-3-8B state dict; launches of one publish on main (buffered "
-               f"{steps['buffered']}, register {steps['register']}, refresh {steps['refresh']})",
+               f"{steps['buffered']}, register {steps['register']}, refresh {steps['refresh']})"
+               + (f"; on reshard (8 FSDP ranks) {results['reshard']['launches_by_step']}"
+                  if "reshard" in results else ""),
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"

@@ -220,3 +220,79 @@ def test_cast_group_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         staging.cast_group([ok, torch.zeros(8, 8, device=cuda).t()], torch.bfloat16)
     assert staging.cast_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_both_legs_cast_an_uncovered_pair_outside_the_kernel(cuda):
+    """A float64 leaf with a bf16 transfer dtype is cast by x.to() (counted
+    in ``fallbacks``) on the buffered leg; the fp32 leaves still take one
+    launch per chunk."""
+    from torchstore_tpu_torch.state_dict_utils import cast_floating_tensors
+
+    flat = {"w": random_bits(torch.float32, 5000, 1, cuda),
+            "d": torch.randn(64, dtype=torch.float64, device=cuda), "n": torch.arange(3)}
+    before = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+    out = cast_floating_tensors(flat, torch.bfloat16)
+    assert staging.cast_kernel.launches - before[0] == 1
+    assert staging.cast_kernel.fallbacks - before[1] == 1
+    for k in ("w", "d"):
+        assert_bits_equal(out[k], flat[k].to(torch.bfloat16))
+    assert out["n"] is flat["n"]
+
+
+@pytest.mark.cuda
+def test_direct_sync_page_locks_and_lands_sharded_targets(cuda):
+    """A direct source on the card: its staging buffers read as pinned, a
+    float64 leaf is cast outside the kernel, a refresh lands, and a dest
+    pulls row and column shards into CUDA targets through pinned
+    attachments."""
+    import asyncio
+
+    from torchstore_tpu_torch.client import Shard
+    from torchstore_tpu_torch.direct_weight_sync import (
+        DirectWeightSyncDest,
+        DirectWeightSyncSource,
+    )
+    from torchstore_tpu_torch.transport.types import TensorSlice
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w = torch.randn(256, 512, generator=gen, device=cuda)
+    halves = [Shard(w[r * 128:(r + 1) * 128], TensorSlice((r * 128, 0), (128, 512), (256, 512),
+                                                          (r,), (2,))) for r in range(2)]
+    extra = torch.randn(33, dtype=torch.float64, device=cuda)
+
+    async def run():
+        sources = [DirectWeightSyncSource(use_shm=True) for _ in halves]
+        dest = DirectWeightSyncDest()
+        try:
+            before = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+            handles: dict = {}
+            for r, (source, half) in enumerate(zip(sources, halves)):
+                tree = {"w": half, "x": extra} if r == 0 else {"w": half}
+                for k, hs in (await source.register(tree, r, torch.bfloat16)).items():
+                    handles.setdefault(k, []).extend(hs)
+            assert staging.cast_kernel.launches - before[0] == 2
+            assert staging.cast_kernel.fallbacks - before[1] == 1
+            for source in sources:
+                assert all(b.is_pinned() for b in source.server.buffers.values())
+            assert sources[0].pin_seconds > 0
+            cols = [TensorSlice((0, c * 256), (256, 256), (256, 512), (c,), (2,)) for c in range(2)]
+            for step in range(2):
+                for c, ts in enumerate(cols):
+                    target = {"w": Shard(torch.zeros(256, 256, dtype=torch.bfloat16, device=cuda),
+                                         ts), "x": torch.zeros(33, dtype=torch.bfloat16,
+                                                               device=cuda)}
+                    await dest.pull(handles, target)
+                    want = w[:, c * 256:(c + 1) * 256].to(torch.bfloat16)
+                    assert_bits_equal(target["w"].data, want)
+                    assert_bits_equal(target["x"], extra.to(torch.bfloat16))
+                w.add_(1.0)
+                for source in sources:
+                    await source.refresh()
+            assert dest.pin_seconds > 0
+        finally:
+            await dest.close()
+            for source in sources:
+                await source.close()
+
+    asyncio.run(run())

@@ -108,7 +108,40 @@ def _llama_job(rank: int, args) -> dict:
     return out
 
 
-JOBS = {"attention": _attention_job, "llama": _llama_job}
+def _dtensor_job(rank: int, args) -> dict:
+    """args: the store's controller and a global array. Each rank puts its
+    Shard(0) shard on a (4,) mesh, then gets its (Shard(0), Shard(1)) shard
+    on a (2, 2) mesh in place, through a client of the one store."""
+    import asyncio
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from torchstore_tpu_torch.client import LocalClient
+
+    g = torch.from_numpy(args["global"])
+
+    async def run() -> dict:
+        client = LocalClient(args["controller"])
+        src = distribute_tensor(g, init_device_mesh("cpu", (WORLD,)), [Shard(0)],
+                                src_data_rank=None)
+        await client.put("w", src)
+        dist.barrier()  # every coordinate stored before any rank reads
+        mesh = init_device_mesh("cpu", (2, 2))
+        target = distribute_tensor(torch.zeros_like(g), mesh, [Shard(0), Shard(1)],
+                                   src_data_rank=None)
+        got = await client.get("w", target)
+        return {
+            "coords": mesh.get_coordinate(),
+            "local": target.to_local().numpy().copy(),
+            "filled_in_place": got is target,
+            "full": target.full_tensor().numpy(),
+        }
+
+    return asyncio.run(run())
+
+
+JOBS = {"attention": _attention_job, "llama": _llama_job, "dtensor": _dtensor_job}
 
 
 def _rank_main(rank: int, init_method: str, job: str, args, queue) -> None:

@@ -19,6 +19,7 @@ import torch
 
 import torchstore_tpu as ts_ref
 import torchstore_tpu_torch as tst
+from torchstore_tpu import config as ref_config
 from torchstore_tpu.config import StoreConfig as RefStoreConfig
 from torchstore_tpu.state_dict_utils import flatten_state_dict as ref_flatten
 from torchstore_tpu.transport import shared_memory as ref_shm
@@ -79,6 +80,10 @@ async def run_reference(tree: dict, monkeypatch) -> dict:
     # and it then adds no ts_shm_* segments to the machine-wide segment
     # counts of the reference's own tests beside it. The spawned controller
     # and volume read the two switches from the environment.
+    # The process's default config is read from the environment once: it
+    # must not be first read under these switches, or the reference's own
+    # tests that run later in this process would inherit them.
+    monkeypatch.setattr(ref_config, "_default_config", None)
     monkeypatch.setattr(ref_shm, "is_available", lambda: False)
     monkeypatch.setenv("TORCHSTORE_TPU_META_STAMPED", "0")
     monkeypatch.setenv("TORCHSTORE_TPU_ONE_SIDED", "0")

@@ -10,6 +10,11 @@ this port is held against; the port imports none of it.
     await ts.put_state_dict("policy", model.state_dict(), transfer_dtype=torch.bfloat16)
     await ts.get_state_dict("policy", generator_state_dict)
     await ts.shutdown()
+
+Leaves and targets may be sharded: a ``Shard(data, TensorSlice)`` or a
+DTensor is put as its local shard under its mesh coordinates, and a get
+with a ``Shard`` or DTensor target fills it with its region of the stored
+tensor, whatever layout the tensor was put in.
 """
 
 from torchstore_tpu_torch.api import (
@@ -17,6 +22,7 @@ from torchstore_tpu_torch.api import (
     client,
     delete,
     direct_staging_buffers,
+    direct_sync_stats,
     exists,
     get,
     get_batch,
@@ -28,19 +34,28 @@ from torchstore_tpu_torch.api import (
     put_state_dict,
     shutdown,
 )
+from torchstore_tpu_torch.client import Shard
 from torchstore_tpu_torch.config import StoreConfig
-from torchstore_tpu_torch.state_dict_utils import NoMatchingPush, from_numpy_tree
+from torchstore_tpu_torch.state_dict_utils import (
+    NoMatchingPush,
+    from_numpy_tree,
+    shards_from_numpy,
+)
 from torchstore_tpu_torch.strategy import LocalRankStrategy, SingletonStrategy
+from torchstore_tpu_torch.transport.types import TensorSlice
 
 __all__ = [
     "DEFAULT_STORE",
     "LocalRankStrategy",
     "NoMatchingPush",
+    "Shard",
     "SingletonStrategy",
     "StoreConfig",
+    "TensorSlice",
     "client",
     "delete",
     "direct_staging_buffers",
+    "direct_sync_stats",
     "exists",
     "from_numpy_tree",
     "get",
@@ -51,5 +66,6 @@ __all__ = [
     "put",
     "put_batch",
     "put_state_dict",
+    "shards_from_numpy",
     "shutdown",
 ]

@@ -153,6 +153,12 @@ def direct_staging_buffers(key: str, store_name: str = DEFAULT_STORE) -> Any:
     return state_dict_utils.direct_staging_buffers(client(store_name), key)
 
 
+def direct_sync_stats(key: str, store_name: str = DEFAULT_STORE) -> dict:
+    """Page-locking seconds and the last pull's copied regions of the
+    direct sync of ``key`` in this process."""
+    return state_dict_utils.direct_sync_stats(client(store_name), key)
+
+
 async def get_state_dict(
     key: str,
     user_state_dict: Any = None,

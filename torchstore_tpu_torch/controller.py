@@ -3,7 +3,7 @@
 Port of the core endpoints of ``torchstore_tpu/controller.py`` (``init``,
 ``locate_volumes``, ``notify_put_batch``, ``notify_delete_batch``, ``keys``,
 ``placement_epoch``, ``bump_placement_epoch``, ``teardown``, plus the volume
-map clients load). The relay, tiering, control, autoscale and mirror
+map clients load), with commit tracking for sharded keys. The relay, tiering, control, autoscale and mirror
 engines of the reference are not part of this port yet. The controller
 never sees tensor bytes: only ``Request.meta_only()`` copies.
 """
@@ -64,9 +64,12 @@ class Controller(Actor):
 
     @endpoint
     async def locate_volumes(
-        self, keys: list[str], missing_ok: bool = False
+        self, keys: list[str], missing_ok: bool = False, require_committed: bool = True
     ) -> dict[str, dict[str, StorageInfo]]:
-        return self.core.locate(keys, missing_ok)
+        """Where each key lives; a sharded key not yet stored at every mesh
+        coordinate raises ``PartiallyCommittedError`` unless
+        ``require_committed`` is off."""
+        return self.core.locate(keys, missing_ok, require_committed)
 
     @endpoint
     async def notify_put_batch(self, metas: list[Request], volume_id: "str | list[str]") -> int:

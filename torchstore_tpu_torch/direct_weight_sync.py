@@ -3,23 +3,28 @@ staging buffers; the store carries only handles.
 
 Port of the host path of ``torchstore_tpu/direct_weight_sync.py``:
 
-- ``DirectWeightSyncSource.register`` stages every tensor leaf once into a
-  buffer of its own (a ``/dev/shm`` segment, or process memory without
-  shared memory). The CUDA floating leaves are first cast to the transfer
-  dtype on the card by the hand-written grouped cast kernel, one launch per
-  chunk of ``ops.plan_chunks``, so the device-to-host copies move the
-  transfer dtype's bytes; each chunk's outputs are copied out and dropped
-  before the next chunk launches. ``refresh`` re-stages current values into
+- ``DirectWeightSyncSource.register`` stages every tensor leaf (a
+  ``Shard``'s or a DTensor's local shard, with its placement in the
+  handle) once into a buffer of its own (a ``/dev/shm`` segment, or process
+  memory without shared memory), page-locked with ``cudaHostRegister``
+  when the leaves live on a card. The CUDA floating leaves are first cast
+  to the transfer dtype on the card by the hand-written grouped cast
+  kernel, one launch per chunk of ``ops.plan_chunks``, so the
+  device-to-host copies move the transfer dtype's bytes; casts and copies
+  run on one side stream per card, and each chunk's outputs are reused by
+  the next chunk in stream order. ``refresh`` re-stages current values into
   the same buffers, so published handles stay valid across training steps,
   under a generation seqlock (odd while the buffers are being overwritten,
-  +2 per publish).
+  +2 per publish once every copy has landed).
 - ``_PeerReadServer`` serves ranged reads of the buffers over TCP and the
   generation (``_GET_GEN``).
-- ``DirectWeightSyncDest.pull`` builds a transfer plan once, reads each
-  source buffer (shared-memory attach on the same host, TCP otherwise) and
-  copies the planned regions into the caller's tensors in place (CPU or
-  CUDA), re-reading the source generations to detect a refresh that tore
-  the pull.
+- ``DirectWeightSyncDest.pull`` builds a transfer plan once (one region
+  per distinct intersection of a target's slice with a source shard),
+  reads each source buffer (shared-memory attach on the same host,
+  page-locked once for CUDA targets; TCP otherwise) and copies the planned
+  regions into the caller's tensors in place (CPU or CUDA, asynchronously
+  to a card and awaited), re-reading the source generations to detect a
+  refresh that tore the pull.
 
 The device-to-device rung (CUDA IPC) is later work: the source takes the
 host path, as the reference does with its device rung switched off.
@@ -36,11 +41,18 @@ from typing import Any, Optional
 
 import torch
 
+from torchstore_tpu_torch import sharding
+from torchstore_tpu_torch.client import Shard
 from torchstore_tpu_torch.logging import LatencyTracker, get_logger
-from torchstore_tpu_torch.ops.staging import cast_kernel, cast_reference
+from torchstore_tpu_torch.ops import staging
+from torchstore_tpu_torch.ops.staging import cast_reference
 from torchstore_tpu_torch.runtime.actors import BIND_HOST
 from torchstore_tpu_torch.runtime.serialization import tensor_bytes
-from torchstore_tpu_torch.state_dict_utils import flatten_state_dict, unflatten_state_dict
+from torchstore_tpu_torch.state_dict_utils import (
+    _leaf_signature,
+    flatten_state_dict,
+    unflatten_state_dict,
+)
 from torchstore_tpu_torch.transport import shared_memory as shm
 from torchstore_tpu_torch.transport.types import TensorMeta, TensorSlice, dtype_name, full_slice
 from torchstore_tpu_torch.utils import Box, get_destination_view, get_hostname, intersect_boxes
@@ -137,6 +149,81 @@ class _PeerReadServer:
             self._server = None
 
 
+def _host_register(t: torch.Tensor) -> Optional[int]:
+    """Page-lock the host memory under ``t`` (a ``/dev/shm`` mapping or
+    process memory) with ``cudaHostRegister``, so copies between it and a
+    card run asynchronously at the DMA rate; returns the pointer to
+    unregister, or None for an empty tensor."""
+    nbytes = t.numel() * t.element_size()
+    if nbytes == 0:
+        return None
+    err = torch.cuda.cudart().cudaHostRegister(t.data_ptr(), nbytes, 0)
+    if int(err) != 0:
+        raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed: CUDA error {int(err)}")
+    return t.data_ptr()
+
+
+def _host_unregister(ptrs) -> None:
+    """Unpin what ``_host_register`` pinned; runs before the memory is
+    unmapped or freed."""
+    ptrs = list(ptrs)
+    if ptrs:
+        cudart = torch.cuda.cudart()
+        for ptr in ptrs:
+            cudart.cudaHostUnregister(ptr)
+
+
+class _D2HStream:
+    """The side stream of one card that publishes cast and copy on: it
+    waits for the work already queued on the card's current stream, and
+    ``synchronize`` waits for every copy issued on it. One stream per card
+    serves every source of the process, so the cast outputs freed on it
+    are reused by the next publish instead of being cached per stream."""
+
+    _streams: dict = {}
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.stream = self._streams.get(device)
+        if self.stream is None:
+            self.stream = self._streams[device] = torch.cuda.Stream(device=device)
+        self._ctx = None
+
+    def __enter__(self) -> "_D2HStream":
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._ctx = torch.cuda.stream(self.stream)
+        self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._ctx.__exit__(*exc)
+
+    def synchronize(self) -> None:
+        self.stream.synchronize()
+
+
+def _synchronize(device: torch.device) -> None:
+    """Wait for the copies a pull issued on ``device``'s current stream."""
+    torch.cuda.current_stream(device).synchronize()
+
+
+def _local_shard(value: Any) -> Optional[tuple[TensorSlice, torch.Tensor]]:
+    """(placement, local tensor) of a source leaf or a pull target: a whole
+    tensor, a ``Shard``'s data or a DTensor's local shard; None for a leaf
+    the direct path leaves alone. A torch process holds one shard of each
+    leaf, so this is the counterpart of the reference's ``_shards_of`` and
+    ``_target_slices``."""
+    if isinstance(value, Shard):
+        if value.data is None:
+            raise ValueError("direct sync moves Shard data; pass Shard(tensor, slice)")
+        return value.tensor_slice, value.data
+    if sharding.is_dtensor(value):
+        return sharding.target_slice(value), sharding.local_tensor(value)
+    if isinstance(value, torch.Tensor):
+        return full_slice(tuple(value.shape)), value
+    return None
+
+
 class DirectWeightSyncSource:
     """Registers a state dict's tensors into pull-able staging buffers."""
 
@@ -145,23 +232,29 @@ class DirectWeightSyncSource:
         self.server = _PeerReadServer()
         self.segments: dict[int, shm.ShmSegment] = {}
         self.handles: dict[str, list[WeightHandle]] = {}
-        self._sources: dict[str, torch.Tensor] = {}  # flat_key -> live tensor
+        self._sources: dict[str, Any] = {}  # flat_key -> live leaf
         self._transfer_dtype: Optional[torch.dtype] = None
         self._next_id = 0
         self._registered = False
         self._mapping: Optional[dict] = None
         self._flat_template: dict[str, Any] = {}
+        # Host pointers of the page-locked staging buffers, and the seconds
+        # their registration took (it faults in every page).
+        self._pinned: list[int] = []
+        self.pin_seconds = 0.0
         # Weight generation (seqlock): _gen is even and moves +2 per
         # publish; the server reports _gen + 1 (odd) while an overwrite of
-        # the buffers runs.
+        # the buffers runs, and from a refresh that failed after it began
+        # overwriting until one completes.
         self._gen = 0
         self._busy = 0
+        self._torn = False
         self._gen_lock = threading.Lock()
         self.server.gen_fn = self._read_gen
 
     def _read_gen(self) -> int:
         with self._gen_lock:
-            return self._gen + 1 if self._busy else self._gen
+            return self._gen + 1 if self._busy or self._torn else self._gen
 
     def _bump_gen(self, n: int = 2) -> None:
         with self._gen_lock:
@@ -179,17 +272,22 @@ class DirectWeightSyncSource:
             return dtype
         return value.dtype
 
-    def _stage(self, keys: list[str]) -> None:
-        """Write the current values of ``keys`` into their staging buffers,
-        cast where they live: the CUDA leaves that need the transfer dtype on
-        the card through the grouped cast kernel, chunk by chunk (each
-        chunk's outputs copied out and dropped before the next launch), a
-        CPU leaf by the plain cast. Leaves that alias their buffer are
-        skipped; every leaf is checked against its buffer before any copy."""
-        on_card: list[tuple[torch.Tensor, torch.Tensor]] = []
+    def _plan_stage(self, keys: list[str]) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """The (local value, staging buffer) copies that write the current
+        values of ``keys``, every leaf checked against its buffer (kind,
+        placement, shape, dtype) before any copy runs. Leaves that alias
+        their buffer need no copy."""
+        copies = []
         for flat_key in keys:
-            value = self._sources[flat_key].detach()
+            shard = _local_shard(self._sources[flat_key])
             (handle,) = self.handles[flat_key]
+            if shard is None or shard[0] != handle.tensor_slice:
+                raise ValueError(
+                    f"refresh of {flat_key!r}: the value is no longer the tensor or shard "
+                    f"{handle.tensor_slice} that was registered; re-register after "
+                    "changing a param's sharding"
+                )
+            value = shard[1].detach()
             staged = self.server.buffers[handle.buffer_id]
             if _aliases(staged, value):
                 # The trainer writes straight into the published buffer
@@ -202,15 +300,40 @@ class DirectWeightSyncSource:
                     f"{dtype} but {tuple(staged.shape)} {staged.dtype} was "
                     "registered; re-register after changing a param's shape or dtype"
                 )
-            if dtype != value.dtype and value.is_cuda:
-                on_card.append((value.contiguous(), staged))
-                continue
-            staged.copy_(cast_reference(value, dtype))  # device-to-host for CUDA leaves
-        if on_card:
-            values = [v for v, _ in on_card]
-            for chunk, outs in cast_kernel.chunks(values, self._transfer_dtype):
-                for i, out in zip(chunk.indices, outs):
-                    on_card[i][1].copy_(out)
+            copies.append((value, staged))
+        return copies
+
+    def _stage(self, copies: list[tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """Write values into their staging buffers, cast where they live: a
+        CPU leaf by the plain cast; the CUDA leaves of each card on one side
+        stream, those that need the transfer dtype through ``cast_on_card``
+        (the grouped kernel, one launch per chunk; pairs it does not cover
+        by ``x.to()``), every device-to-host copy issued non-blocking into
+        the page-locked buffers; then one wait per card for its copies."""
+        by_card: dict[torch.device, list[tuple[torch.Tensor, torch.Tensor]]] = {}
+        for value, staged in copies:
+            card = staging.card_of(value)
+            if card is None:
+                staged.copy_(cast_reference(value, staged.dtype))
+            else:
+                by_card.setdefault(card, []).append((value, staged))
+        streams = []
+        for card, items in by_card.items():
+            with _D2HStream(card) as stream:
+                to_cast = []
+                for value, staged in items:
+                    if value.dtype == staged.dtype:
+                        staged.copy_(value, non_blocking=True)
+                    else:
+                        to_cast.append((value.contiguous(), staged))
+                for indices, outs in staging.cast_on_card(
+                    [v for v, _ in to_cast], self._transfer_dtype
+                ):
+                    for i, out in zip(indices, outs):
+                        to_cast[i][1].copy_(out, non_blocking=True)
+            streams.append(stream)
+        for stream in streams:
+            stream.synchronize()
 
     async def register(
         self,
@@ -223,16 +346,20 @@ class DirectWeightSyncSource:
         self._transfer_dtype = transfer_dtype
         flat, mapping = flatten_state_dict(state_dict)
         self._mapping = mapping
-        self._flat_template = {k: v for k, v in flat.items() if not isinstance(v, torch.Tensor)}
+        shards = {k: _local_shard(v) for k, v in flat.items()}
+        self._flat_template = {k: v for k, v in flat.items() if shards[k] is None}
+        # Buffers a card copies into are page-locked once, here.
+        pin = any(s is not None and staging.card_of(s[1]) is not None for s in shards.values())
         hostname = get_hostname()
         tracker = LatencyTracker("direct_register")
         nbytes = 0
         keys = []
-        for flat_key, value in flat.items():
-            if not isinstance(value, torch.Tensor):
+        for flat_key, shard in shards.items():
+            if shard is None:
                 continue  # non-tensor leaves don't take the direct path
+            ts, value = shard
             keys.append(flat_key)
-            self._sources[flat_key] = value
+            self._sources[flat_key] = flat[flat_key]
             meta = TensorMeta(tuple(int(s) for s in value.shape),
                               dtype_name(self._staged_dtype(value)))
             buffer_id = self._next_id
@@ -245,6 +372,12 @@ class DirectWeightSyncSource:
                 shm_name = seg.name
             else:
                 staged = torch.empty(meta.shape, dtype=meta.torch_dtype)
+            if pin:
+                t0 = time.perf_counter()
+                ptr = _host_register(staged)
+                self.pin_seconds += time.perf_counter() - t0
+                if ptr is not None:
+                    self._pinned.append(ptr)
             nbytes += meta.nbytes
             self.server.buffers[buffer_id] = staged
             self.handles[flat_key] = [
@@ -254,36 +387,48 @@ class DirectWeightSyncSource:
                     port=port,
                     shm_name=shm_name,
                     meta=meta,
-                    tensor_slice=full_slice(meta.shape),
+                    tensor_slice=ts,
                     source_rank=rank,
                 )
             ]
-        self._stage(keys)
+        self._stage(self._plan_stage(keys))
         tracker.track_step("stage", nbytes)
         tracker.log_summary(level=20)
         self._registered = True
         return self.handles
 
     async def refresh(self) -> None:
-        """Re-stage the current values into the registered buffers."""
+        """Re-stage the current values into the registered buffers. A leaf
+        that no longer matches its buffer raises before any buffer is
+        overwritten, and the generation stays as it was; a failure after
+        the overwrite began leaves the generation odd until a refresh
+        completes, so no pull takes the torn buffers for a publish."""
         if not self._registered:
             raise RuntimeError("register() must run before refresh()")
+        copies = self._plan_stage(list(self._sources))
         self._set_busy(True)  # reported odd while buffers are overwritten
         try:
-            self._stage(list(self._sources))
-        finally:
+            self._stage(copies)
+        except BaseException:
+            self._torn = True
+            raise
+        else:
+            self._torn = False
             self._bump_gen(2)
+        finally:
             self._set_busy(False)
 
     def staging_state_dict(self) -> Optional[Any]:
-        """The registered staging buffers in the original structure: a
-        trainer that writes its weights into them makes every later direct
-        put copy-free."""
+        """The registered staging buffers in the original structure (a
+        sharded leaf as a ``Shard`` of its buffer): a trainer that writes
+        its weights into them makes every later direct put copy-free."""
         if not self._registered or self._mapping is None:
             return None
         flat = dict(self._flat_template)
         for flat_key, (handle,) in self.handles.items():
-            flat[flat_key] = self.server.buffers[handle.buffer_id]
+            buf = self.server.buffers[handle.buffer_id]
+            full = handle.tensor_slice.is_full() and not handle.tensor_slice.mesh_shape
+            flat[flat_key] = buf if full else Shard(buf, handle.tensor_slice)
         return unflatten_state_dict(flat, self._mapping)
 
     def update_sources(self, state_dict: Any) -> None:
@@ -294,10 +439,16 @@ class DirectWeightSyncSource:
 
     async def close(self) -> None:
         await self.server.stop()
+        _host_unregister(self._pinned)  # before the mappings go
+        self._pinned.clear()
         for seg in self.segments.values():
             seg.unlink()
         self.segments.clear()
         self.server.buffers.clear()
+        # The server's generation callback makes a reference cycle: drop the
+        # live leaves now, not when the cycle collector runs (they may be
+        # the trainer's weights on a card).
+        self._sources.clear()
 
 
 def _aliases(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -331,6 +482,10 @@ class DirectWeightSyncDest:
         self._plan_sig: Optional[tuple] = None
         self._conns: dict[tuple[str, int], dict] = {}
         self._segments: dict[str, shm.ShmSegment] = {}
+        # Attachments page-locked for host-to-device copies (name ->
+        # pointer), and the seconds their registration took.
+        self._pinned: dict[str, int] = {}
+        self.pin_seconds = 0.0
         self._lock = asyncio.Lock()
 
     # ---- plan -------------------------------------------------------------
@@ -338,9 +493,12 @@ class DirectWeightSyncDest:
     def _build_plan(
         self, all_handles: dict[str, list[WeightHandle]], dest_flat: dict[str, Any]
     ) -> list[_TransferOp]:
+        """One op per distinct intersection of each target's region with a
+        source shard (replicated shards hold identical ones)."""
         plan: list[_TransferOp] = []
         for flat_key, target in dest_flat.items():
-            if not isinstance(target, torch.Tensor):
+            landing = _local_shard(target)
+            if landing is None:
                 continue
             handles = all_handles.get(flat_key)
             if handles is None:
@@ -348,7 +506,7 @@ class DirectWeightSyncDest:
                     f"dest state dict expects {flat_key!r} but the source "
                     "published no handle for it"
                 )
-            want = full_slice(tuple(target.shape))
+            want = landing[0]
             covered: set[Box] = set()
             covered_elems = 0
             for handle in handles:
@@ -359,14 +517,14 @@ class DirectWeightSyncDest:
                     )
                 inter = intersect_boxes(handle.tensor_slice.box, want.box)
                 if inter is None or inter in covered:
-                    continue  # replicated-shard dedup
+                    continue  # disjoint, or a replica's identical region
                 covered.add(inter)
                 covered_elems += inter.size
                 plan.append(_TransferOp(flat_key, handle, inter))
             if covered_elems < want.box.size:
                 raise ValueError(
                     f"source shards cover only {covered_elems} of "
-                    f"{want.box.size} elements of {flat_key!r}"
+                    f"{want.box.size} elements of {flat_key!r} region {want.box}"
                 )
         return plan
 
@@ -374,12 +532,13 @@ class DirectWeightSyncDest:
     def _plan_signature(all_handles: dict, dest_flat: dict) -> tuple:
         target_sig = tuple(
             sorted(
-                (k, tuple(v.shape)) for k, v in dest_flat.items() if isinstance(v, torch.Tensor)
+                (k, _leaf_signature(v)) for k, v in dest_flat.items()
+                if _local_shard(v) is not None
             )
         )
         handle_sig = tuple(
             sorted(
-                (k, tuple((h.buffer_id, h.port, h.tensor_slice.offsets) for h in v))
+                (k, tuple((h.buffer_id, h.port, h.tensor_slice) for h in v))
                 for k, v in all_handles.items()
             )
         )
@@ -391,13 +550,19 @@ class DirectWeightSyncDest:
             self._plan = self._build_plan(all_handles, dest_flat)
             self._plan_sig = sig
 
+    @property
+    def planned_ops(self) -> int:
+        """Regions the last pull copied: one per distinct intersection."""
+        return len(self._plan or ())
+
     # ---- pull -------------------------------------------------------------
 
     async def pull(self, all_handles: dict[str, list[WeightHandle]], dest_state_dict: Any) -> Any:
         """Pull every planned region into the dest tensors, validated
         against concurrent source refreshes: the generations are read
-        before and after the data moves, and a pull that a refresh tore is
-        retried once (a retry overwrites every landing)."""
+        before and after the data moves (after the copies to the cards have
+        completed), and a pull that a refresh tore is retried once (a retry
+        overwrites every landing)."""
         endpoints = sorted({(h.hostname, h.port) for hs in all_handles.values() for h in hs})
         for _ in (0, 1):
             gens0 = await self._stable_gens(endpoints)
@@ -435,55 +600,64 @@ class DirectWeightSyncDest:
         dest_flat, mapping = flatten_state_dict(dest_state_dict)
         self._ensure_plan(all_handles, dest_flat)
         tracker.track_step("plan")
-        # Landing buffer per tensor target: the target itself when it is
-        # contiguous (ops write straight into destination memory), else a
-        # contiguous stand-in copied back at the end.
+        # Landing buffer per target: its (local) tensor when contiguous
+        # (ops write straight into destination memory), else a contiguous
+        # stand-in copied back at the end.
         landings: dict[str, tuple[TensorSlice, torch.Tensor]] = {}
+        cards: set = set()
         for flat_key, target in dest_flat.items():
-            if not isinstance(target, torch.Tensor):
+            landing = _local_shard(target)
+            if landing is None:
                 continue
-            want = full_slice(tuple(target.shape))
-            buf = target if target.is_contiguous() else torch.empty_like(
-                target, memory_format=torch.contiguous_format
+            want, local = landing
+            buf = local if local.is_contiguous() else torch.empty_like(
+                local, memory_format=torch.contiguous_format
             )
             landings[flat_key] = (want, buf)
+            card = staging.card_of(local)
+            if card is not None:
+                cards.add(card)
         by_handle: dict[tuple, tuple[WeightHandle, list[_TransferOp]]] = {}
         for op in self._plan:
             hkey = (op.handle.hostname, op.handle.port, op.handle.buffer_id)
             by_handle.setdefault(hkey, (op.handle, []))[1].append(op)
+        # Attachments a card copies out of are page-locked once, when first
+        # attached; the copies to the cards are then issued non-blocking.
+        pin = bool(cards)
         reads = await asyncio.gather(
-            *(self._read_shard(handle) for handle, _ in by_handle.values())
+            *(self._read_shard(handle, pin) for handle, _ in by_handle.values())
         )
         nbytes = 0
         for (_, ops), arr in zip(by_handle.values(), reads):
             nbytes += arr.numel() * arr.element_size()
             for op in ops:
-                self._apply_op(op, arr, landings)
+                self._apply_op(op, arr, landings, non_blocking=pin)
         tracker.track_step("reads", nbytes)
         out_flat = dict(dest_flat)
         for flat_key, (_, buf) in landings.items():
             target = dest_flat[flat_key]
-            if buf is not target:
-                target.copy_(buf)
-            out_flat[flat_key] = target
+            local = _local_shard(target)[1]
+            if buf is not local:
+                local.copy_(buf)
+            out_flat[flat_key] = target.data if isinstance(target, Shard) else target
+        for card in cards:
+            _synchronize(card)
         tracker.track_step("land")
         tracker.log_summary(level=20)
         return unflatten_state_dict(out_flat, mapping)
 
     @staticmethod
-    def _apply_op(op: _TransferOp, shard: torch.Tensor, landings) -> None:
-        """Copy the part of ``shard`` (the handle's whole buffer) that
-        overlaps the op's landing into place."""
+    def _apply_op(op: _TransferOp, shard: torch.Tensor, landings, non_blocking: bool) -> None:
+        """Copy the part of ``shard`` (the handle's whole buffer) that the
+        op covers into its place in the landing."""
         want, buf = landings[op.flat_key]
-        inter = intersect_boxes(op.region, want.box)
-        if inter is None:
-            return
+        inter = op.region
         rel_src = tuple(
             slice(o - so, o - so + s)
             for o, so, s in zip(inter.offsets, op.handle.tensor_slice.offsets, inter.shape)
         )
         view = get_destination_view(buf, want.box, inter, require_contiguous=False)
-        view.copy_(shard[rel_src])
+        view.copy_(shard[rel_src], non_blocking=non_blocking)
 
     async def _get_conn(self, host: str, port: int):
         """A pooled (reader, writer, lock) to a source's peer server."""
@@ -512,9 +686,9 @@ class DirectWeightSyncDest:
                 raise KeyError(f"source refused control op {opcode:#x}")
             return await reader.readexactly(length)
 
-    async def _read_shard(self, handle: WeightHandle) -> torch.Tensor:
+    async def _read_shard(self, handle: WeightHandle, pin: bool = False) -> torch.Tensor:
         """One-hop read of a source buffer: a shared-memory attach on the
-        same host, a TCP read otherwise."""
+        same host (page-locked once when ``pin``), a TCP read otherwise."""
         if handle.shm_name is not None and handle.hostname == get_hostname():
             seg = self._segments.get(handle.shm_name)
             if seg is None:
@@ -522,7 +696,14 @@ class DirectWeightSyncDest:
                     handle.shm_name, max(handle.meta.nbytes, 1), populate=True
                 )
                 self._segments[handle.shm_name] = seg
-            return seg.view(handle.meta)
+            view = seg.view(handle.meta)
+            if pin and handle.shm_name not in self._pinned:
+                t0 = time.perf_counter()
+                ptr = _host_register(view)
+                self.pin_seconds += time.perf_counter() - t0
+                if ptr is not None:
+                    self._pinned[handle.shm_name] = ptr
+            return view
         host = "127.0.0.1" if handle.hostname == get_hostname() else handle.hostname
         reader, writer, lock = await self._get_conn(host, handle.port)
         async with lock:
@@ -557,5 +738,6 @@ class DirectWeightSyncDest:
                 for _, writer, _ in pool["conns"]:
                     writer.close()
             self._conns.clear()
+        _host_unregister(self._pinned.values())  # before the mappings go
+        self._pinned.clear()
         self._segments.clear()
-

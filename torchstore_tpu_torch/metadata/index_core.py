@@ -1,27 +1,42 @@
 """The controller's key -> volume index.
 
-Port of the core of ``torchstore_tpu/metadata/index_core.py`` for whole
-tensors and objects: which volumes hold each key and what they hold,
-structural-change tracking for the placement epoch, and deletes. Sharded
-keys and their commit tracking, replica reclaims, health-aware locates and
-the stamped publication of the index are later work.
+Port of the core of ``torchstore_tpu/metadata/index_core.py``: which
+volumes hold each key and what they hold (a whole tensor, an object, or
+the shards of a sharded tensor by mesh coordinate), commit tracking for
+sharded keys, structural-change tracking for the placement epoch, and
+deletes. Replica reclaims, health-aware locates and the stamped
+publication of the index are later work.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from enum import Enum
 from typing import Optional
 
-from torchstore_tpu_torch.transport.types import Request, TensorMeta
+from torchstore_tpu_torch.transport.types import Request, TensorMeta, TensorSlice
 
 
 class ObjectType(Enum):
     OBJECT = "object"
     TENSOR = "tensor"
+    TENSOR_SLICE = "tensor_slice"
+
+
+def _object_type(meta: Request) -> ObjectType:
+    if meta.is_object:
+        return ObjectType.OBJECT
+    if meta.tensor_slice is not None:
+        return ObjectType.TENSOR_SLICE
+    return ObjectType.TENSOR
 
 
 class StoreKeyError(KeyError):
+    pass
+
+
+class PartiallyCommittedError(KeyError):
     pass
 
 
@@ -31,19 +46,53 @@ class StorageInfo:
 
     object_type: ObjectType
     tensor_meta: Optional[TensorMeta] = None
+    # coordinates -> TensorSlice, for TENSOR_SLICE keys.
+    tensor_slices: dict[tuple, TensorSlice] = field(default_factory=dict)
 
     @classmethod
     def from_meta(cls, meta: Request) -> "StorageInfo":
-        kind = ObjectType.OBJECT if meta.is_object else ObjectType.TENSOR
-        return cls(object_type=kind, tensor_meta=meta.tensor_meta)
+        info = cls(object_type=_object_type(meta), tensor_meta=meta.tensor_meta)
+        if meta.tensor_slice is not None:
+            info.tensor_slices[meta.tensor_slice.coordinates] = meta.tensor_slice
+        return info
+
+
+def _layout(meta: Request) -> tuple:
+    """What a re-put must keep for an entry to stay: its kind and, for a
+    shard, the mesh and global shape."""
+    ts = meta.tensor_slice
+    if ts is None:
+        return (_object_type(meta),)
+    return (ObjectType.TENSOR_SLICE, ts.mesh_shape, ts.global_shape)
+
+
+def _info_layout(info: StorageInfo) -> tuple:
+    if info.object_type != ObjectType.TENSOR_SLICE:
+        return (info.object_type,)
+    ts = next(iter(info.tensor_slices.values()))
+    return (ObjectType.TENSOR_SLICE, ts.mesh_shape, ts.global_shape)
 
 
 class IndexCore:
     def __init__(self) -> None:
         self.index: dict[str, dict[str, StorageInfo]] = {}
 
+    @staticmethod
+    def committed_state(infos: dict[str, StorageInfo]) -> str:
+        """'committed' or 'partial' for one key: a sharded key is committed
+        once the coordinates stored across its volumes number
+        prod(mesh_shape)."""
+        any_info = next(iter(infos.values()))
+        if any_info.object_type != ObjectType.TENSOR_SLICE:
+            return "committed"
+        coords: set[tuple] = set()
+        for info in infos.values():
+            coords.update(info.tensor_slices)
+        mesh_shape = next(iter(any_info.tensor_slices.values())).mesh_shape
+        return "committed" if len(coords) >= math.prod(mesh_shape) else "partial"
+
     def locate(
-        self, keys: list[str], missing_ok: bool = False
+        self, keys: list[str], missing_ok: bool = False, require_committed: bool = True
     ) -> dict[str, dict[str, StorageInfo]]:
         out: dict[str, dict[str, StorageInfo]] = {}
         for key in keys:
@@ -52,6 +101,11 @@ class IndexCore:
                 if missing_ok:
                     continue
                 raise StoreKeyError(f"Key {key!r} not found in store")
+            if require_committed and self.committed_state(infos) == "partial":
+                raise PartiallyCommittedError(
+                    f"Key {key!r} is only partially committed; not all mesh "
+                    "coordinates have been stored yet"
+                )
             out[key] = infos
         return out
 
@@ -66,8 +120,11 @@ class IndexCore:
 
     def apply_put_batch(self, metas: list[Request], volume_ids: list[str]) -> bool:
         """Index ``metas`` as stored on every id in ``volume_ids``; returns
-        True when the placement changed structurally (a new key or replica,
-        or a new shape or dtype under an old key)."""
+        True when the placement changed structurally (a new key, replica or
+        shard coordinate, a new shape or dtype under an old key, or a new
+        layout). A put under another kind or layout (mesh or global shape)
+        replaces the key's entry on every volume: stale shards must neither
+        satisfy the commit check nor be served beside new ones."""
         structural = False
         for meta in metas:
             if meta.tensor_val is not None or meta.objects is not None:
@@ -75,17 +132,28 @@ class IndexCore:
                     "controller must never receive data payloads; send meta_only() requests"
                 )
             infos = self.index.get(meta.key)
+            if infos is not None and any(
+                _info_layout(info) != _layout(meta) for info in infos.values()
+            ):
+                infos = None
             if infos is None:
                 infos = self.index[meta.key] = {}
                 structural = True
             for vid in volume_ids:
-                new = StorageInfo.from_meta(meta)
                 old = infos.get(vid)
-                if old is None or old.object_type != new.object_type or (
-                    old.tensor_meta != new.tensor_meta
-                ):
+                if meta.tensor_slice is None:
+                    new = StorageInfo.from_meta(meta)
+                    if old is None or old.tensor_meta != new.tensor_meta:
+                        structural = True
+                    infos[vid] = new
+                    continue
+                if old is None:
+                    old = infos[vid] = StorageInfo(ObjectType.TENSOR_SLICE)
+                coords = meta.tensor_slice.coordinates
+                if old.tensor_slices.get(coords) != meta.tensor_slice:
                     structural = True
-                infos[vid] = new
+                old.tensor_slices[coords] = meta.tensor_slice
+                old.tensor_meta = meta.tensor_meta
         return structural
 
     def delete_keys(self, keys: list[str]) -> dict[str, list[str]]:

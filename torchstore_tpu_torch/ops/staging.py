@@ -20,7 +20,7 @@ from __future__ import annotations
 import ctypes
 import struct
 from dataclasses import dataclass
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 
@@ -169,10 +169,13 @@ class CastKernel:
     """The built cast library, its build log, and the launch count.
 
     ``launches`` grows by one per kernel launch (one per chunk) and nowhere
-    else; CPU tensors (the plain version) and empty tensors do not count."""
+    else; CPU tensors (the plain version) and empty tensors do not count.
+    ``fallbacks`` counts the CUDA tensors ``cast_on_card`` casts by ``x.to()``
+    because the kernel does not cover their pair; they are not launches."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.fallbacks = 0
         self.lib = NvccLibrary(
             "cast.cu",
             "tst_cast_group",
@@ -283,3 +286,32 @@ def cast_group(
     if tensors and not any(t.is_cuda for t in tensors):
         return cast_group_reference(tensors, dtype)
     return cast_kernel.group(tensors, dtype, max_chunk_bytes)
+
+
+def card_of(t: torch.Tensor) -> Optional[torch.device]:
+    """The CUDA device ``t`` lives on, or None for a host tensor."""
+    return t.device if t.is_cuda else None
+
+
+def cast_on_card(
+    tensors: Sequence[torch.Tensor],
+    dtype: torch.dtype,
+    max_chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+) -> Iterator[tuple[tuple[int, ...], list[torch.Tensor]]]:
+    """Cast contiguous CUDA tensors of one device to ``dtype``, yielding
+    (positions in ``tensors``, outputs) a batch at a time: the pairs the
+    kernel covers through ``cast_kernel.chunks`` (one launch per chunk, each
+    chunk's outputs yielded before the next launches), any other pair by the
+    plain ``x.to()``, counted in ``cast_kernel.fallbacks`` (the reference
+    leaves such pairs to XLA's ``astype``). A covered pair whose kernel
+    fails to build or launch raises; it never takes the plain cast."""
+    covered = []
+    for i, t in enumerate(tensors):
+        if (t.dtype, dtype) in _PAIR_KINDS:
+            covered.append(i)
+        else:
+            cast_kernel.fallbacks += 1
+            yield (i,), [t.to(dtype)]
+    srcs = [tensors[i] for i in covered]
+    for chunk, outs in cast_kernel.chunks(srcs, dtype, max_chunk_bytes):
+        yield tuple(covered[j] for j in chunk.indices), outs

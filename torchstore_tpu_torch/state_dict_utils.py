@@ -5,8 +5,11 @@ under ``key/<flat_path>`` first and ``key/MAPPING`` is written LAST as the
 commit marker: its presence means the state dict is complete, and readers
 fetch it first and fail with ``NoMatchingPush`` when it is absent.
 ``direct=True`` publishes the source's staging-buffer handles instead
-(``direct_weight_sync.py``). Quantized, delta and streamed publishes and
-the transfer-plan cache are later work.
+(``direct_weight_sync.py``). A leaf may be a tensor, a ``Shard`` or a
+DTensor: a sharded leaf is put (and cast) as its rank's local shard, and a
+``Shard`` or DTensor target of a get is filled with its region of the
+stored tensor. Quantized, delta and streamed publishes and the
+transfer-plan cache are later work.
 """
 
 from __future__ import annotations
@@ -17,8 +20,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from torchstore_tpu_torch import sharding
+from torchstore_tpu_torch.client import Shard
 from torchstore_tpu_torch.logging import LatencyTracker, get_logger
-from torchstore_tpu_torch.ops.staging import cast_group, cast_reference
+from torchstore_tpu_torch.ops import staging
+from torchstore_tpu_torch.ops.staging import cast_reference
+from torchstore_tpu_torch.transport.types import TensorSlice
 
 logger = get_logger("torchstore_tpu_torch.state_dict")
 
@@ -157,29 +164,96 @@ def from_numpy_tree(tree: Any, device, dtype: Optional[torch.dtype] = None) -> A
     return t.to(device)
 
 
-def _is_floating(value: Any) -> bool:
-    return isinstance(value, torch.Tensor) and value.is_floating_point()
+def shards_from_numpy(
+    arr: np.ndarray, mesh_shape: tuple, spec: tuple, device, dtype: Optional[torch.dtype] = None
+) -> list[Shard]:
+    """The ``Shard`` of every mesh coordinate (row-major) of a global numpy
+    array laid out as JAX's ``NamedSharding(mesh, PartitionSpec(*spec))``
+    lays it out, on ``device`` (leaves converted as ``from_numpy_tree``
+    does). ``spec`` holds per tensor dimension None, a mesh axis index or a
+    tuple of them (the dimension split over those axes, the first one
+    outermost); a shorter ``spec`` leaves the last dimensions whole. Every
+    split dimension must divide evenly, as JAX requires."""
+    axes = [() if a is None else (a,) if isinstance(a, int) else tuple(a) for a in spec]
+    axes += [()] * (arr.ndim - len(axes))
+    shards = []
+    for coords in np.ndindex(*mesh_shape):
+        offsets, local = [], []
+        for dim, dim_axes in enumerate(axes):
+            pieces, piece = 1, 0
+            for a in dim_axes:
+                pieces, piece = pieces * mesh_shape[a], piece * mesh_shape[a] + coords[a]
+            if arr.shape[dim] % pieces:
+                raise ValueError(f"dim {dim} of {arr.shape} does not split into {pieces}")
+            size = arr.shape[dim] // pieces
+            offsets.append(piece * size)
+            local.append(size)
+        ts = TensorSlice(tuple(offsets), tuple(local), arr.shape, coords, tuple(mesh_shape))
+        data = from_numpy_tree(np.ascontiguousarray(arr[ts.box.to_index()]), device, dtype)
+        shards.append(Shard(data, ts))
+    return shards
+
+
+def _local_leaf(value: Any):
+    """(local tensor, rewrap) of a tensor leaf, or (None, None): a tensor
+    is its own local tensor; a ``Shard`` has its data; a DTensor its rank's
+    shard, put back as a ``Shard`` of its slice (as a plain tensor when it
+    is stored as one). ``rewrap`` puts a cast of the local tensor in the
+    leaf's place."""
+    if isinstance(value, Shard):
+        if value.data is None:
+            return None, None
+        ts = value.tensor_slice
+        return value.data, lambda y: Shard(y, ts)
+    if sharding.is_dtensor(value):
+        ts = sharding.local_slice(value)
+        return sharding.local_tensor(value), (lambda y: y) if ts is None else (
+            lambda y: Shard(y, ts)
+        )
+    if isinstance(value, torch.Tensor):
+        return value, lambda y: y
+    return None, None
 
 
 def cast_floating_tensors(flat: dict[str, Any], transfer_dtype) -> dict[str, Any]:
-    """Cast floating leaves to ``transfer_dtype`` before transfer: the CUDA
-    leaves of each device through the grouped cast kernel (``cast_group``,
-    one launch per chunk), CPU leaves by the plain cast. Leaves already in
-    ``transfer_dtype`` pass as they are. (The reference leaves this cast to
-    XLA's ``astype``, outside its Pallas kernel.)"""
+    """Cast floating leaves (a sharded leaf's local shard) to
+    ``transfer_dtype`` before transfer: the CUDA leaves of each card through
+    ``cast_on_card`` (the grouped cast kernel, one launch per chunk; a pair
+    it does not cover by ``x.to()``, as the reference leaves every pair to
+    XLA's ``astype``), CPU leaves by the plain cast. Leaves already in
+    ``transfer_dtype`` pass as they are."""
     out = dict(flat)
-    on_card: dict[torch.device, list[str]] = {}
+    on_card: dict[torch.device, list[tuple[str, torch.Tensor, Any]]] = {}
     for k, v in flat.items():
-        if not _is_floating(v) or v.dtype == transfer_dtype:
+        local, rewrap = _local_leaf(v)
+        if local is None or not local.is_floating_point() or local.dtype == transfer_dtype:
             continue
-        if v.is_cuda:
-            on_card.setdefault(v.device, []).append(k)
+        card = staging.card_of(local)
+        if card is None:
+            out[k] = rewrap(cast_reference(local, transfer_dtype))
         else:
-            out[k] = cast_reference(v, transfer_dtype)
-    for keys in on_card.values():
-        cast = cast_group([flat[k].contiguous() for k in keys], transfer_dtype)
-        out.update(zip(keys, cast))
+            on_card.setdefault(card, []).append((k, local.contiguous(), rewrap))
+    for items in on_card.values():
+        for indices, outs in staging.cast_on_card([t for _, t, _ in items], transfer_dtype):
+            for i, y in zip(indices, outs):
+                k, _, rewrap = items[i]
+                out[k] = rewrap(y)
     return out
+
+
+def _leaf_signature(value: Any) -> tuple:
+    """Hashable signature of one leaf as a transfer target: shape, dtype
+    and placement (a DTensor's mesh and placements, a ``Shard``'s slice),
+    so a plan built for one layout is never replayed for another."""
+    sig = sharding.plan_signature(value)
+    if sig is not None:
+        return sig
+    if isinstance(value, Shard):
+        data = None if value.data is None else _leaf_signature(value.data)
+        return ("shard", value.tensor_slice, data)
+    if isinstance(value, torch.Tensor):
+        return ("torch", tuple(value.shape), str(value.dtype))
+    return ("obj",)
 
 
 # --------------------------------------------------------------------------
@@ -325,11 +399,27 @@ async def put_state_dict(
     tracker.track_step("flatten")
     if flat:
         await client.put_batch({_store_key(key, k): v for k, v in flat.items()})
-    nbytes = sum(v.numel() * v.element_size() for v in flat.values() if isinstance(v, torch.Tensor))
+    locals_ = [_local_leaf(v)[0] for v in flat.values()]
+    nbytes = sum(t.numel() * t.element_size() for t in locals_ if t is not None)
     tracker.track_step("put_batch", nbytes)
     await client.put(_store_key(key, MAPPING_KEY), {"mapping": mapping})  # commit marker LAST
     tracker.track_step("commit_marker")
     tracker.log_summary(level=20)
+
+
+def direct_sync_stats(client, key: str) -> dict:
+    """This client's direct sync of ``key``: the seconds its sources (every
+    rank it published) and its dest spent page-locking host memory, and the
+    regions the dest's last pull copied (one per distinct intersection of a
+    target with a source shard)."""
+    cache = _direct_cache(client)
+    sources = [s for (k, _), s in cache.sources.items() if k == key]
+    dest = cache.dests.get(key, (None, None))[0]
+    return {
+        "source_pin_seconds": sum(s.pin_seconds for s in sources),
+        "dest_pin_seconds": 0.0 if dest is None else dest.pin_seconds,
+        "pulled_regions": 0 if dest is None else dest.planned_ops,
+    }
 
 
 def direct_staging_buffers(client, key: str, rank: int = 0) -> Any:
@@ -381,7 +471,7 @@ async def get_state_dict(
                 f"{sorted(missing)[:5]} (pass strict=False to pull a subset)"
             )
         targets = {
-            _store_key(key, k): (v if isinstance(v, torch.Tensor) else None)
+            _store_key(key, k): (v if isinstance(v, (torch.Tensor, Shard)) else None)
             for k, v in user_flat.items()
         }
         fetched = await client.get_batch(targets)

@@ -1,9 +1,12 @@
 """Storage volume actor: an in-memory key -> tensor/object store.
 
 Port of the ``put``/``get``/``get_meta``/``delete_batch`` endpoints of
-``torchstore_tpu/storage_volume.py`` over an in-memory dict of whole
-tensors and objects. Sharded entries (``TensorSlice`` keys), tiering, the
-one-sided planes and the health and repair endpoints are later work.
+``torchstore_tpu/storage_volume.py`` over an in-memory dict. A key holds a
+whole tensor, an object, or the shards of a sharded tensor (one per mesh
+coordinate, ``ShardedEntry``). A get may ask for a sub-box of a whole
+tensor or of one stored shard; the transport then returns only that box.
+Tiering, the one-sided planes and the health and repair endpoints are
+later work.
 """
 
 from __future__ import annotations
@@ -13,9 +16,14 @@ from typing import Any, Optional
 
 from torchstore_tpu_torch.runtime import Actor, endpoint
 from torchstore_tpu_torch.transport import shared_memory
-from torchstore_tpu_torch.transport.buffers import TransportBuffer, TransportContext
-from torchstore_tpu_torch.transport.types import Request, TensorMeta
-from torchstore_tpu_torch.utils import get_hostname, maybe_await
+from torchstore_tpu_torch.transport.buffers import Served, TransportBuffer, TransportContext
+from torchstore_tpu_torch.transport.types import Request, TensorMeta, TensorSlice
+from torchstore_tpu_torch.utils import Box, get_hostname, maybe_await
+
+
+class ShardedEntry(dict):
+    """The shards of one sharded key on this volume:
+    coordinates -> (TensorSlice, tensor)."""
 
 
 class StorageVolume(Actor):
@@ -33,28 +41,79 @@ class StorageVolume(Actor):
 
     @endpoint
     async def put(self, buffer: TransportBuffer, metas: list[Request]) -> Any:
+        for meta in metas:
+            self._supersede(meta)
         existing = {
             idx: self.store[m.key] for idx, m in enumerate(metas) if m.key in self.store
         }
         values = await maybe_await(buffer.handle_put_request(self.ctx, metas, existing))
         for idx, meta in enumerate(metas):
-            self.store[meta.key] = values[idx]
+            ts = meta.tensor_slice
+            if ts is None:
+                self.store[meta.key] = values[idx]
+            else:
+                self.store.setdefault(meta.key, ShardedEntry())[ts.coordinates] = (ts, values[idx])
         return buffer.put_reply()
+
+    def _supersede(self, meta: Request) -> None:
+        """Drop what ``meta`` replaces as a whole before it lands: a sharded
+        entry of another layout (mesh or global shape) or kind. Shards of the
+        same layout replace each other coordinate by coordinate, a whole
+        value the whole value."""
+        entry = self.store.get(meta.key)
+        if entry is None:
+            return
+        ts = meta.tensor_slice
+        if isinstance(entry, ShardedEntry):
+            if ts is not None and all(
+                s.mesh_shape == ts.mesh_shape and s.global_shape == ts.global_shape
+                for s, _ in entry.values()
+            ):
+                return
+        elif ts is None:
+            return
+        del self.store[meta.key]
+        self.ctx.delete_key(meta.key)
 
     @endpoint
     async def get(self, buffer: TransportBuffer, metas: list[Request]) -> TransportBuffer:
-        entries = [self._entry(meta.key) for meta in metas]
+        entries = [self._serve(meta) for meta in metas]
         await maybe_await(buffer.handle_get_request(self.ctx, metas, entries))
         return buffer
 
+    def _serve(self, meta: Request) -> Any:
+        """The object, or the ``Served`` part of a stored tensor, that
+        ``meta`` asks for."""
+        entry = self._entry(meta.key)
+        if meta.is_object:
+            return entry
+        ts = meta.tensor_slice
+        if isinstance(entry, ShardedEntry):
+            if ts is None:
+                if len(entry) == 1:
+                    ((coords, (stored, tensor)),) = entry.items()
+                    if stored.is_full():
+                        return Served(tensor, (meta.key, coords))
+                raise ValueError(
+                    f"key {meta.key!r} is sharded across coordinates {sorted(entry)}; "
+                    "a slice request is required"
+                )
+            found = entry.get(ts.coordinates)
+            if found is None:
+                raise KeyError(f"no shard at coordinates {ts.coordinates} of key {meta.key!r}")
+            stored, tensor = found
+            return Served(tensor, (meta.key, ts.coordinates), _sub_index(stored, ts, meta.key))
+        if ts is None:
+            return Served(entry, (meta.key, None))
+        whole = TensorSlice((0,) * entry.ndim, tuple(entry.shape), tuple(entry.shape), (), ())
+        return Served(entry, (meta.key, None), _sub_index(whole, ts, meta.key))
+
     @endpoint
     async def get_meta(self, metas: list[Request]) -> list[Optional[TensorMeta]]:
-        """Shape and dtype of each stored tensor (None for objects)."""
-        out = []
-        for meta in metas:
-            entry = self._entry(meta.key)
-            out.append(None if meta.is_object else TensorMeta.of(entry))
-        return out
+        """Shape and dtype of each stored tensor or requested part (None for
+        objects)."""
+        return [None if meta.is_object else TensorMeta.of(self._serve(meta).part())
+                for meta in metas]
 
     @endpoint
     async def delete_batch(self, keys: list[str]) -> int:
@@ -80,3 +139,16 @@ class StorageVolume(Actor):
             return self.store[key]
         except KeyError:
             raise KeyError(f"key {key!r} not found on volume {self.volume_id}") from None
+
+
+def _sub_index(stored: TensorSlice, want: TensorSlice, key: str) -> Optional[tuple]:
+    """The index of ``want``'s box inside the tensor of ``stored`` (None: all
+    of it); raises when the stored part does not contain it."""
+    if not stored.box.contains(want.box):
+        raise ValueError(
+            f"requested region {want.box} not contained in stored {stored.box} of key {key!r}"
+        )
+    if want.box == stored.box:
+        return None
+    rel = Box(tuple(o - so for o, so in zip(want.offsets, stored.offsets)), want.local_shape)
+    return rel.to_index()

@@ -21,6 +21,7 @@ its client-only state in ``__getstate__``. The reference's put handshake
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
+from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Optional
 
 import torch
@@ -40,6 +41,21 @@ def transfer_timeout(base: Optional[float], nbytes: int) -> Optional[float]:
     if base is None or base <= 0:
         return base  # deadlines disabled
     return base + nbytes / MIN_TRANSFER_RATE_BPS
+
+
+@dataclass
+class Served:
+    """A volume's answer to one tensor request: the stored tensor, the key
+    its transport cache knows it by ((key, coordinates), coordinates None
+    for a whole tensor), and the index of the wanted part in it (None: the
+    whole tensor). Transports return only that part."""
+
+    tensor: torch.Tensor
+    cache_key: tuple
+    index: Optional[tuple] = None
+
+    def part(self) -> torch.Tensor:
+        return self.tensor if self.index is None else self.tensor[self.index]
 
 
 class TransportCache:
@@ -156,7 +172,8 @@ class TransportBuffer(ABC):
     def handle_get_request(
         self, ctx: TransportContext, metas: list[Request], entries: list[Any]
     ) -> None:
-        """Load outgoing data into this buffer (entries in request order)."""
+        """Load outgoing data into this buffer: per request (in order) an
+        object, or the ``Served`` part of a stored tensor."""
 
 
 def land(dest: Optional[torch.Tensor], src: torch.Tensor) -> torch.Tensor:

@@ -64,4 +64,4 @@ class RPCTransportBuffer(TransportBuffer):
             if meta.is_object:
                 self.objects[idx] = entry
             else:
-                self.tensors[idx] = entry
+                self.tensors[idx] = entry.part()  # the frame carries only the part's bytes

@@ -9,13 +9,14 @@ PUT: the client creates a segment per tensor and copies the payload into it
      put RPC carries only descriptors. The volume attaches each segment,
      renames it to its own pid (the name's pid is always the owner's) and
      keeps the view as the stored tensor. Small payloads ride the RPC frame.
-GET: the volume answers with the descriptor of the segment a key lives in;
-     a client with a destination maps it with its page tables wired and
-     copies into the destination (host-to-device for a CUDA target); a
-     client without one maps it copy-on-write and keeps the view (zero
-     copy). A put never writes into a live segment: it lands in a new one
-     and the old name is unlinked, so a view a reader holds stays a stable
-     snapshot.
+GET: the volume answers with the descriptor of the segment a key (or one
+     shard of a sharded key) lives in, and the index of the wanted box in
+     it; a client with a destination maps it with its page tables wired
+     and copies the box into the destination
+     (host-to-device for a CUDA target); a client without one maps it
+     copy-on-write and keeps a view of the box (zero copy). A put never
+     writes into a live segment: it lands in a new one and the old name is
+     unlinked, so a view a reader holds stays a stable snapshot.
 
 Segment names start with ``tst_shm_``, never ``ts_shm_``: the reference's
 orphan reaper and leak checks match its own prefix only. The pooled segment
@@ -35,6 +36,7 @@ import torch
 
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.transport.buffers import (
+    Served,
     TransportBuffer,
     TransportCache,
     TransportContext,
@@ -169,29 +171,40 @@ class ShmDescriptor:
     segment_name: str
     segment_size: int
     meta: TensorMeta
+    index: Optional[tuple] = None  # the wanted box in the segment's tensor
+
+
+def _cache_key(meta: Request) -> tuple:
+    ts = meta.tensor_slice
+    return (meta.key, None if ts is None else ts.coordinates)
 
 
 class ShmServerCache(TransportCache):
-    """Volume side: the segment each key's stored tensor lives in."""
+    """Volume side: the segment each stored tensor lives in, by (key,
+    coordinates); coordinates are None for a whole tensor."""
 
     def __init__(self) -> None:
-        self.by_key: dict[str, tuple[ShmSegment, int]] = {}  # key -> (seg, data_ptr)
+        self.by_key: dict[tuple, tuple[ShmSegment, int]] = {}  # -> (seg, data_ptr)
 
-    def put(self, key: str, seg: ShmSegment, view: torch.Tensor) -> None:
-        self.delete_key(key)
-        self.by_key[key] = (seg, view.data_ptr())
+    def put(self, cache_key: tuple, seg: ShmSegment, view: torch.Tensor) -> None:
+        self.delete(cache_key)
+        self.by_key[cache_key] = (seg, view.data_ptr())
 
-    def lookup(self, key: str, entry: torch.Tensor) -> Optional[ShmSegment]:
-        """The segment ``entry`` lives in, if it is the key's stored view."""
-        found = self.by_key.get(key)
+    def lookup(self, cache_key: tuple, entry: torch.Tensor) -> Optional[ShmSegment]:
+        """The segment ``entry`` lives in, if it is the stored view."""
+        found = self.by_key.get(cache_key)
         if found is None or entry.numel() == 0 or found[1] != entry.data_ptr():
             return None
         return found[0]
 
-    def delete_key(self, key: str) -> None:
-        found = self.by_key.pop(key, None)
+    def delete(self, cache_key: tuple) -> None:
+        found = self.by_key.pop(cache_key, None)
         if found is not None:
             found[0].unlink()
+
+    def delete_key(self, key: str) -> None:
+        for cache_key in [ck for ck in self.by_key if ck[0] == key]:
+            self.delete(cache_key)
 
     def clear(self) -> None:
         for seg, _ in self.by_key.values():
@@ -257,7 +270,7 @@ class SharedMemoryTransportBuffer(TransportBuffer):
         cache: ShmServerCache = ctx.get_cache(ShmServerCache)
         out: dict[int, Any] = dict(self.objects)
         for idx, tensor in self.inline.items():
-            cache.delete_key(metas[idx].key)
+            cache.delete(_cache_key(metas[idx]))
             out[idx] = tensor
         for idx, desc in self.descriptors.items():
             seg = ShmSegment.attach(desc.segment_name, desc.segment_size)
@@ -265,7 +278,7 @@ class SharedMemoryTransportBuffer(TransportBuffer):
             seg.rename_to_owner()
             self.renames[old_name] = seg.name
             view = seg.view(desc.meta)
-            cache.put(metas[idx].key, seg, view)
+            cache.put(_cache_key(metas[idx]), seg, view)
             out[idx] = view
         return out
 
@@ -282,12 +295,13 @@ class SharedMemoryTransportBuffer(TransportBuffer):
             if meta.is_object:
                 self.objects[idx] = entry
                 continue
-            seg = cache.lookup(meta.key, entry)
+            served: Served = entry
+            seg = cache.lookup(served.cache_key, served.tensor)
             if seg is None:
-                self.inline[idx] = entry
+                self.inline[idx] = served.part()  # the frame carries only the part's bytes
             else:
                 self.descriptors[idx] = ShmDescriptor(
-                    seg.name, seg.size, TensorMeta.of(entry)
+                    seg.name, seg.size, TensorMeta.of(served.tensor), served.index
                 )
 
     # ---- client: get -----------------------------------------------------
@@ -306,8 +320,12 @@ class SharedMemoryTransportBuffer(TransportBuffer):
                 if req.destination_view is None:
                     # Zero-copy: the (copy-on-write) view is the result.
                     seg = ShmSegment.attach(desc.segment_name, desc.segment_size, private=True)
-                    results.append(seg.view(desc.meta))
+                    results.append(_part(seg.view(desc.meta), desc.index))
                 else:
                     seg = ShmSegment.attach(desc.segment_name, desc.segment_size, populate=True)
-                    results.append(land(req.destination_view, seg.view(desc.meta)))
+                    results.append(land(req.destination_view, _part(seg.view(desc.meta), desc.index)))
         return results
+
+
+def _part(view: torch.Tensor, index: Optional[tuple]) -> torch.Tensor:
+    return view if index is None else view[index]

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import math
 import pickle
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
 import torch
@@ -90,6 +90,11 @@ class TensorSlice:
             o == 0 for o in self.offsets
         )
 
+    def with_box(self, box: Box) -> "TensorSlice":
+        """A slice describing ``box`` of the same global tensor, at the same
+        mesh position."""
+        return replace(self, offsets=box.offsets, local_shape=box.shape)
+
 
 def full_slice(shape) -> TensorSlice:
     """The slice covering a whole unsharded tensor of ``shape``."""
@@ -125,12 +130,15 @@ class OpaqueBlob:
 @dataclass
 class Request:
     """One store operation on one key. ``tensor_val`` is the payload on put
-    (CPU or CUDA) or the in-place destination on get; ``objects`` carries an
-    ``OpaqueBlob``. ``meta_only()`` strips data before metadata-plane RPCs:
-    the controller never sees tensor bytes."""
+    (CPU or CUDA) or the in-place destination on get; ``tensor_slice``
+    places a shard in its global tensor (a sharded put, or the region a get
+    wants); ``objects`` carries an ``OpaqueBlob``. ``meta_only()`` strips
+    data before metadata-plane RPCs: the controller never sees tensor
+    bytes."""
 
     key: str
     tensor_val: Optional[torch.Tensor] = None
+    tensor_slice: Optional[TensorSlice] = None
     objects: Any = None
     is_object: bool = False
     tensor_meta: Optional[TensorMeta] = None
@@ -145,15 +153,38 @@ class Request:
     def from_objects(cls, key: str, objects: Any) -> "Request":
         return cls(key=key, objects=objects, is_object=True)
 
+    @classmethod
+    def from_tensor_slice(
+        cls, key: str, tensor_slice: TensorSlice, tensor: Optional[torch.Tensor] = None
+    ) -> "Request":
+        if tensor is not None and tuple(tensor.shape) != tensor_slice.local_shape:
+            raise ValueError(
+                f"shard data shape {tuple(tensor.shape)} != slice local_shape "
+                f"{tensor_slice.local_shape} for key {key!r}"
+            )
+        return cls(key=key, tensor_val=tensor, tensor_slice=tensor_slice)
+
+    @classmethod
+    def meta_request(cls, key: str) -> "Request":
+        return cls(key=key)
+
     def meta_only(self) -> "Request":
+        """A copy carrying metadata only. Memoized: one request's meta rides
+        the put and the notify; the copy is read only."""
+        cached = self.__dict__.get("_meta_only")
+        if cached is not None:
+            return cached
         meta = self.tensor_meta
         if meta is None and self.tensor_val is not None:
             meta = TensorMeta.of(self.tensor_val)
-        return Request(
+        mo = Request(
             key=self.key,
+            tensor_slice=self.tensor_slice,
             is_object=self.is_object,
             tensor_meta=meta,
         )
+        self.__dict__["_meta_only"] = mo
+        return mo
 
     @property
     def nbytes(self) -> int:
@@ -164,4 +195,5 @@ class Request:
     def __getstate__(self):
         state = self.__dict__.copy()
         state["destination_view"] = None
+        state.pop("_meta_only", None)
         return state

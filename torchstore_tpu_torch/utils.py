@@ -1,9 +1,10 @@
 """Reshard math and small helpers.
 
 PyTorch port of ``torchstore_tpu/utils.py``: ``Box`` regions of a global
-index space, their intersection and coverage, destination views into torch
-tensors for in-place landings, the host identity, and the fire-and-forget
-task helper.
+index space, their intersection, coverage and bounding box, destination
+views into torch tensors for in-place landings, the assembly of fetched
+parts into one tensor, the host identity, and the fire-and-forget task
+helper. Tensors may live on the CPU or a CUDA device.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import math
 import os
 import socket
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -42,6 +43,10 @@ class Box:
     @property
     def size(self) -> int:
         return math.prod(self.shape) if self.shape else 1
+
+    def to_index(self) -> tuple[slice, ...]:
+        """The box as an index into a tensor of the global space."""
+        return tuple(slice(o, o + s) for o, s in zip(self.offsets, self.shape))
 
     def contains(self, other: "Box") -> bool:
         return all(
@@ -124,6 +129,87 @@ def get_destination_view(
     if require_contiguous and view.numel() > 1 and not view.is_contiguous():
         return None
     return view
+
+
+def to_byte_view(t: torch.Tensor) -> torch.Tensor:
+    """Flat uint8 view over a contiguous tensor's bytes."""
+    if not t.is_contiguous():
+        raise ValueError("to_byte_view requires a contiguous tensor")
+    return t.reshape(-1).view(torch.uint8)
+
+
+def byte_range(t: torch.Tensor) -> tuple[int, int]:
+    """[lo, hi) byte addresses ``t`` touches on its device."""
+    start = t.data_ptr()
+    if t.numel() == 0:
+        return (start, start)
+    lo = hi = start
+    for size, stride in zip(t.shape, t.stride()):
+        extent = (size - 1) * stride * t.element_size()
+        if extent > 0:
+            hi += extent
+        else:
+            lo += extent
+    return (lo, hi + t.element_size())
+
+
+def tensors_overlap_in_memory(dest: torch.Tensor, parts: Sequence[torch.Tensor]) -> bool:
+    """True when every non-empty part lies inside ``dest``'s memory on
+    ``dest``'s device: all parts already landed in place and no assembly
+    copy is needed."""
+    if dest.numel() == 0:
+        return False
+    d0, d1 = byte_range(dest)
+    for p in parts:
+        if p.numel() == 0:
+            continue
+        p0, p1 = byte_range(p)
+        if p.device != dest.device or p0 < d0 or p1 > d1:
+            return False
+    return True
+
+
+def bounding_box(boxes: Sequence[Box]) -> Box:
+    if not boxes:
+        raise ValueError("bounding_box of no boxes")
+    ndim = boxes[0].ndim
+    mins = [min(b.offsets[d] for b in boxes) for d in range(ndim)]
+    maxs = [max(b.offsets[d] + b.shape[d] for b in boxes) for d in range(ndim)]
+    return Box(tuple(mins), tuple(m - n for m, n in zip(maxs, mins)))
+
+
+def assemble_tensor(
+    parts: Sequence[tuple[torch.Tensor, tuple[int, ...]]],
+) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """Assemble fetched parts, each with its global offsets, into one tensor
+    on the first part's device. Returns ``(tensor, offsets)``, ``offsets``
+    being the global offset of the assembled bounding box; raises when the
+    parts leave a hole in it."""
+    if not parts:
+        raise ValueError("assemble_tensor of no parts")
+    first = parts[0][0]
+    for p, _ in parts:
+        if p.dtype != first.dtype:
+            raise ValueError(f"dtype mismatch during assembly: {p.dtype} vs {first.dtype}")
+        if p.ndim != first.ndim:
+            raise ValueError("rank mismatch during assembly")
+    boxes = [Box(tuple(off), tuple(p.shape)) for p, off in parts]
+    bbox = bounding_box(boxes)
+    if len(parts) == 1 and boxes[0] == bbox:
+        return first, bbox.offsets
+    out = torch.empty(bbox.shape, dtype=first.dtype, device=first.device)
+    painted = torch.zeros(bbox.shape, dtype=torch.bool)
+    for (p, _), box in zip(parts, boxes):
+        rel = Box(tuple(o - bo for o, bo in zip(box.offsets, bbox.offsets)), box.shape)
+        out[rel.to_index()] = p
+        painted[rel.to_index()] = True
+    holes = int((~painted).sum())
+    if holes:
+        raise ValueError(
+            f"assembled parts leave {holes} of {bbox.size} elements uncovered; "
+            "parts do not tile the requested region"
+        )
+    return out, bbox.offsets
 
 
 async def maybe_await(value):
