@@ -26,10 +26,19 @@ Phases, each printing one JSON line:
 5. main         - the weight-sync round trip at Llama-3-8B width through the
                   port's entry points: initialize, a buffered put/get, a
                   direct publish/pull, a refresh after an in-place update,
-                  shutdown; the cast kernel's launches on each step, equal to
-                  the planner's chunk count, no cast outside the kernel
-                  (cast_fallbacks 0), and the seconds spent page-locking the
-                  direct-sync buffers;
+                  then the buffered steady state of an RL loop (a reput and
+                  a reget of the same key into the same targets, twice, each
+                  after the volume's pool warm-ups settled and the client's
+                  background page-locking ended, both waits printed),
+                  shutdown; per step GB/s, the segment pool's offers by
+                  outcome (spare / pooled / miss), segments created and
+                  recycled, spares announced, the page-locking seconds and
+                  the seconds the step waited for a lock in progress; a
+                  fixed matmul workload timed while the locking runs and
+                  after it; the cast kernel's launches on each
+                  casting step, equal to the planner's chunk count, no cast
+                  outside the kernel (cast_fallbacks 0); the reputs make no
+                  cold segment; no segment or process is left;
 6. reshard      - the same state dict put in an FSDP trainer's layout (8
                   ranks, Shard(0) of every tensor: 2328 shards, views of the
                   fp32 source on the card) and fetched by 4 tensor-parallel
@@ -535,24 +544,105 @@ def _pairs(a, b):
         yield a, b
 
 
+SHM_COPIES = 3  # the volume's live set, its warm spare set, the direct staging
+
+
 def plan_layers() -> tuple[int, dict]:
-    """Depth that fits host memory: the volume's copy and the direct
-    staging copy (bf16 each) live in /dev/shm at once. Widths never change."""
+    """Depth that fits host memory: the volume's live segments, the warm
+    set it rotates with, and the direct staging (bf16 each) live in
+    /dev/shm at once; and that the default pool cap holds one working set,
+    so the reputs rotate through the pool. Widths never change."""
+    from torchstore_tpu_torch.config import default_config
     from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
 
     geo = dict(LLAMA3_8B)
     per_layer = sum(math.prod(s) for s in _leaves(llama_shapes(**{**geo, "layers": 1})["layers"]))
     outer = sum(math.prod(s) for s in _leaves({**llama_shapes(**{**geo, "layers": 0}), "layers": {}}))
     budget = 0.8 * min(shm_free_bytes(), mem_available_bytes())
-    copies_bytes = lambda n: 2 * 2 * (outer + n * per_layer)  # two bf16 copies
+    copies_bytes = lambda n: SHM_COPIES * 2 * (outer + n * per_layer)  # bf16 copies
+    pool_cap = default_config().shm_pool_max_bytes
     layers = geo["layers"]
-    while layers > 1 and copies_bytes(layers) > budget:
+    while layers > 1 and (
+        copies_bytes(layers) > budget or copies_bytes(layers) // SHM_COPIES > pool_cap
+    ):
         layers -= 1
-    return layers, {"budget_bytes": int(budget), "needed_bytes": copies_bytes(layers)}
+    return layers, {"budget_bytes": int(budget), "needed_bytes": copies_bytes(layers),
+                    "shm_copies": SHM_COPIES, "pool_cap": pool_cap}
+
+
+async def _pool_counts(client) -> dict:
+    """The segment pool's counters: the volume's handshake offers by outcome
+    and its segments created and recycled, the client's cold creates, and
+    the attachments it page-locked (in the background) and the seconds
+    that took."""
+    stats = await client.controller.stats.call_one(include_volumes=True)
+    (vstats,) = stats["volumes"].values()
+    pool = vstats.get("shm", {})
+    mine = client.shm_stats()
+    return {
+        **pool.get("offers", {"spare": 0, "pooled": 0, "miss": 0}),
+        "volume_created": pool.get("segments_created", 0),
+        "recycled": pool.get("segments_recycled", 0),
+        "announced": pool.get("spares_announced", 0),
+        "cold_create": mine["cold_create"],
+        "pinned": mine["pinned"],
+        "pin_s": mine["pin_seconds"],
+        "pin_wait_s": mine["pin_wait_seconds"],
+        "warming": pool.get("warming", 0),
+    }
+
+
+async def _wait_warm(client, limit_s: float = 120.0) -> float:
+    """Seconds until the volume has no warm-up in flight (the gap a training
+    step leaves before the next put), at most ``limit_s``."""
+    t0 = time.perf_counter()
+    while (await _pool_counts(client))["warming"] and time.perf_counter() - t0 < limit_s:
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _matmuls_ms(torch, a, b, iters: int = 100) -> dict:
+    """A fixed CUDA workload (``iters`` bf16 matmuls), standing for a
+    training step's device work: host ms to launch it and to see its last
+    kernel end (an event, not a device-wide sync), and its device ms."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        torch.mm(a, b)
+    end.record()
+    launched = time.perf_counter()
+    end.synchronize()
+    return {"wall_ms": (time.perf_counter() - t0) * 1e3,
+            "launch_ms": (launched - t0) * 1e3, "device_ms": start.elapsed_time(end)}
+
+
+def _python_ms(n: int = 200_000) -> float:
+    """Host ms of a fixed pure-Python loop (shows a thread holding the GIL)."""
+    t0 = time.perf_counter()
+    x = 0
+    for i in range(n):
+        x += i
+    return (time.perf_counter() - t0) * 1e3
+
+
+async def _pin_overlap(torch, client, a, b, reps: int = 3) -> dict:
+    """The fixed workloads while the client's background page-locking runs,
+    then, once it is done (the seconds waited), with nothing beside it."""
+    before = client.shm_stats()
+    under = [{"python_ms": _python_ms(), **_matmuls_ms(torch, a, b)} for _ in range(reps)]
+    after = client.shm_stats()
+    waited = await client.wait_pinned()
+    idle = [{"python_ms": _python_ms(), **_matmuls_ms(torch, a, b)} for _ in range(reps)]
+    return {"under_lock": under, "idle": idle,
+            "pending_at_start": before["pin_pending"], "pending_at_end": after["pin_pending"],
+            "locked_meanwhile_s": after["pin_seconds"] - before["pin_seconds"],
+            "wait_pinned_s": waited}
 
 
 async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
     import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.config import default_config
     from torchstore_tpu_torch.transport.shared_memory import PREFIX, SHM_DIR
     from torchstore_tpu_torch.workloads import llama_state_dict
 
@@ -585,59 +675,87 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
 
     # The cast launches each step needs: one per chunk of the fp32 leaves.
     chunks = len(staging.plan_chunks(list(_leaves(src)), bf16))
+    # A fixed workload beside the background page-locking (warmed up here).
+    mm_a = torch.randn(4096, 4096, generator=gen, device=dev, dtype=bf16)
+    mm_b = torch.randn(4096, 4096, generator=gen, device=dev, dtype=bf16)
+    _matmuls_ms(torch, mm_a, mm_b, iters=10)
     out: dict = {"layers": layers, "tensors": n_tensors, "params": n_params,
-                 "wire_bytes": wire_bytes, "source_bytes": 4 * n_params}
+                 "wire_bytes": wire_bytes, "source_bytes": 4 * n_params,
+                 "pool_cap": default_config().shm_pool_max_bytes}
     checks = []
     timings = {}
+    launches_by_step = {}
+    fallbacks = {}
+    pool = {}
     staging.cast_kernel.launches = 0  # count the main path's launches only
     staging.cast_kernel.fallbacks = 0
-    fallbacks = {}
     t0 = time.perf_counter()
     await tst.initialize()
     timings["initialize_s"] = time.perf_counter() - t0
     pids = [p.pid for p in multiprocessing.active_children()]  # volume + controller
+    client = tst.client()
+
+    async def step(name: str, coro, cast: bool) -> None:
+        """Run one step: its seconds, K1 launches and fallbacks, and the
+        pool's counters over it."""
+        before = await _pool_counts(client)
+        launched, fell_back = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+        t0 = time.perf_counter()
+        await coro
+        torch.cuda.synchronize()
+        timings[f"{name}_s"] = time.perf_counter() - t0
+        after = await _pool_counts(client)
+        pool[name] = {k: after[k] - before[k] for k in after if k != "warming"}
+        if cast:
+            launches_by_step[name] = staging.cast_kernel.launches - launched
+            fallbacks[name] = staging.cast_kernel.fallbacks - fell_back
+
+    waited = {}
+    pin_waited = {}
     try:
-        t0 = time.perf_counter()
-        await tst.put_state_dict("policy", src, transfer_dtype=bf16)
-        torch.cuda.synchronize()
-        timings["put_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        await tst.get_state_dict("policy", targets)
-        torch.cuda.synchronize()
-        timings["get_s"] = time.perf_counter() - t0
+        await step("put", tst.put_state_dict("policy", src, transfer_dtype=bf16), True)
+        await step("get", tst.get_state_dict("policy", targets), False)
+        # The get queued its attachments (reused) and the put's announced
+        # spares for page-locking: a training step overlaps it.
+        overlap = await _pin_overlap(torch, client, mm_a, mm_b)
         checks.append(check("buffered get"))
-        launches_buffered = staging.cast_kernel.launches
-        fallbacks["buffered"] = staging.cast_kernel.fallbacks
 
         clear_targets()
-        t0 = time.perf_counter()
-        await tst.put_state_dict("policy_direct", src, transfer_dtype=bf16, direct=True)
-        torch.cuda.synchronize()
-        timings["publish_s"] = time.perf_counter() - t0
-        launches_register = staging.cast_kernel.launches - launches_buffered
-        fallbacks["register"] = staging.cast_kernel.fallbacks - fallbacks["buffered"]
-        t0 = time.perf_counter()
-        await tst.get_state_dict("policy_direct", targets, direct=True)
-        torch.cuda.synchronize()
-        timings["pull_s"] = time.perf_counter() - t0
+        await step("publish", tst.put_state_dict("policy_direct", src, transfer_dtype=bf16,
+                                                 direct=True), True)
+        await step("pull", tst.get_state_dict("policy_direct", targets, direct=True), False)
         checks.append(check("direct pull"))
 
         for t in _leaves(src):
             t.add_(1.0)  # the training step, in place
         clear_targets()
-        t0 = time.perf_counter()
-        await tst.put_state_dict("policy_direct", src, transfer_dtype=bf16, direct=True)
-        torch.cuda.synchronize()
-        timings["republish_s"] = time.perf_counter() - t0
-        launches_refresh = staging.cast_kernel.launches - launches_buffered - launches_register
-        fallbacks["refresh"] = (staging.cast_kernel.fallbacks - fallbacks["buffered"]
-                                - fallbacks["register"])
-        t0 = time.perf_counter()
-        await tst.get_state_dict("policy_direct", targets, direct=True)
-        torch.cuda.synchronize()
-        timings["repull_s"] = time.perf_counter() - t0
+        await step("republish", tst.put_state_dict("policy_direct", src, transfer_dtype=bf16,
+                                                   direct=True), True)
+        await step("repull", tst.get_state_dict("policy_direct", targets, direct=True), False)
         checks.append(check("direct pull after refresh"))
         pinning = _pinning(tst, "policy_direct", dev)
+
+        # The buffered steady state: the same key re-put from the updated
+        # source and fetched into the same targets, twice, each after the
+        # volume's warm-ups settled (the training step's gap).
+        for n, (put, get) in enumerate((("reput", "reget"), ("reput2", "reget2"))):
+            if n:
+                for t in _leaves(src):
+                    t.add_(1.0)
+            waited[put] = await _wait_warm(client)
+            pin_waited[put] = await client.wait_pinned()
+            clear_targets()
+            await step(put, tst.put_state_dict("policy", src, transfer_dtype=bf16), True)
+            await step(get, tst.get_state_dict("policy", targets), False)
+            checks.append(check(f"buffered {get}"))
+        # The client locks attachments on its own thread, so part of it ran
+        # between the steps (beside the checks' CUDA calls).
+        mine = client.shm_stats()
+        in_steps = sum(p["pin_s"] for p in pool.values())
+        buffered_pinning = {"attachments": mine["pinned"], "seconds": mine["pin_seconds"],
+                            "in_steps_s": in_steps,
+                            "between_steps_s": mine["pin_seconds"] - in_steps,
+                            "steps_waited_s": mine["pin_wait_seconds"]}
     finally:
         await tst.shutdown()
     launches = staging.cast_kernel.launches
@@ -648,22 +766,25 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
         n for n in os.listdir(SHM_DIR)
         if n.startswith(PREFIX) and int(n[len(PREFIX):].split("_")[0]) in own
     ]
+    rotations = ("reput", "reput2")
     out.update(
         {
             "checks": checks,
             "launches": launches,
-            "launches_by_step": {
-                "buffered": launches_buffered,
-                "register": launches_register,
-                "refresh": launches_refresh,
-            },
-            "launches_needed": {"buffered": chunks, "register": chunks, "refresh": chunks},
+            "launches_by_step": launches_by_step,
+            "launches_needed": chunks,
             "cast_fallbacks": fallbacks,
             "pinning": pinning,
+            "buffered_pinning": buffered_pinning,
+            "pin_overlap": overlap,
+            "pool": pool,
+            "warm_wait_s": waited,
+            "wait_pinned_s": pin_waited,
             "timings": timings,
             "gb_per_s": {
-                step: wire_bytes / timings[f"{step}_s"] / 1e9
-                for step in ("put", "get", "publish", "pull", "republish", "repull")
+                name: wire_bytes / timings[f"{name}_s"] / 1e9
+                for name in ("put", "get", "publish", "pull", "republish", "repull",
+                             "reput", "reget", "reput2", "reget2")
             },
             "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
             "processes_left": alive,
@@ -672,10 +793,10 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
     )
     out["ok"] = (
         all(c["bit_equal"] for c in checks)
-        and (dev.type != "cuda"
-             or launches_buffered == launches_register == launches_refresh == chunks)
+        and (dev.type != "cuda" or all(n == chunks for n in launches_by_step.values()))
         and not any(fallbacks.values())
         and pinning["staging_pinned"] is not False
+        and all(pool[r]["miss"] == 0 and pool[r]["cold_create"] == 0 for r in rotations)
         and not alive
         and not leaked
     )
@@ -1534,7 +1655,7 @@ def phase_kernels(results: dict) -> dict:
     """One entry per ported kernel, and per (mode, variant) of the flash
     kernels. The cast's times are the timing phase's measured publish row
     (cast_group over the 291 tensors of the Llama-3-8B state dict), its
-    launches those of one publish (register) on the main phase. The flash
+    launches those of the main phase's run (five casting steps). The flash
     kernels' are one call at FLASH_TIMED (flash_timing), their launches
     those of the ring phase's paths (bf16: sm90, fp32: simt)."""
     needed = ("parity", "timing", "main", "flash_parity", "flash_timing", "ring")
@@ -1551,7 +1672,7 @@ def phase_kernels(results: dict) -> dict:
         "route": "cuda",
         "source": "torchstore_tpu_torch/csrc/cast.cu",
         "replaces": "torchstore_tpu/ops/staging.py:78",
-        "launches": steps["register"],
+        "launches": main["launches"],
         "max_abs_err": parity["max_abs_err"],
         "parity": "bit-equal" if parity["ok"] else "differs",
         "ms": publish["ms"],
@@ -1561,8 +1682,7 @@ def phase_kernels(results: dict) -> dict:
         "library_ms": publish["library_ms"],
         "library": "a Python loop of x.to(torch.bfloat16)",
         "per": f"one publish: cast_group over the {publish['tensors']} fp32 tensors of the "
-               f"Llama-3-8B state dict; launches of one publish on main (buffered "
-               f"{steps['buffered']}, register {steps['register']}, refresh {steps['refresh']})"
+               f"Llama-3-8B state dict; launches over the main phase's run, per step {steps}"
                + (f"; on reshard (8 FSDP ranks) {results['reshard']['launches_by_step']}"
                   if "reshard" in results else ""),
     }]

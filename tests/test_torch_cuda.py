@@ -296,3 +296,83 @@ def test_direct_sync_page_locks_and_lands_sharded_targets(cuda):
                 await source.close()
 
     asyncio.run(run())
+
+
+@pytest.mark.cuda
+def test_buffered_rotation_through_pinned_attachments(cuda, monkeypatch):
+    """The buffered leg of an RL loop on the card: a put and a get into CUDA
+    targets, then two re-puts and re-gets after in-place updates. Every
+    get is bit-equal to the source's bf16 cast and the later puts draw warm
+    segments (no cold create); after the second rotation the client's
+    attachments read as pinned; a zero-copy CPU view keeps its snapshot
+    across a re-put; shutdown unregisters every locked attachment."""
+    import asyncio
+    import uuid
+
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.transport import shared_memory as shm
+
+    unpinned = []
+    real_unregister = shm.host_unregister
+    monkeypatch.setattr(shm, "host_unregister",
+                        lambda ptrs: (unpinned.extend(ptrs), real_unregister(ptrs)))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    src = {"a": torch.randn(512, 512, generator=gen, device=cuda),
+           "b": torch.randn(1024, 300, generator=gen, device=cuda),
+           "n1": torch.randn(256, generator=gen, device=cuda),
+           "n2": torch.randn(256, generator=gen, device=cuda)}
+    bf16 = torch.bfloat16
+    store = f"cuda_{uuid.uuid4().hex[:8]}"
+
+    async def warm(client):
+        for _ in range(200):
+            stats = await client.controller.stats.call_one(include_volumes=True)
+            (vstats,) = stats["volumes"].values()
+            if vstats.get("shm", {}).get("warming", 0) == 0:
+                return
+            await asyncio.sleep(0.05)
+        raise TimeoutError("pool warm-ups still in flight")
+
+    async def run():
+        await tst.initialize(store_name=store)
+        client = tst.client(store)
+        try:
+            targets = {k: torch.zeros(v.shape, dtype=bf16, device=cuda) for k, v in src.items()}
+            colds = []
+            for step in range(3):
+                await warm(client)
+                cache = client._ctx.peek(shm.ShmClientCache)
+                before = 0 if cache is None else cache.counts["cold_create"]
+                await tst.put_state_dict("policy", src, transfer_dtype=bf16, store_name=store)
+                cache = client._ctx.peek(shm.ShmClientCache)
+                colds.append(cache.counts["cold_create"] - before)
+                await tst.get_state_dict("policy", targets, store_name=store)
+                torch.cuda.synchronize()
+                for k in src:
+                    assert_bits_equal(targets[k], src[k].to(bf16))
+                snap_want = {k: v.to(bf16).cpu() for k, v in src.items()}
+                for v in src.values():
+                    v.add_(1.0)
+            assert colds[0] > 0 and colds[1:] == [0, 0]
+            await cache.wait_pinned()  # locking runs between the copies
+            names = set().union(*(cache.key_to_segments[f"policy/{k}"] for k in src))
+            segs = [cache.segments[n] for n in names if n in cache.segments]
+            assert len(segs) >= 4  # two rotations of the arena and the large keys
+            assert all(s.pinned is not None for s in segs)
+            assert all(torch.frombuffer(s.mmap, dtype=torch.uint8).is_pinned() for s in segs)
+            assert cache.pin_seconds > 0
+            snap = await tst.get_state_dict("policy", store_name=store)  # CPU views
+            for _ in range(2):
+                await tst.put_state_dict("policy", src, transfer_dtype=bf16, store_name=store)
+                for v in src.values():
+                    v.add_(1.0)
+            for k in src:
+                assert snap[k].device.type == "cpu"
+                assert_bits_equal(snap[k], snap_want[k])  # survived two re-puts
+            pinned = [s.pinned for s in cache.segments.values() if s.pinned is not None]
+        finally:
+            await tst.shutdown(store)
+        assert sorted(unpinned) == sorted(pinned)
+        assert not cache.segments
+
+    asyncio.run(run())

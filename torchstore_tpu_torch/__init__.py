@@ -21,6 +21,7 @@ from torchstore_tpu_torch.api import (
     DEFAULT_STORE,
     client,
     delete,
+    delete_prefix,
     direct_staging_buffers,
     direct_sync_stats,
     exists,
@@ -33,6 +34,7 @@ from torchstore_tpu_torch.api import (
     put_batch,
     put_state_dict,
     shutdown,
+    wait_for,
 )
 from torchstore_tpu_torch.client import Shard
 from torchstore_tpu_torch.config import StoreConfig
@@ -41,11 +43,12 @@ from torchstore_tpu_torch.state_dict_utils import (
     from_numpy_tree,
     shards_from_numpy,
 )
-from torchstore_tpu_torch.strategy import LocalRankStrategy, SingletonStrategy
+from torchstore_tpu_torch.strategy import HostStrategy, LocalRankStrategy, SingletonStrategy
 from torchstore_tpu_torch.transport.types import TensorSlice
 
 __all__ = [
     "DEFAULT_STORE",
+    "HostStrategy",
     "LocalRankStrategy",
     "NoMatchingPush",
     "Shard",
@@ -54,6 +57,7 @@ __all__ = [
     "TensorSlice",
     "client",
     "delete",
+    "delete_prefix",
     "direct_staging_buffers",
     "direct_sync_stats",
     "exists",
@@ -68,4 +72,5 @@ __all__ = [
     "put_state_dict",
     "shards_from_numpy",
     "shutdown",
+    "wait_for",
 ]

@@ -117,12 +117,23 @@ async def delete(key: str, store_name: str = DEFAULT_STORE) -> None:
     await client(store_name).delete(key)
 
 
+async def delete_prefix(prefix: str, store_name: str = DEFAULT_STORE) -> int:
+    return await client(store_name).delete_prefix(prefix)
+
+
 async def keys(prefix: Optional[str] = None, store_name: str = DEFAULT_STORE) -> list[str]:
     return await client(store_name).keys(prefix)
 
 
 async def exists(key: str, store_name: str = DEFAULT_STORE) -> bool:
     return await client(store_name).exists(key)
+
+
+async def wait_for(keys, timeout: Optional[float] = None, store_name: str = DEFAULT_STORE) -> None:
+    """Block until every key (str or list of str) exists and is committed
+    (a sharded key: every mesh coordinate landed); ``TimeoutError`` on
+    expiry. The controller wakes the wait, in place of polling a get."""
+    await client(store_name).wait_for(keys, timeout=timeout)
 
 
 async def put_state_dict(
@@ -174,12 +185,14 @@ async def get_state_dict(
 
 
 async def shutdown(store_name: str = DEFAULT_STORE) -> None:
-    """Tear down a store: release its direct-sync staging, reset and stop
-    the volume and controller processes."""
+    """Tear down a store: release its direct-sync staging and the client's
+    segment attachments, reset and stop the volume and controller
+    processes."""
     handle = _stores.pop(store_name, None)
     if handle is None:
         return
     await state_dict_utils.close_direct_caches(handle.client)
+    handle.client.close()
     try:
         await handle.controller.teardown.call_one()
     except Exception:  # noqa: BLE001 - stop the processes regardless

@@ -15,8 +15,15 @@ target intersects the wanted region with every stored shard, fetches each
 distinct intersection once (replicated shards hold identical ones) and
 lands it straight into the target's view: for a CUDA target one
 host-to-device copy per intersection, with no assembly on the host. A
-DTensor target's local tensor is filled in place. Replication, the plan and
-location caches and the one-sided planes are later work.
+DTensor target's local tensor is filled in place.
+
+A put lands on every volume the strategy names (``replication``) and one
+notify indexes them all, detaching a replica whose landing failed. Located
+keys are cached (bounded) until the placement epoch moves: a get that
+finds any of its keys cached reads the epoch first (one RPC), and a fetch
+that finds a location stale, or a replica's volume dead, relocates once.
+The plan cache, the demotion ladder and the one-sided planes are later
+work.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torchstore_tpu_torch.runtime import ActorDiedError, ActorRef
 from torchstore_tpu_torch.strategy import StorageVolumeRef
 from torchstore_tpu_torch.transport.buffers import TransportContext
 from torchstore_tpu_torch.transport.factory import create_transport_buffer
+from torchstore_tpu_torch.transport.shared_memory import ShmClientCache
 from torchstore_tpu_torch.transport.types import OpaqueBlob, Request, TensorSlice
 from torchstore_tpu_torch.utils import (
     Box,
@@ -70,12 +78,18 @@ class _Want:
 
 
 class LocalClient:
+    # Bound on the location cache; overflow clears it (a warm working set
+    # refills in one locate).
+    LOC_CACHE_MAX = 65536
+
     def __init__(self, controller: ActorRef, config: Optional[StoreConfig] = None) -> None:
         self._controller = controller
         self._config = config or default_config()
         self._strategy = None
         self._volume_refs: Optional[dict[str, StorageVolumeRef]] = None
         self._ctx = TransportContext()
+        self._loc_cache: dict[str, dict[str, StorageInfo]] = {}
+        self._seen_epoch: Optional[int] = None
         # Tensor parts fetched from volumes: one per whole tensor, one per
         # distinct intersection of a wanted region with a stored shard.
         self.parts_fetched = 0
@@ -104,9 +118,42 @@ class LocalClient:
         self._strategy = strategy
         self._volume_refs = refs
 
+    @property
+    def controller(self) -> ActorRef:
+        return self._controller
+
+    def close(self) -> None:
+        """Unpin and drop this client's segment attachments."""
+        self._ctx.clear()
+
+    def shm_stats(self) -> dict:
+        """The client half of the segment pool's economics: handshake
+        offers taken, segments created cold, attachments page-locked (in
+        the background) and the seconds that took, and the seconds puts and
+        gets waited for a registration in progress."""
+        cache = self._ctx.get_cache(ShmClientCache)
+        return {**cache.counts, "pin_seconds": cache.pin_seconds,
+                "pin_wait_seconds": cache.pin_wait_seconds,
+                "pin_pending": cache.pin_pending()}
+
+    async def wait_pinned(self) -> float:
+        """Wait until the attachments queued for page-locking are locked
+        (e.g. at a step boundary, so the next sync copies pinned pages);
+        returns the seconds waited."""
+        return await self._ctx.get_cache(ShmClientCache).wait_pinned()
+
+    def _observe_epoch(self, epoch: int) -> None:
+        """Adopt the controller's placement epoch; a move drops the cached
+        locations, which describe the placement that changed."""
+        if self._seen_epoch is not None and epoch != self._seen_epoch:
+            self._loc_cache.clear()
+        self._seen_epoch = epoch
+
     async def bump_placement_epoch(self) -> int:
         """Invalidate every consumer's cached transfer plans."""
-        return await self._controller.bump_placement_epoch.call_one()
+        epoch = await self._controller.bump_placement_epoch.call_one()
+        self._observe_epoch(epoch)
+        return epoch
 
     # ------------------------------------------------------------------
     # put
@@ -124,27 +171,50 @@ class LocalClient:
         # Objects are pickled here, in the client: volumes carry bytes.
         return [Request.from_objects(key, OpaqueBlob.wrap(value))]
 
-    def _put_volume(self) -> StorageVolumeRef:
-        vid = self._strategy.select_volume_id(
+    def _put_volumes(self) -> list[StorageVolumeRef]:
+        """Every volume a put writes to: the primary and its replicas."""
+        vids = self._strategy.select_put_volume_ids(
             self._strategy.get_client_id(), list(self._volume_refs)
         )
-        return self._volume_refs[vid]
+        return [self._volume_refs[vid] for vid in vids]
 
     async def put(self, key: str, value: Any) -> None:
         await self.put_batch({key: value})
 
     async def put_batch(self, items: dict[str, Any]) -> None:
-        """Land every item on the strategy's volume, then index them all in
-        one notify: a key is visible to readers only once its bytes landed
-        (a sharded key once every coordinate has)."""
+        """Land every item on each of the strategy's volumes at once, then
+        index them all in one notify: a key is visible to readers only once
+        its bytes landed (a sharded key once every coordinate has). A
+        replica whose landing failed is detached from these keys in the same
+        notify; the put fails only when no replica landed."""
         await self._ensure_setup()
         requests = [r for k, v in items.items() for r in self._value_to_requests(k, v)]
-        volume = self._put_volume()
+        volumes = self._put_volumes()
+        results = await asyncio.gather(
+            *(self._land(volume, requests) for volume in volumes), return_exceptions=True
+        )
+        landed = [(v, r) for v, r in zip(volumes, results) if not isinstance(r, BaseException)]
+        failed = [(v, r) for v, r in zip(volumes, results) if isinstance(r, BaseException)]
+        if not landed:
+            raise failed[0][1]
+        for volume, exc in failed:
+            logger.warning(
+                "replicated put degraded: volume %s failed (%r); detaching its copies",
+                volume.volume_id, exc,
+            )
+        epoch = await self._controller.notify_put_batch.call_one(
+            [r.meta_only() for r in requests],
+            [v.volume_id for v, _ in landed],
+            detach_volume_ids=[v.volume_id for v, _ in failed] or None,
+            write_gens={v.volume_id: gens for v, gens in landed},
+        )
+        self._observe_epoch(epoch)
+
+    async def _land(self, volume: StorageVolumeRef, requests: list[Request]) -> dict[str, int]:
+        """Put ``requests`` on one volume; returns its write generations."""
         buffer = create_transport_buffer(volume, self._config)
         await buffer.put_to_storage_volume(volume, requests)
-        await self._controller.notify_put_batch.call_one(
-            [r.meta_only() for r in requests], volume.volume_id
-        )
+        return buffer.write_gens or {}
 
     # ------------------------------------------------------------------
     # get
@@ -167,16 +237,49 @@ class LocalClient:
             items = {key: None for key in items}
         wants = [self._want(key, like) for key, like in items.items()]
         await self._ensure_setup()
-        for attempt in (0, 1):
-            located = await self._controller.locate_volumes.call_one(list(items))
-            try:
-                return await self._fetch(wants, located)
-            except FileNotFoundError:
-                # A concurrent put replaced a segment between serve and
-                # attach; a fresh locate + fetch sees the new one.
-                if attempt:
-                    raise
-        raise AssertionError("unreachable")
+        keys = list(items)
+        if self._seen_epoch is None or any(key in self._loc_cache for key in keys):
+            # Cached locations hold while the placement epoch does: another
+            # client's put may have detached a replica or added one since.
+            self._observe_epoch(await self._controller.placement_epoch.call_one())
+        cached = [key for key in keys if key in self._loc_cache]
+        located = await self._locate(keys)
+        dead: set[str] = set()
+        try:
+            return await self._fetch(wants, located, dead)
+        except ActorDiedError:
+            # A replica's volume died: relocate and read the others.
+            for key in keys:
+                self._loc_cache.pop(key, None)
+            located = await self._locate(keys)
+            live = {
+                key: {vid: info for vid, info in infos.items() if vid not in dead}
+                for key, infos in located.items()
+            }
+            if not all(live.values()):
+                raise
+            return await self._fetch(wants, live, dead)
+        except (KeyError, ValueError):
+            # Another client deleted or re-laid out a key between the epoch
+            # check and the fetch: relocate once.
+            if not cached:
+                raise
+            for key in cached:
+                self._loc_cache.pop(key, None)
+            return await self._fetch(wants, await self._locate(keys), dead)
+
+    async def _locate(self, keys: list[str]) -> dict[str, dict[str, StorageInfo]]:
+        """Where each key lives: from the cache, else one locate RPC for
+        the rest (whose answers are cached)."""
+        located = {key: self._loc_cache[key] for key in keys if key in self._loc_cache}
+        missing = [key for key in keys if key not in located]
+        if missing:
+            fresh = await self._controller.locate_volumes.call_one(missing)
+            if len(self._loc_cache) + len(fresh) > self.LOC_CACHE_MAX:
+                self._loc_cache.clear()
+            self._loc_cache.update(fresh)
+            located.update(fresh)
+        return located
 
     @staticmethod
     def _want(key: str, like: Any) -> _Want:
@@ -255,8 +358,10 @@ class LocalClient:
         return subs
 
     async def _fetch(
-        self, wants: list[_Want], located: dict[str, dict[str, StorageInfo]]
+        self, wants: list[_Want], located: dict[str, dict[str, StorageInfo]], dead: set[str]
     ) -> dict[str, Any]:
+        """Fetch every want from the volumes ``located`` names; the id of a
+        volume found dead is added to ``dead``."""
         plans = [self._volume_requests(want, located[want.key]) for want in wants]
         by_volume: dict[str, list[Request]] = {}
         for subs in plans:
@@ -269,9 +374,11 @@ class LocalClient:
             buffer = create_transport_buffer(volume, self._config)
             try:
                 return await buffer.get_from_storage_volume(volume, requests)
-            except (ConnectionError, OSError) as exc:
-                if isinstance(exc, FileNotFoundError):
-                    raise
+            except ActorDiedError:
+                dead.add(vid)
+                raise
+            except ConnectionError as exc:
+                dead.add(vid)
                 raise ActorDiedError(f"volume {vid} unreachable: {exc!r}") from exc
 
         ordered = sorted(by_volume.items())
@@ -321,12 +428,52 @@ class LocalClient:
                 for vid, vkeys in sorted(by_volume.items())
             )
         )
+        for key in keys:
+            self._ctx.delete_key(key)
+            self._loc_cache.pop(key, None)
+
+    async def delete_prefix(self, prefix: str) -> int:
+        """Delete every key under ``prefix`` (by whole path segments, e.g. an
+        old version's "policy/v41"); returns how many. Idempotent."""
+        keys = await self._controller.keys.call_one(prefix)
+        if keys:
+            await self.delete_batch(keys)
+        return len(keys)
 
     async def keys(self, prefix: Optional[str] = None) -> list[str]:
         return await self._controller.keys.call_one(prefix)
 
     async def exists(self, key: str) -> bool:
-        located = await self._controller.locate_volumes.call_one(
-            [key], missing_ok=True, require_committed=False
-        )
-        return key in located
+        """True once any part of ``key`` is indexed (also when partial)."""
+        return await self._controller.contains.call_one(key) != "missing"
+
+    # ------------------------------------------------------------------
+    # blocking waits
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _wait_rpc_timeout(timeout: Optional[float]) -> float:
+        # The RPC outlives the controller's wait, so its TimeoutError (which
+        # names the keys) arrives first; 0 disables the RPC deadline.
+        return 0 if timeout is None else timeout + 10.0
+
+    async def wait_for(self, keys, timeout: Optional[float] = None) -> None:
+        """Block until every key (a str or a list) exists and is committed;
+        ``TimeoutError`` on expiry. In place of polling a get."""
+        if isinstance(keys, str):
+            keys = [keys]
+        await self._ensure_setup()
+        await self._controller.wait_for_committed.with_timeout(
+            self._wait_rpc_timeout(timeout)
+        ).call_one(list(keys), timeout)
+
+    async def wait_for_change(
+        self, key: str, last_gen: int = 0, timeout: Optional[float] = None
+    ) -> dict:
+        """Block until ``key``'s update generation differs from
+        ``last_gen``; returns ``{"gen", "state"}`` (state: missing, partial
+        or committed)."""
+        await self._ensure_setup()
+        return await self._controller.wait_for_change.with_timeout(
+            self._wait_rpc_timeout(timeout)
+        ).call_one(key, last_gen, timeout)

@@ -1,9 +1,10 @@
 """Store configuration, seeded from ``TORCHSTORE_TORCH_*`` variables.
 
 Port of the fields of ``torchstore_tpu/config.py`` that the weight-sync path
-reads. The prefix is ``TORCHSTORE_TORCH_`` and not ``TORCHSTORE_TPU_TORCH_``:
-the reference's actor runtime copies every ``TORCHSTORE_TPU_*`` variable into
-its children, so the two packages keep their settings apart.
+and the shared-memory segment pool read. The prefix is ``TORCHSTORE_TORCH_``
+and not ``TORCHSTORE_TPU_TORCH_``: the reference's actor runtime copies every
+``TORCHSTORE_TPU_*`` variable into its children, so the two packages keep
+their settings apart.
 """
 
 from __future__ import annotations
@@ -16,6 +17,10 @@ ENV_PREFIX = "TORCHSTORE_TORCH_"
 ENV_RPC_TIMEOUT = ENV_PREFIX + "RPC_TIMEOUT"
 ENV_SHM_ENABLED = ENV_PREFIX + "SHM_ENABLED"
 ENV_LOG_LEVEL = ENV_PREFIX + "LOG_LEVEL"
+ENV_ZERO_COPY_GET = ENV_PREFIX + "ZERO_COPY_GET"
+ENV_SHM_POOL_MAX_BYTES = ENV_PREFIX + "SHM_POOL_MAX_BYTES"
+ENV_LANDING_THREADS = ENV_PREFIX + "LANDING_THREADS"
+ENV_ARENA_MAX_BYTES = ENV_PREFIX + "ARENA_MAX_BYTES"
 
 _FALSE = ("0", "false", "no", "off")
 
@@ -25,6 +30,11 @@ def _env_float(name: str, default: float) -> float:
     return float(raw) if raw not in (None, "") else default
 
 
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    return int(raw) if raw not in (None, "") else default
+
+
 def _env_bool(name: str, default: bool) -> bool:
     raw = os.environ.get(name)
     if raw in (None, ""):
@@ -32,17 +42,46 @@ def _env_bool(name: str, default: bool) -> bool:
     return raw.strip().lower() not in _FALSE
 
 
+def _default_shm_pool_cap() -> int:
+    """A quarter of /dev/shm's available space at startup, clamped to
+    [4 GB, 64 GB]: room is left for live and retired segments and for other
+    tenants, and the ceiling bounds the tmpfs pages recycled segments pin.
+    A model-scale sync (16 GB for Llama-3-8B in bf16) needs the pool to hold
+    about one working set, or its puts fall back to cold segments."""
+    try:
+        stat = os.statvfs("/dev/shm")
+        avail = stat.f_frsize * stat.f_bavail
+    except OSError:
+        return 4 << 30
+    return max(4 << 30, min(avail // 4, 64 << 30))
+
+
 @dataclass
 class StoreConfig:
     """``rpc_timeout``: seconds a control RPC may take (data-plane RPCs add
     time per byte; <= 0 disables deadlines). ``shm_enabled``: same-host
     puts, gets and direct staging go through ``/dev/shm`` segments, else
-    through RPC frames and TCP reads."""
+    through RPC frames and TCP reads. ``zero_copy_get``: a same-host get
+    without a destination returns a copy-on-write view of the volume's
+    segment (held under a read lease) instead of a copy.
+    ``shm_pool_max_bytes``: cap on the volume's pool of warm, recycled
+    segments; the oldest go beyond it. ``landing_threads``: threads of the
+    host-copy pool (0: one per core, at most 4). ``arena_max_bytes``:
+    tensors of a put batch at or under this size share one segment (0: no
+    arena)."""
 
     rpc_timeout: float = field(default_factory=lambda: _env_float(ENV_RPC_TIMEOUT, 300.0))
     shm_enabled: bool = field(default_factory=lambda: _env_bool(ENV_SHM_ENABLED, True))
     log_level: str = field(
         default_factory=lambda: os.environ.get(ENV_LOG_LEVEL, "WARNING")
+    )
+    zero_copy_get: bool = field(default_factory=lambda: _env_bool(ENV_ZERO_COPY_GET, True))
+    shm_pool_max_bytes: int = field(
+        default_factory=lambda: _env_int(ENV_SHM_POOL_MAX_BYTES, _default_shm_pool_cap())
+    )
+    landing_threads: int = field(default_factory=lambda: _env_int(ENV_LANDING_THREADS, 0))
+    arena_max_bytes: int = field(
+        default_factory=lambda: _env_int(ENV_ARENA_MAX_BYTES, 256 << 10)
     )
 
 

@@ -1,11 +1,13 @@
 """Controller actor: the store's metadata plane.
 
 Port of the core endpoints of ``torchstore_tpu/controller.py`` (``init``,
-``locate_volumes``, ``notify_put_batch``, ``notify_delete_batch``, ``keys``,
-``placement_epoch``, ``bump_placement_epoch``, ``teardown``, plus the volume
-map clients load), with commit tracking for sharded keys. The relay, tiering, control, autoscale and mirror
-engines of the reference are not part of this port yet. The controller
-never sees tensor bytes: only ``Request.meta_only()`` copies.
+``locate_volumes``, ``contains``, ``notify_put_batch``,
+``notify_delete_batch``, ``keys``, ``wait_for_committed``,
+``wait_for_change``, ``placement_epoch``, ``bump_placement_epoch``,
+``stats``, ``teardown``, plus the volume map clients load), with commit
+tracking for sharded keys. The relay, tiering, control, autoscale and
+mirror engines of the reference are not part of this port yet. The
+controller never sees tensor bytes: only ``Request.meta_only()`` copies.
 """
 
 from __future__ import annotations
@@ -72,12 +74,26 @@ class Controller(Actor):
         return self.core.locate(keys, missing_ok, require_committed)
 
     @endpoint
-    async def notify_put_batch(self, metas: list[Request], volume_id: "str | list[str]") -> int:
-        """Index ``metas`` as stored on ``volume_id`` (one id or a list);
-        returns the placement epoch."""
+    async def contains(self, key: str) -> str:
+        """'missing', 'partial' or 'committed'."""
+        return self.core.contains(key)
+
+    @endpoint
+    async def notify_put_batch(
+        self,
+        metas: list[Request],
+        volume_id: "str | list[str]",
+        detach_volume_ids: Optional[list[str]] = None,
+        write_gens: Optional[dict[str, dict[str, int]]] = None,
+    ) -> int:
+        """Index ``metas`` as stored on ``volume_id`` (one id or a list),
+        with each volume's write generations, and detach them from
+        ``detach_volume_ids`` (replicas whose landing failed); returns the
+        placement epoch."""
         volume_ids = [volume_id] if isinstance(volume_id, str) else list(volume_id)
-        if self.core.apply_put_batch(metas, volume_ids):
+        if self.core.apply_put_batch(metas, volume_ids, detach_volume_ids, write_gens):
             self._bump_epoch()
+        await self.core.bump({m.key for m in metas})
         return self._placement_epoch
 
     @endpoint
@@ -87,6 +103,7 @@ class Controller(Actor):
         by_volume = self.core.delete_keys(keys)
         if by_volume:
             self._bump_epoch()
+            await self.core.bump(keys)
         return by_volume
 
     @endpoint
@@ -104,6 +121,40 @@ class Controller(Actor):
         return self.core.keys_list(prefix)
 
     @endpoint
+    async def wait_for_committed(self, keys: list[str], timeout: Optional[float] = None) -> None:
+        """Block until every key exists and is committed (a sharded key:
+        every mesh coordinate landed); ``TimeoutError`` on expiry. Woken by
+        the notify that commits the key, in place of a polling get."""
+        await self.core.wait_for_committed(keys, timeout)
+
+    @endpoint
+    async def wait_for_change(
+        self, key: str, last_gen: int = 0, timeout: Optional[float] = None
+    ) -> dict[str, Any]:
+        """Block until ``key``'s update generation (bumped by every indexed
+        put or delete of it) differs from ``last_gen``; returns ``{"gen",
+        "state"}`` with state missing, partial or committed."""
+        return await self.core.wait_for_change(key, last_gen, timeout)
+
+    @endpoint
+    async def stats(self, include_volumes: bool = False) -> dict:
+        """The index summary (op counters, keys, indexed bytes) and the
+        volume count; with ``include_volumes`` each volume's ``stats`` too
+        (an ``error`` string for one that does not answer)."""
+        out = {**self.core.summary(), "num_volumes": len(self.volume_refs)}
+        if include_volumes:
+
+            async def one(vid: str, ref: ActorRef):
+                try:
+                    return vid, await asyncio.wait_for(ref.stats.call_one(), timeout=10.0)
+                except Exception as exc:  # noqa: BLE001 - reported inline
+                    return vid, {"error": f"{type(exc).__name__}: {exc}"}
+
+            results = await asyncio.gather(*(one(v, r) for v, r in self.volume_refs.items()))
+            out["volumes"] = dict(results)
+        return out
+
+    @endpoint
     async def teardown(self) -> None:
         """Reset every volume and forget the index."""
         results = await asyncio.gather(
@@ -113,5 +164,7 @@ class Controller(Actor):
         for vid, res in zip(self.volume_refs, results):
             if isinstance(res, BaseException):
                 logger.warning("volume %s reset failed at teardown: %r", vid, res)
+        keys = list(self.core.index)
         self.core.teardown()
         self._bump_epoch()
+        await self.core.bump(keys)

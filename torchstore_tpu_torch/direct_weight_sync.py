@@ -54,6 +54,7 @@ from torchstore_tpu_torch.state_dict_utils import (
     unflatten_state_dict,
 )
 from torchstore_tpu_torch.transport import shared_memory as shm
+from torchstore_tpu_torch.transport.pinning import host_register, host_unregister, side_stream
 from torchstore_tpu_torch.transport.types import TensorMeta, TensorSlice, dtype_name, full_slice
 from torchstore_tpu_torch.utils import Box, get_destination_view, get_hostname, intersect_boxes
 
@@ -149,30 +150,6 @@ class _PeerReadServer:
             self._server = None
 
 
-def _host_register(t: torch.Tensor) -> Optional[int]:
-    """Page-lock the host memory under ``t`` (a ``/dev/shm`` mapping or
-    process memory) with ``cudaHostRegister``, so copies between it and a
-    card run asynchronously at the DMA rate; returns the pointer to
-    unregister, or None for an empty tensor."""
-    nbytes = t.numel() * t.element_size()
-    if nbytes == 0:
-        return None
-    err = torch.cuda.cudart().cudaHostRegister(t.data_ptr(), nbytes, 0)
-    if int(err) != 0:
-        raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed: CUDA error {int(err)}")
-    return t.data_ptr()
-
-
-def _host_unregister(ptrs) -> None:
-    """Unpin what ``_host_register`` pinned; runs before the memory is
-    unmapped or freed."""
-    ptrs = list(ptrs)
-    if ptrs:
-        cudart = torch.cuda.cudart()
-        for ptr in ptrs:
-            cudart.cudaHostUnregister(ptr)
-
-
 class _D2HStream:
     """The side stream of one card that publishes cast and copy on: it
     waits for the work already queued on the card's current stream, and
@@ -180,13 +157,9 @@ class _D2HStream:
     serves every source of the process, so the cast outputs freed on it
     are reused by the next publish instead of being cached per stream."""
 
-    _streams: dict = {}
-
     def __init__(self, device: torch.device) -> None:
         self.device = device
-        self.stream = self._streams.get(device)
-        if self.stream is None:
-            self.stream = self._streams[device] = torch.cuda.Stream(device=device)
+        self.stream = side_stream(device)
         self._ctx = None
 
     def __enter__(self) -> "_D2HStream":
@@ -374,7 +347,7 @@ class DirectWeightSyncSource:
                 staged = torch.empty(meta.shape, dtype=meta.torch_dtype)
             if pin:
                 t0 = time.perf_counter()
-                ptr = _host_register(staged)
+                ptr = host_register(staged)
                 self.pin_seconds += time.perf_counter() - t0
                 if ptr is not None:
                     self._pinned.append(ptr)
@@ -439,7 +412,7 @@ class DirectWeightSyncSource:
 
     async def close(self) -> None:
         await self.server.stop()
-        _host_unregister(self._pinned)  # before the mappings go
+        host_unregister(self._pinned)  # before the mappings go
         self._pinned.clear()
         for seg in self.segments.values():
             seg.unlink()
@@ -699,7 +672,7 @@ class DirectWeightSyncDest:
             view = seg.view(handle.meta)
             if pin and handle.shm_name not in self._pinned:
                 t0 = time.perf_counter()
-                ptr = _host_register(view)
+                ptr = host_register(view)
                 self.pin_seconds += time.perf_counter() - t0
                 if ptr is not None:
                     self._pinned[handle.shm_name] = ptr
@@ -738,6 +711,6 @@ class DirectWeightSyncDest:
                 for _, writer, _ in pool["conns"]:
                     writer.close()
             self._conns.clear()
-        _host_unregister(self._pinned.values())  # before the mappings go
+        host_unregister(self._pinned.values())  # before the mappings go
         self._pinned.clear()
         self._segments.clear()

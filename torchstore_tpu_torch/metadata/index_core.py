@@ -3,17 +3,19 @@
 Port of the core of ``torchstore_tpu/metadata/index_core.py``: which
 volumes hold each key and what they hold (a whole tensor, an object, or
 the shards of a sharded tensor by mesh coordinate), commit tracking for
-sharded keys, structural-change tracking for the placement epoch, and
-deletes. Replica reclaims, health-aware locates and the stamped
-publication of the index are later work.
+sharded keys, structural-change tracking for the placement epoch, deletes,
+and per-key update generations with a condition the blocking waits sleep
+on. Replica reclaims, health-aware locates and the stamped publication of
+the index are later work.
 """
 
 from __future__ import annotations
 
+import asyncio
 import math
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Optional
+from typing import Any, Optional
 
 from torchstore_tpu_torch.transport.types import Request, TensorMeta, TensorSlice
 
@@ -48,6 +50,8 @@ class StorageInfo:
     tensor_meta: Optional[TensorMeta] = None
     # coordinates -> TensorSlice, for TENSOR_SLICE keys.
     tensor_slices: dict[tuple, TensorSlice] = field(default_factory=dict)
+    # The volume's write generation of the last indexed put (0: unknown).
+    write_gen: int = 0
 
     @classmethod
     def from_meta(cls, meta: Request) -> "StorageInfo":
@@ -76,6 +80,88 @@ def _info_layout(info: StorageInfo) -> tuple:
 class IndexCore:
     def __init__(self) -> None:
         self.index: dict[str, dict[str, StorageInfo]] = {}
+        self.counters = {"puts": 0, "put_bytes": 0, "locates": 0, "deletes": 0}
+        # Bumped on every indexed put or delete of a key; the condition is
+        # notified with every bump.
+        self._key_gens: dict[str, int] = {}
+        self._update_cond: Optional[asyncio.Condition] = None
+
+    def cond(self) -> asyncio.Condition:
+        if self._update_cond is None:
+            self._update_cond = asyncio.Condition()
+        return self._update_cond
+
+    async def bump(self, keys) -> None:
+        cond = self.cond()
+        async with cond:
+            for key in keys:
+                self._key_gens[key] = self._key_gens.get(key, 0) + 1
+            cond.notify_all()
+
+    def contains(self, key: str) -> str:
+        """'missing', 'partial' or 'committed'."""
+        infos = self.index.get(key)
+        return "missing" if infos is None else self.committed_state(infos)
+
+    async def wait_for_committed(self, keys: list[str], timeout: Optional[float] = None) -> None:
+        """Return once every key exists and is committed; ``TimeoutError``
+        naming the keys still missing or partial otherwise."""
+        cond = self.cond()
+
+        def pending() -> list[str]:
+            return [k for k in keys if self.contains(k) != "committed"]
+
+        async with cond:
+            try:
+                await asyncio.wait_for(cond.wait_for(lambda: not pending()), timeout)
+            except asyncio.TimeoutError:
+                raise TimeoutError(
+                    f"wait_for_committed timed out after {timeout}s; still "
+                    f"missing/partial: {pending()[:5]}"
+                ) from None
+
+    async def wait_for_change(
+        self, key: str, last_gen: int = 0, timeout: Optional[float] = None
+    ) -> dict[str, Any]:
+        """Return ``{"gen", "state"}`` once ``key``'s update generation
+        differs from ``last_gen``: with 0, at once for any key ever written.
+        Inequality, not ">": a restarted index counts from scratch, and a
+        subscriber holding a larger generation must wake."""
+        cond = self.cond()
+        async with cond:
+            try:
+                await asyncio.wait_for(
+                    cond.wait_for(lambda: self._key_gens.get(key, 0) != last_gen), timeout
+                )
+            except asyncio.TimeoutError:
+                raise TimeoutError(
+                    f"wait_for_change({key!r}) timed out after {timeout}s at "
+                    f"generation {self._key_gens.get(key, 0)}"
+                ) from None
+            return {"gen": self._key_gens.get(key, 0), "state": self.contains(key)}
+
+    def summary(self) -> dict:
+        """The index half of the controller's ``stats``."""
+        indexed_bytes = 0
+        sharded_keys = 0
+        for infos in self.index.values():
+            sharded = False
+            for info in infos.values():
+                meta = info.tensor_meta
+                if info.object_type == ObjectType.TENSOR_SLICE:
+                    sharded = True
+                    indexed_bytes += sum(
+                        ts.nelements * meta.itemsize for ts in info.tensor_slices.values()
+                    )
+                elif meta is not None:
+                    indexed_bytes += meta.nbytes
+            sharded_keys += sharded
+        return {
+            **self.counters,
+            "num_keys": len(self.index),
+            "sharded_keys": sharded_keys,
+            "indexed_bytes_approx": indexed_bytes,
+        }
 
     @staticmethod
     def committed_state(infos: dict[str, StorageInfo]) -> str:
@@ -94,6 +180,7 @@ class IndexCore:
     def locate(
         self, keys: list[str], missing_ok: bool = False, require_committed: bool = True
     ) -> dict[str, dict[str, StorageInfo]]:
+        self.counters["locates"] += 1
         out: dict[str, dict[str, StorageInfo]] = {}
         for key in keys:
             infos = self.index.get(key)
@@ -118,19 +205,31 @@ class IndexCore:
         pre = prefix.split("/")
         return sorted(k for k in self.index if k.split("/")[: len(pre)] == pre)
 
-    def apply_put_batch(self, metas: list[Request], volume_ids: list[str]) -> bool:
-        """Index ``metas`` as stored on every id in ``volume_ids``; returns
-        True when the placement changed structurally (a new key, replica or
-        shard coordinate, a new shape or dtype under an old key, or a new
-        layout). A put under another kind or layout (mesh or global shape)
-        replaces the key's entry on every volume: stale shards must neither
-        satisfy the commit check nor be served beside new ones."""
+    def apply_put_batch(
+        self,
+        metas: list[Request],
+        volume_ids: list[str],
+        detach_volume_ids: Optional[list[str]] = None,
+        write_gens: Optional[dict[str, dict[str, int]]] = None,
+    ) -> bool:
+        """Index ``metas`` as stored on every id in ``volume_ids`` (with
+        each volume's write generation, when given), and drop them from
+        ``detach_volume_ids`` (replicas whose landing failed: they hold the
+        old bytes). Returns True when the placement changed structurally (a
+        new key, replica or shard coordinate, a new shape or dtype under an
+        old key, a new layout, a detached replica). A put under another kind
+        or layout (mesh or global shape) replaces the key's entry on every
+        volume: stale shards must neither satisfy the commit check nor be
+        served beside new ones."""
         structural = False
         for meta in metas:
             if meta.tensor_val is not None or meta.objects is not None:
                 raise ValueError(
                     "controller must never receive data payloads; send meta_only() requests"
                 )
+            self.counters["puts"] += 1
+            if meta.tensor_meta is not None:
+                self.counters["put_bytes"] += meta.tensor_meta.nbytes
             infos = self.index.get(meta.key)
             if infos is not None and any(
                 _info_layout(info) != _layout(meta) for info in infos.values()
@@ -140,9 +239,11 @@ class IndexCore:
                 infos = self.index[meta.key] = {}
                 structural = True
             for vid in volume_ids:
+                gen = (write_gens or {}).get(vid, {}).get(meta.key, 0)
                 old = infos.get(vid)
                 if meta.tensor_slice is None:
                     new = StorageInfo.from_meta(meta)
+                    new.write_gen = gen
                     if old is None or old.tensor_meta != new.tensor_meta:
                         structural = True
                     infos[vid] = new
@@ -154,6 +255,12 @@ class IndexCore:
                     structural = True
                 old.tensor_slices[coords] = meta.tensor_slice
                 old.tensor_meta = meta.tensor_meta
+                old.write_gen = max(old.write_gen, gen)
+            for vid in detach_volume_ids or ():
+                if infos.pop(vid, None) is not None:
+                    structural = True
+            if not infos:
+                del self.index[meta.key]
         return structural
 
     def delete_keys(self, keys: list[str]) -> dict[str, list[str]]:
@@ -164,6 +271,7 @@ class IndexCore:
             infos = self.index.pop(key, None)
             if infos is None:
                 continue
+            self.counters["deletes"] += 1
             for vid in infos:
                 by_volume.setdefault(vid, []).append(key)
         return by_volume

@@ -1,18 +1,22 @@
 """Storage volume actor: an in-memory key -> tensor/object store.
 
-Port of the ``put``/``get``/``get_meta``/``delete_batch`` endpoints of
-``torchstore_tpu/storage_volume.py`` over an in-memory dict. A key holds a
-whole tensor, an object, or the shards of a sharded tensor (one per mesh
-coordinate, ``ShardedEntry``). A get may ask for a sub-box of a whole
-tensor or of one stored shard; the transport then returns only that box.
-Tiering, the one-sided planes and the health and repair endpoints are
-later work.
+Port of the ``handshake``/``put``/``get``/``get_meta``/``delete_batch``/
+``write_gens``/``stats`` endpoints of ``torchstore_tpu/storage_volume.py``
+over an in-memory dict. A key holds a whole tensor, an object, or the
+shards of a sharded tensor (one per mesh coordinate, ``ShardedEntry``). A
+get may ask for a sub-box of a whole tensor or of one stored shard; the
+transport then returns only that box. Every put gives its keys a new write
+generation. Tiering, the one-sided planes and the health and repair
+endpoints are later work.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Optional
+
+import torch
 
 from torchstore_tpu_torch.runtime import Actor, endpoint
 from torchstore_tpu_torch.transport import shared_memory
@@ -31,6 +35,7 @@ class StorageVolume(Actor):
         self.volume_id = str(strategy.get_volume_id())
         self.store: dict[str, Any] = {}
         self.ctx = TransportContext()
+        self._write_gens: dict[str, int] = {}
         if shared_memory.is_available():
             # Crashed processes leave segments behind; sweep before serving.
             shared_memory.reap_orphaned_segments()
@@ -39,21 +44,44 @@ class StorageVolume(Actor):
     async def get_id(self) -> dict:
         return {"volume_id": self.volume_id, "hostname": get_hostname(), "pid": os.getpid()}
 
+    def _existing(self, metas: list[Request]) -> dict[int, Any]:
+        return {idx: self.store[m.key] for idx, m in enumerate(metas) if m.key in self.store}
+
     @endpoint
-    async def put(self, buffer: TransportBuffer, metas: list[Request]) -> Any:
+    async def handshake(self, buffer: TransportBuffer, metas: list[Request], op: str) -> Any:
+        existing = self._existing(metas) if op == "put" else {}
+        return await maybe_await(buffer.recv_handshake(self.ctx, metas, existing, op))
+
+    @endpoint
+    async def put(self, buffer: TransportBuffer, metas: list[Request]) -> dict:
+        """Land ``metas``; returns ``{"reply": the transport's put reply,
+        "write_gens": {key: new write generation}}``."""
         for meta in metas:
             self._supersede(meta)
-        existing = {
-            idx: self.store[m.key] for idx, m in enumerate(metas) if m.key in self.store
-        }
-        values = await maybe_await(buffer.handle_put_request(self.ctx, metas, existing))
+        values = await maybe_await(buffer.handle_put_request(self.ctx, metas, self._existing(metas)))
         for idx, meta in enumerate(metas):
             ts = meta.tensor_slice
             if ts is None:
                 self.store[meta.key] = values[idx]
             else:
                 self.store.setdefault(meta.key, ShardedEntry())[ts.coordinates] = (ts, values[idx])
-        return buffer.put_reply()
+        return {"reply": buffer.put_reply(), "write_gens": self._bump_write_gens(metas)}
+
+    def _bump_write_gens(self, metas: list[Request]) -> dict[str, int]:
+        """A new generation per key: above the last, and a timestamp in
+        microseconds, so a restarted volume's generations keep rising."""
+        now = int(time.time() * 1e6)
+        gens: dict[str, int] = {}
+        for meta in metas:
+            gen = max(self._write_gens.get(meta.key, 0) + 1, now)
+            self._write_gens[meta.key] = gens[meta.key] = gen
+        return gens
+
+    @endpoint
+    async def write_gens(self, keys: list[str]) -> dict[str, int]:
+        """The current write generation of each of ``keys`` this volume
+        wrote (others omitted)."""
+        return {key: self._write_gens[key] for key in keys if key in self._write_gens}
 
     def _supersede(self, meta: Request) -> None:
         """Drop what ``meta`` replaces as a whole before it lands: a sharded
@@ -102,9 +130,18 @@ class StorageVolume(Actor):
             if found is None:
                 raise KeyError(f"no shard at coordinates {ts.coordinates} of key {meta.key!r}")
             stored, tensor = found
+            if (stored.mesh_shape, stored.global_shape) != (ts.mesh_shape, ts.global_shape):
+                raise ValueError(
+                    f"key {meta.key!r} is stored under mesh {stored.mesh_shape} and global "
+                    f"shape {stored.global_shape}, not {ts.mesh_shape} / {ts.global_shape}"
+                )
             return Served(tensor, (meta.key, ts.coordinates), _sub_index(stored, ts, meta.key))
         if ts is None:
             return Served(entry, (meta.key, None))
+        if ts.global_shape != tuple(entry.shape):
+            raise ValueError(
+                f"key {meta.key!r} holds shape {tuple(entry.shape)}, not {ts.global_shape}"
+            )
         whole = TensorSlice((0,) * entry.ndim, tuple(entry.shape), tuple(entry.shape), (), ())
         return Served(entry, (meta.key, None), _sub_index(whole, ts, meta.key))
 
@@ -122,17 +159,51 @@ class StorageVolume(Actor):
         for key in keys:
             if self.store.pop(key, None) is not None:
                 deleted += 1
+            self._write_gens.pop(key, None)
             self.ctx.delete_key(key)
         return deleted
 
     @endpoint
+    async def stats(self) -> dict:
+        """Stored entries and bytes, and the shared-memory segment economics
+        once that transport served traffic: live, retired and pooled
+        segments and bytes, read leases, warm-ups in flight, handshake
+        offers by outcome (spare / pooled / miss), segments created,
+        recycled and reaped."""
+        stored_bytes = 0
+        for entry in self.store.values():
+            tensors = [t for _, t in entry.values()] if isinstance(entry, ShardedEntry) else [entry]
+            stored_bytes += sum(
+                t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor)
+            )
+        out = {
+            "volume_id": self.volume_id,
+            "entries": len(self.store),
+            "stored_bytes": stored_bytes,
+            "tracked_generations": len(self._write_gens),
+        }
+        cache = self.ctx.peek(shared_memory.ShmServerCache)
+        if cache is not None:
+            out["shm"] = cache.stats()
+        return out
+
+    @endpoint
     async def reset(self) -> None:
-        self.store.clear()
-        self.ctx.clear()
+        await self._clear()
 
     async def on_stop(self) -> None:
+        await self._clear()
+
+    async def _clear(self) -> None:
+        """Drop every entry and unlink every segment this volume owns: live,
+        pooled, retired, reserved, staged, and those warm-ups in flight
+        make."""
+        cache = self.ctx.peek(shared_memory.ShmServerCache)
         self.store.clear()
-        self.ctx.clear()  # unlinks every segment this volume owns
+        self._write_gens.clear()
+        self.ctx.clear()
+        if cache is not None:
+            await cache.wait_warmups()
 
     def _entry(self, key: str) -> Any:
         try:

@@ -1,8 +1,9 @@
 """Client <-> volume mapping strategies.
 
 Port of ``torchstore_tpu/strategy.py``: a strategy gives each volume its id
-(computed inside the volume process from its env) and picks the volume a
-client writes to.
+(computed inside the volume process from its env) and picks the volumes a
+client writes to: its primary and, with ``replication`` > 1, the primary's
+successors in sorted-id order.
 """
 
 from __future__ import annotations
@@ -34,10 +35,17 @@ class StorageVolumeRef:
 
 
 class StoreStrategy(ABC):
-    """``default_transport_type`` forces one transport for every volume."""
+    """``default_transport_type`` forces one transport for every volume.
+    ``replication`` > 1 lands every put on that many volumes, so a get can
+    be served by any of them."""
 
-    def __init__(self, default_transport_type: Optional[str] = None) -> None:
+    def __init__(
+        self, default_transport_type: Optional[str] = None, replication: int = 1
+    ) -> None:
+        if replication < 1:
+            raise ValueError("replication must be >= 1")
         self.default_transport_type = default_transport_type
+        self.replication = replication
 
     @abstractmethod
     def get_volume_id(self) -> str:
@@ -55,6 +63,20 @@ class StoreStrategy(ABC):
             f"no storage volume for client id {client_id!r}; volumes: {sorted(volume_ids)}"
         )
 
+    def select_put_volume_ids(self, client_id: str, volume_ids: list[str]) -> list[str]:
+        """Every volume a put writes to: the primary, then its
+        ``replication`` - 1 successors on the ring of sorted ids."""
+        primary = self.select_volume_id(client_id, volume_ids)
+        if self.replication == 1:
+            return [primary]
+        if self.replication > len(volume_ids):
+            raise ValueError(
+                f"replication={self.replication} exceeds the {len(volume_ids)} available volumes"
+            )
+        ring = sorted(volume_ids)
+        start = ring.index(primary)
+        return [ring[(start + i) % len(ring)] for i in range(self.replication)]
+
 
 class LocalRankStrategy(StoreStrategy):
     """One volume per rank; a client writes to its own rank's volume."""
@@ -64,6 +86,18 @@ class LocalRankStrategy(StoreStrategy):
 
     def get_client_id(self) -> str:
         return os.environ.get("RANK", os.environ.get("LOCAL_RANK", "0"))
+
+
+class HostStrategy(StoreStrategy):
+    """One volume per host; a client writes to its own host's volume. The
+    host is ``TORCHSTORE_TORCH_HOSTNAME`` when set (tests emulate hosts so),
+    else the machine's name."""
+
+    def get_volume_id(self) -> str:
+        return get_hostname()
+
+    def get_client_id(self) -> str:
+        return get_hostname()
 
 
 class SingletonStrategy(StoreStrategy):

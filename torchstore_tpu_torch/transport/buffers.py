@@ -6,6 +6,9 @@ transports pluggable:
 
     client                                 server (storage volume)
     ------                                 -----------------------
+    [_pre_handshake
+     volume.handshake(buffer, metas, op) ─▶ recv_handshake
+     _post_handshake(reply)]  ◀───────────── (offers, e.g. pooled segments)
     _pre_put_hook / _pre_get_hook
     volume.put/get(buffer, metas) ──RPC──▶ handle_put_request /
                                            handle_get_request
@@ -13,9 +16,11 @@ transports pluggable:
     _handle_storage_volume_response ◀────── (buffer rides the response)
     drop() in finally
 
-The buffer is pickled into the RPC both ways; each implementation strips
-its client-only state in ``__getstate__``. The reference's put handshake
-(pooled segment offers) is not part of this port yet.
+The handshake runs only for the ops a transport names in
+``handshake_ops`` when it ``requires_handshake``: the shared-memory rung
+asks the volume for warm segments before it copies a put. The buffer is
+pickled into the RPC both ways; each implementation strips its
+client-only state in ``__getstate__``.
 """
 
 from __future__ import annotations
@@ -82,6 +87,10 @@ class TransportContext:
             self._caches[cache_cls] = cache
         return cache
 
+    def peek(self, cache_cls: type) -> Any:
+        """The cache of ``cache_cls`` if one was made, without making one."""
+        return self._caches.get(cache_cls)
+
     def delete_key(self, key: str) -> None:
         for cache in self._caches.values():
             cache.delete_key(key)
@@ -97,6 +106,13 @@ class TransportBuffer(ABC):
     releases staged resources in ``drop()`` on success and failure."""
 
     transport_name: str = "unknown"
+    requires_handshake: bool = False
+    # The ops that pay the handshake RPC when ``requires_handshake``: a
+    # put's (a get's answer describes itself).
+    handshake_ops: tuple = ("put",)
+    # Per-key write generations the volume gave the last put this buffer
+    # carried.
+    write_gens: Optional[dict[str, int]] = None
 
     # ---- client side -----------------------------------------------------
 
@@ -108,13 +124,16 @@ class TransportBuffer(ABC):
                 raise ValueError(f"put of key {req.key!r} carries no tensor data")
         nbytes = sum(r.nbytes for r in requests)
         try:
+            if self.requires_handshake and "put" in self.handshake_ops:
+                await self._perform_handshake(volume, requests, op="put")
             await self._pre_put_hook(volume, requests)
             metas = [r.meta_only() for r in requests]
             put = volume.actor.put
             reply = await put.with_timeout(
                 transfer_timeout(put.effective_timeout(), nbytes)
             ).call_one(self, metas)
-            self._handle_put_reply(volume, reply, requests)
+            self.write_gens = reply["write_gens"]
+            self._handle_put_reply(volume, reply["reply"], requests)
         finally:
             self.drop()
 
@@ -134,6 +153,20 @@ class TransportBuffer(ABC):
             )
         finally:
             self.drop()
+
+    async def _perform_handshake(
+        self, volume: "StorageVolumeRef", requests: list[Request], op: str
+    ) -> None:
+        self._pre_handshake(volume, requests, op)
+        metas = [r.meta_only() for r in requests]
+        reply = await volume.actor.handshake.call_one(self, metas, op)
+        await maybe_await(self._post_handshake(volume, requests, reply, op))
+
+    def _pre_handshake(self, volume, requests, op) -> None:  # noqa: B027
+        pass
+
+    def _post_handshake(self, volume, requests, reply, op) -> Any:  # noqa: B027
+        """Act on the volume's handshake reply (may be a coroutine)."""
 
     async def _pre_put_hook(self, volume, requests) -> None:  # noqa: B027
         pass
@@ -155,6 +188,13 @@ class TransportBuffer(ABC):
         """Release staged resources; safe to call more than once."""
 
     # ---- server side (inside the storage-volume process) -----------------
+
+    def recv_handshake(
+        self, ctx: TransportContext, metas: list[Request], existing: dict[int, Any], op: str
+    ) -> Any:
+        """The volume's side of the handshake; returns a small picklable
+        reply."""
+        return None
 
     @abstractmethod
     def handle_put_request(

@@ -39,5 +39,5 @@ def create_transport_buffer(
     else:
         chosen = TransportType(forced)
     if chosen == TransportType.SHM:
-        return shared_memory.SharedMemoryTransportBuffer()
+        return shared_memory.SharedMemoryTransportBuffer(config)
     return RPCTransportBuffer()
