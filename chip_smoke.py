@@ -30,7 +30,10 @@ Phases, each printing one JSON line:
                   a reget of the same key into the same targets, twice, each
                   after the volume's pool warm-ups settled and the client's
                   background page-locking ended, both waits printed),
-                  shutdown; per step GB/s, the segment pool's offers by
+                  shutdown; per step GB/s, the plan cache's hits and misses
+                  and the controller's locates and epoch bumps (reput2 and
+                  reget2 are plan hits with no locate, no bump and no commit
+                  marker fetched), the segment pool's offers by
                   outcome (spare / pooled / miss), segments created and
                   recycled, spares announced, the page-locking seconds and
                   the seconds the step waited for a lock in progress; a
@@ -48,7 +51,24 @@ Phases, each printing one JSON line:
                   kernel's launches per step equal to the planner's chunks;
                   the regions fetched equal to the count the phase works out
                   from the two layouts; a DTensor leg on a one-rank mesh;
-7. flash_parity - the flash kernels, stats mode (K2) and normalized mode
+7. quant        - the quantized wire tier at full Llama-3-8B (291 fp32
+                  tensors on the card, bf16 targets on the card), for each of
+                  int8_block, int4_block and int8: the encode alone and the
+                  decode alone on the card (CUDA events, beside their HBM
+                  byte bounds), then put, get and a plan-cached reput and
+                  reget of the same key (and, for int8_block, a reput and
+                  reget with the plan cache off); gates: the card's blobs of
+                  every norm, the embedding and layer 0 byte-equal to the CPU
+                  encode, every target bit-equal to the plain dequant of its
+                  blob in bf16 and within one keyframe step of the source, no
+                  device memory left by a get, the warm steps plan hits with
+                  no locate, epoch bump or marker; then a delta leg at the
+                  depth a printed memory plan allows (int8_block, versions
+                  v0..v4, keyframe every 4): the reader's state bit-equal to
+                  the encoder's baseline at every version, v2 (no change)
+                  ships zero bytes, a fresh decoder walks the chain to the
+                  same bytes;
+8. flash_parity - the flash kernels, stats mode (K2) and normalized mode
                   (K3), against their plain versions on the card: Llama-3-8B
                   attention width, MHA, d = 64, 72 and 256, lengths 1 to 8192
                   and ragged ones, batch up to 4, a packed qkv projection
@@ -56,20 +76,20 @@ Phases, each printing one JSON line:
                   variant ``sm90_eligible`` picked; the sm90 cases are held
                   against the blockwise plain version and against the fp32
                   one with SDPA's error as the yardstick;
-8. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
+9. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
                   (and K2 at 4096) on the sm90 kernel, and at 8192 on the
                   simt kernel, beside their bound, the plain versions and
                   SDPA;
-9. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
+10. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
                   Llama-3-8B attention width: a bf16 path (forward at 8192,
                   forward and backward at 4096) and an fp32 forward path at
                   2048, held against the einsum body and the plain version;
                   K2's and K3's launches per variant on each path;
-10. model       - the RL loop at Llama-3-8B width (depth cut): a learner
+11. model       - the RL loop at Llama-3-8B width (depth cut): a learner
                   trains two steps and publishes with direct=True (cast
                   launches equal to the planner's chunk count), a bf16
                   generator pulls and decodes greedily;
-11. kernels     - one line listing every ported kernel.
+12. kernels     - one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints no
@@ -90,7 +110,7 @@ import sys
 import time
 
 ALL_PHASES = (
-    "device", "build", "parity", "timing", "main", "reshard",
+    "device", "build", "parity", "timing", "main", "reshard", "quant",
     "flash_parity", "flash_timing", "ring", "model", "kernels",
 )
 
@@ -496,6 +516,8 @@ def main() -> int:
             res = phase_main(torch, staging)
         elif phase == "reshard":
             res = phase_reshard(torch, staging)
+        elif phase == "quant":
+            res = phase_quant(torch)
         elif phase == "flash_parity":
             res = phase_flash_parity(torch, flash)
         elif phase == "flash_timing":
@@ -533,6 +555,13 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _bf16_zeros_like(torch, tree, dev):
+    """bf16 zeros on ``dev`` in the shape of every leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _bf16_zeros_like(torch, v, dev) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=torch.bfloat16, device=dev)
 
 
 def _pairs(a, b):
@@ -655,12 +684,7 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
     n_params = sum(t.numel() for t in _leaves(src))
     wire_bytes = 2 * n_params  # bf16 on the wire
 
-    def zeros_like_tree(tree):
-        if isinstance(tree, dict):
-            return {k: zeros_like_tree(v) for k, v in tree.items()}
-        return torch.zeros(tree.shape, dtype=bf16, device=dev)
-
-    targets = zeros_like_tree(src)
+    targets = _bf16_zeros_like(torch, src, dev)
 
     def check(label: str) -> dict:
         bad = [
@@ -687,6 +711,7 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
     launches_by_step = {}
     fallbacks = {}
     pool = {}
+    plans = {}
     staging.cast_kernel.launches = 0  # count the main path's launches only
     staging.cast_kernel.fallbacks = 0
     t0 = time.perf_counter()
@@ -697,13 +722,15 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
 
     async def step(name: str, coro, cast: bool) -> None:
         """Run one step: its seconds, K1 launches and fallbacks, and the
-        pool's counters over it."""
+        pool's and the plan cache's counters over it."""
         before = await _pool_counts(client)
+        plan_before = await _plan_counts(client)
         launched, fell_back = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
         t0 = time.perf_counter()
         await coro
         torch.cuda.synchronize()
         timings[f"{name}_s"] = time.perf_counter() - t0
+        plans[name] = _delta(await _plan_counts(client), plan_before)
         after = await _pool_counts(client)
         pool[name] = {k: after[k] - before[k] for k in after if k != "warming"}
         if cast:
@@ -778,6 +805,7 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
             "buffered_pinning": buffered_pinning,
             "pin_overlap": overlap,
             "pool": pool,
+            "plans": plans,
             "warm_wait_s": waited,
             "wait_pinned_s": pin_waited,
             "timings": timings,
@@ -797,10 +825,43 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
         and not any(fallbacks.values())
         and pinning["staging_pinned"] is not False
         and all(pool[r]["miss"] == 0 and pool[r]["cold_create"] == 0 for r in rotations)
+        and _plans_warm(plans, "reput2", "reget2")
         and not alive
         and not leaked
     )
     return out
+
+
+async def _plan_counts(client) -> dict:
+    """The controller's locates and placement epoch (read by direct calls,
+    which move no count), this client's epoch reads, and the process's
+    plan-cache and commit-marker counts."""
+    from torchstore_tpu_torch.state_dict_utils import sync_counters
+
+    stats = await client.controller.stats.call_one()
+    counts = sync_counters()
+    return {"locates": stats["locates"],
+            "epoch_bumps": await client.controller.placement_epoch.call_one(),
+            "epoch_reads": client.epoch_reads,
+            **{k: counts[k] for k in ("plan_hits_put", "plan_hits_get", "plan_misses",
+                                      "marker_fetches")}}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _plans_warm(plans: dict, put: str, get: str) -> bool:
+    """A warm put and get: each a plan hit, with no locate, no epoch bump
+    and no commit marker fetched; the get read the epoch once."""
+    return (
+        all(plans[s]["locates"] == 0 and plans[s]["epoch_bumps"] == 0
+            and plans[s]["marker_fetches"] == 0 and plans[s]["plan_misses"] == 0
+            for s in (put, get))
+        and plans[put]["plan_hits_put"] == 1
+        and plans[get]["plan_hits_get"] == 1
+        and plans[get]["epoch_reads"] == 1
+    )
 
 
 def _pinning(tst, key: str, dev, store_name: str = "default") -> dict:
@@ -1057,6 +1118,344 @@ def phase_reshard(torch, staging) -> dict:
     res = asyncio.run(_reshard_path(torch, staging, layers, torch.device("cuda", 0)))
     res["phase"] = "reshard"
     res["sizing"] = sizing
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return res
+
+
+# --------------------------------------------------------------------------
+# quant: the quantized wire tier at full width
+# --------------------------------------------------------------------------
+
+QUANT_FMTS = ("int8_block", "int4_block", "int8")
+QUANT_BLOCK = 256
+DELTA_VERSIONS = 5  # v0 keyframe, v1 update, v2 unchanged, v3 update, v4 keyframe
+DELTA_KEYFRAME = 4
+# The delta leg's card bytes a parameter: the fp32 source, the encoder's
+# baseline and the decoder's state (f32 each), the bf16 target, and the
+# blobs and scale tables (about 1).
+DELTA_BYTES_PER_PARAM = 15
+
+
+def _plain_dequant(torch, blob, numel: int):
+    """A blob's f32 values by the format's definition, apart from the
+    port's decoder: header fields by struct, sections by the layout rules
+    (header and shape, bitmap and codes each on a 64-byte boundary, the f32
+    scale table 4-byte aligned after the codes), int4 codes low nibble
+    first, value = f32(code) * f32(scale)."""
+    import struct
+
+    head = blob[:128].cpu().numpy().tobytes()
+    _, _, fmt_code, _, block, nblocks, changed = struct.unpack_from("<IHBBIII", head)
+    up = lambda n, a: (n + a - 1) // a * a  # noqa: E731
+    bitmap = up(64 + 8 * head[20], 64)
+    payload = up(bitmap + (nblocks + 7) // 8, 64)
+    per_block = block if fmt_code == 1 else (block + 1) // 2
+    scales_at = up(payload + changed * per_block, 4)
+    raw = blob[payload:payload + changed * per_block]
+    if fmt_code == 1:
+        codes = raw.view(torch.int8).reshape(changed, block).to(torch.float32)
+    else:
+        b = raw.reshape(changed, per_block).to(torch.int16)
+        nib = torch.stack([b & 15, b >> 4], dim=2).reshape(changed, -1)[:, :block]
+        codes = ((nib ^ 8) - 8).to(torch.float32)
+    scales = blob[scales_at:scales_at + 4 * changed].view(torch.float32)
+    return (codes * scales[:, None]).reshape(-1)[:numel]
+
+
+def _within_step(got, src, qmax: int) -> tuple:
+    """(max |got - src|, one keyframe step max|src| / qmax) of one leaf."""
+    step = float(src.abs().max()) / qmax if src.numel() else 0.0
+    err = float((got.float() - src).abs().max()) if src.numel() else 0.0
+    return err, step
+
+
+def _quant_samples(flat: dict) -> list:
+    """The leaves held byte for byte against the CPU encode: every norm,
+    the embedding and the whole of layer 0."""
+    return [k for k in flat if "norm" in k or k == "embed" or k.startswith("layers/0/")]
+
+
+async def _quant_mode(torch, tst, sdu, client, fmt: str, src, targets, dev, no_cache: bool):
+    """One mode at full width: the encode and the decode alone on the card
+    (CUDA events), then put, get, a warm reput and reget of the same key,
+    and (``no_cache``) a reput and reget with the client's plan cache off."""
+    flat, _ = sdu.flatten_state_dict(src)
+    tflat, _ = sdu.flatten_state_dict(targets)
+    n = sum(t.numel() for t in flat.values())
+    qmax = sdu._QMAX[fmt]
+    res: dict = {"fmt": fmt}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    # One small leaf through the codec first, so the timed calls pay no
+    # first-launch cost of its kernels.
+    warm = {"final_norm": flat["final_norm"]}
+    warm_blob = sdu.quantize_transfer(warm, fmt, QUANT_BLOCK)[0]["final_norm"]
+    sdu._quant_result(await sdu.DeltaDecoder().decode("final_norm", warm_blob),
+                      tflat["final_norm"])
+    torch.cuda.synchronize()
+    start.record()
+    blobs, _ = sdu.quantize_transfer(flat, fmt, QUANT_BLOCK)
+    end.record()
+    end.synchronize()
+    wire = sum(b.numel() for b in blobs.values())
+    res.update({"wire_bytes": wire, "logical_bytes": 4 * n, "encode_ms": start.elapsed_time(end),
+                "encode_bound_ms": (4 * n + wire) / HBM_BYTES_PER_S * 1e3,
+                "blobs_on_device": all(b.device.type == dev.type for b in blobs.values())})
+    samples = _quant_samples(flat)
+    res["sample_tensors"] = len(samples)
+    res["sample_mismatched"] = [
+        k for k in samples
+        if not torch.equal(blobs[k].cpu(),
+                           sdu.quantize_transfer({k: flat[k].cpu()}, fmt, QUANT_BLOCK)[0][k])
+    ]
+
+    def clear() -> None:
+        for t in tflat.values():
+            t.zero_()
+        torch.cuda.synchronize()
+
+    def check(label: str) -> dict:
+        """Every target bit-equal to the plain dequant of its blob in bf16,
+        and within one keyframe step of the source."""
+        bad, worst, ratio = [], 0.0, 0.0
+        for k, t in tflat.items():
+            plain = _plain_dequant(torch, blobs[k], t.numel()).reshape(t.shape)
+            if not torch.equal(t, plain.to(torch.bfloat16)):
+                bad.append(k)
+            err, step = _within_step(t, flat[k], qmax)
+            worst = max(worst, err)
+            ratio = max(ratio, err / step if step else (0.0 if err == 0 else math.inf))
+        return {"check": label, "bit_equal_plain": not bad, "mismatched": bad[:5],
+                "max_abs_err": worst, "max_err_over_step": ratio}
+
+    # The decode alone: every blob's head in one read, then each key decoded
+    # into its target on the card, as a get decodes it.
+    clear()
+    torch.cuda.synchronize()
+    start.record()
+    heads = sdu._read_heads(blobs)
+    for k, blob in blobs.items():
+        st = await sdu.DeltaDecoder().decode(k, blob, head=heads.get(k))
+        sdu._quant_result(st, tflat[k])
+    end.record()
+    end.synchronize()
+    res.update({"decode_ms": start.elapsed_time(end),
+                "decode_bound_ms": (wire + 2 * n) / HBM_BYTES_PER_S * 1e3})
+    checks = [check("decode alone")]
+
+    key = f"q/{fmt}"
+    timings, plans, mem = {}, {}, {}
+
+    async def step(name: str, coro) -> None:
+        before = await _plan_counts(client)
+        allocated = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        await coro
+        torch.cuda.synchronize()
+        timings[name] = time.perf_counter() - t0
+        mem[name] = torch.cuda.memory_allocated(dev) - allocated
+        plans[name] = _delta(await _plan_counts(client), before)
+
+    rounds = [("put", "get"), ("reput", "reget")] + ([("reput_nocache", "reget_nocache")]
+                                                     if no_cache else [])
+    waits = {}
+    for put, get in rounds:
+        cache = client.plan_cache
+        if put != "put":
+            # The steady state, as main's: after the volume's warm-ups and
+            # the client's page-locking (a training step's gap).
+            waits[put] = {"warm_wait_s": await _wait_warm(client),
+                          "wait_pinned_s": await client.wait_pinned()}
+        if put.endswith("nocache"):
+            client.plan_cache = None  # as StoreConfig(plan_cache=False) builds it
+        try:
+            clear()
+            await step(put, tst.put_state_dict(key, src, transfer_quant=fmt, store_name="quant"))
+            await step(get, tst.get_state_dict(key, targets, store_name="quant"))
+        finally:
+            client.plan_cache = cache
+        checks.append(check(get))
+    await client.delete_prefix(key)
+    del blobs
+    res.update({
+        "checks": checks,
+        "seconds": timings,
+        "wire_gb_per_s": {k: wire / v / 1e9 for k, v in timings.items()},
+        "bf16_equiv_gb_per_s": {k: 2 * n / v / 1e9 for k, v in timings.items()},
+        "plans": plans,
+        "waits": waits,
+        "device_bytes_left": {k: v for k, v in mem.items() if "get" in k},
+    })
+    res["ok"] = (
+        res["blobs_on_device"]
+        and not res["sample_mismatched"]
+        and all(c["bit_equal_plain"] and c["max_err_over_step"] <= 1.0 for c in checks)
+        and all(v <= 0 for v in res["device_bytes_left"].values())
+        and _plans_warm(plans, "reput", "reget")
+    )
+    return res
+
+
+def plan_delta_layers(torch, dev) -> tuple[int, dict]:
+    """Depth of the delta leg: its DELTA_BYTES_PER_PARAM of every parameter,
+    and the transients of the largest leaf (about six f32 copies), fit in
+    nine tenths of the card's free memory. Widths never change."""
+    from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
+
+    geo = dict(LLAMA3_8B)
+    per_layer = sum(math.prod(s) for s in _leaves(llama_shapes(**{**geo, "layers": 1})["layers"]))
+    outer = sum(math.prod(s) for s in _leaves({**llama_shapes(**{**geo, "layers": 0}),
+                                               "layers": {}}))
+    largest = geo["vocab"] * geo["hidden"]
+    free, total = torch.cuda.mem_get_info(dev)
+    budget = 0.9 * free - 6 * 4 * largest
+    layers = int((budget / DELTA_BYTES_PER_PARAM - outer) // per_layer)
+    layers = max(1, min(geo["layers"], layers))
+    return layers, {"card_free_bytes": free, "card_total_bytes": total,
+                    "bytes_per_param": DELTA_BYTES_PER_PARAM,
+                    "transient_bytes": 6 * 4 * largest, "budget_bytes": int(budget),
+                    "needed_bytes": DELTA_BYTES_PER_PARAM * (outer + layers * per_layer)}
+
+
+async def _delta_leg(torch, tst, sdu, client, layers: int, dev, geometry=None) -> dict:
+    """The delta tier through the store at full width: versions v0..v4 of
+    one channel (keyframe every 4): v0 keyframe, v1 an in-place update of
+    the even layers, v2 no change (every key an alias: zero bytes), v3 an
+    update of the odd layers and the embedding, v4 the cadence keyframe.
+    The reader's state stays bit-equal to the encoder's baseline; a fresh
+    decoder walks the chain to the same bytes at v3."""
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers,
+                           **(geometry or {}))
+    flat, _ = sdu.flatten_state_dict(src)
+    targets = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=dev) for k, v in flat.items()}
+    enc = sdu.DeltaEncoder("int8_block", QUANT_BLOCK, keyframe_every=DELTA_KEYFRAME)
+    dec = sdu.DeltaDecoder()
+    channel = "delta"
+    versions = []
+    fresh_equal = None
+    for v in range(DELTA_VERSIONS):
+        if v in (1, 3):
+            for k, t in flat.items():
+                layer = k.split("/")[1] if k.startswith("layers/") else None
+                if (v == 1 and layer is not None and int(layer) % 2 == 0) or (
+                        v == 3 and (k == "embed" or (layer is not None and int(layer) % 2))):
+                    t.add_(0.05)  # the training step, in place
+        before = sdu.sync_counters()
+        t0 = time.perf_counter()
+        await sdu.put_state_dict(client, f"{channel}/v{v}", flat, transfer_quant="int8_block",
+                                 delta_ctx={"codec": enc, "version": v, "channel": channel})
+        torch.cuda.synchronize()
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        await sdu.get_state_dict(client, f"{channel}/v{v}", targets, delta_state=dec)
+        torch.cuda.synchronize()
+        get_s = time.perf_counter() - t0
+        counts = _delta(sdu.sync_counters(), before)
+        marker = await client.get(f"{channel}/v{v}/MAPPING")
+        aliases = marker["quant"]["delta"]["aliases"]
+        worst = max(err / max(step, 1e-30)
+                    for err, step in (_within_step(targets[k], flat[k], 127)
+                                      for k in flat))
+        versions.append({
+            "version": v,
+            "wire_bytes": counts["quant_bytes_wire"],
+            "keyframes": counts["delta_keyframes"],
+            "aliases": len(aliases),
+            "served_from_state": counts["delta_unchanged_served"],
+            "stored_keys": len(await client.keys(f"{channel}/v{v}")),
+            "put_s": put_s,
+            "get_s": get_s,
+            "state_equals_baseline": all(
+                torch.equal(dec.state[k]["blocks"], enc.entries[k]["baseline"]) for k in flat),
+            "state_on_device": all(dec.state[k]["blocks"].device.type == dev.type for k in flat),
+            "max_err_over_step": worst,
+        })
+        if v == 3:
+            # A joining reader: a fresh decoder walks the chain back to v0
+            # for layer 0 (updated at v1: its v3 is an alias of v1's delta),
+            # layer 1 (updated at v3: a delta on v0) and the final norm
+            # (never updated: an alias of v0).
+            part = [k for k in flat
+                    if k.startswith(("layers/0/", "layers/1/")) or k == "final_norm"]
+            fresh = sdu.DeltaDecoder()
+            await sdu.get_state_dict(client, f"{channel}/v{v}",
+                                     {k: torch.zeros_like(targets[k]) for k in part},
+                                     strict=False, delta_state=fresh)
+            fresh_equal = all(torch.equal(fresh.state[k]["blocks"], dec.state[k]["blocks"])
+                              for k in part)
+            del fresh
+    await client.delete_prefix(channel)
+    n = sum(t.numel() for t in flat.values())
+    out = {"layers": layers, "tensors": len(flat), "params": n, "versions": versions,
+           "fresh_reader_equal": fresh_equal, "keyframe_every": DELTA_KEYFRAME}
+    keys = len(flat)
+    out["ok"] = (
+        all(x["state_equals_baseline"] and x["state_on_device"] and x["max_err_over_step"] <= 1.0
+            for x in versions)
+        and versions[0]["keyframes"] == keys and versions[4]["keyframes"] == keys
+        and versions[2]["aliases"] == keys and versions[2]["wire_bytes"] == 0
+        and versions[2]["stored_keys"] == 1  # the marker alone
+        and versions[2]["served_from_state"] == keys
+        and 0 < versions[1]["wire_bytes"] < versions[0]["wire_bytes"]
+        and 0 < versions[3]["wire_bytes"] < versions[0]["wire_bytes"]
+        and fresh_equal is True
+    )
+    return out
+
+
+async def _quant_path(torch, layers: int, dev, geometry=None, delta_layers=None) -> dict:
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch import state_dict_utils as sdu
+    from torchstore_tpu_torch.transport.shared_memory import PREFIX, SHM_DIR
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers, **(geometry or {}))
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    targets = _bf16_zeros_like(torch, src, dev)
+    out: dict = {"layers": layers, "tensors": sum(1 for _ in _leaves(src)),
+                 "params": sum(t.numel() for t in _leaves(src)), "block": QUANT_BLOCK}
+    await tst.initialize(store_name="quant")
+    pids = [p.pid for p in multiprocessing.active_children()]
+    client = tst.client("quant")
+    try:
+        out["modes"] = {}
+        for i, fmt in enumerate(QUANT_FMTS):
+            out["modes"][fmt] = await _quant_mode(torch, tst, sdu, client, fmt, src, targets, dev,
+                                                  no_cache=i == 0)
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del src, targets
+        torch.cuda.empty_cache()
+        if delta_layers is None:
+            delta_layers, plan = plan_delta_layers(torch, dev)
+            out["delta_plan"] = plan
+            if delta_layers < LAYERS:
+                emit({"reduced": {"quant_delta_layers": delta_layers, "of": LAYERS}, **plan})
+        torch.cuda.reset_peak_memory_stats(dev)
+        out["delta"] = await _delta_leg(torch, tst, sdu, client, delta_layers, dev, geometry)
+        out["delta"]["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    finally:
+        await tst.shutdown("quant")
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children()]
+    own = set(pids) | {os.getpid()}
+    leaked = [n for n in os.listdir(SHM_DIR)
+              if n.startswith(PREFIX) and int(n[len(PREFIX):].split("_")[0]) in own]
+    out.update({"processes_left": alive, "segments_left": leaked[:5]})
+    out["ok"] = (all(m["ok"] for m in out["modes"].values()) and out["delta"]["ok"]
+                 and not alive and not leaked)
+    return out
+
+
+def phase_quant(torch) -> dict:
+    res = asyncio.run(_quant_path(torch, LAYERS, torch.device("cuda", 0)))
+    res["phase"] = "quant"
     res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     return res
 

@@ -1,5 +1,6 @@
 """The port's flash kernel and grouped cast kernel against their plain
-versions on an NVIDIA GPU.
+versions on an NVIDIA GPU, and the quantized wire tier on the card (blobs
+and delta sequences byte-equal to the CPU encode, gets decoded on the card).
 
 This file imports torch, numpy and the port only (no JAX), so it runs on a
 machine with the card:
@@ -376,3 +377,116 @@ def test_buffered_rotation_through_pinned_attachments(cuda, monkeypatch):
         assert not cache.segments
 
     asyncio.run(run())
+
+
+# --------------------------------------------------------------------------
+# the quantized wire tier on the card
+# --------------------------------------------------------------------------
+
+
+def quant_leaves(seed, device):
+    """f32, bf16 and f16 leaves with ragged tails, a scalar and an empty
+    one, from one numpy seed."""
+    rng = np.random.default_rng(seed)
+    leaves = {
+        "w": rng.standard_normal((300, 17)).astype(np.float32) * 3.0,
+        "b": rng.standard_normal(1000).astype(np.float32) * 0.01,
+        "s": np.asarray(1.5, np.float32),
+        "e": np.zeros((0, 8), np.float32),
+    }
+    out = {k: torch.from_numpy(v).to(device) for k, v in leaves.items()}
+    out["h"] = torch.from_numpy(rng.standard_normal(513).astype(np.float32)).to(device,
+                                                                               torch.float16)
+    out["bf"] = torch.from_numpy(rng.standard_normal((7, 9)).astype(np.float32)).to(
+        device, torch.bfloat16)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int8_block", "int4_block"])
+def test_card_blobs_equal_the_cpu_encode(cuda, fmt):
+    from torchstore_tpu_torch import state_dict_utils as sdu
+
+    leaves = quant_leaves(4, cuda)
+    out, meta = sdu.quantize_transfer(leaves, fmt, 256)
+    want, want_meta = sdu.quantize_transfer({k: v.cpu() for k, v in leaves.items()}, fmt, 256)
+    assert meta == want_meta
+    for k in leaves:
+        assert out[k].is_cuda and out[k].dtype == torch.uint8
+        assert torch.equal(out[k].cpu(), want[k]), k
+        got_info, want_info = sdu.parse_quant_blob(out[k]), sdu.parse_quant_blob(want[k])
+        got = sdu._dequant_codes(got_info["codes"], got_info["scales"][:, None])
+        assert torch.equal(got.cpu(), sdu._dequant_codes(want_info["codes"],
+                                                         want_info["scales"][:, None]))
+
+
+@pytest.mark.cuda
+def test_quantized_get_decodes_on_the_card(cuda):
+    """A CUDA leaf is encoded on its card, the get lands the blobs' bytes on
+    the card and decodes them into bf16 targets there; nothing f32 is left
+    allocated after the get."""
+    import asyncio
+
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch import state_dict_utils as sdu
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    src = {"a": torch.randn(1024, 384, generator=gen, device=cuda),
+           "b": torch.randn(4096, generator=gen, device=cuda)}
+    targets = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=cuda) for k, v in src.items()}
+
+    async def go():
+        await tst.initialize(store_name="qcuda")
+        try:
+            await tst.put_state_dict("q", src, transfer_quant="int8_block", store_name="qcuda")
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(cuda)
+            out = await tst.get_state_dict("q", targets, store_name="qcuda")
+            torch.cuda.synchronize()
+            return out, torch.cuda.memory_allocated(cuda) - before
+        finally:
+            await tst.shutdown("qcuda")
+
+    out, left = asyncio.run(go())
+    assert left <= 0
+    blobs, _ = sdu.quantize_transfer(src, "int8_block", 256)
+    for k, t in targets.items():
+        assert out[k] is t
+        info = sdu.parse_quant_blob(blobs[k])
+        plain = (info["codes"].float() * info["scales"][:, None]).reshape(-1)[: t.numel()]
+        assert torch.equal(t, plain.reshape(t.shape).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8_block", "int4_block"])
+def test_delta_sequence_on_the_card_matches_the_cpu(cuda, fmt):
+    import asyncio
+
+    from torchstore_tpu_torch import state_dict_utils as sdu
+
+    rng = np.random.default_rng(8)
+    hot = rng.standard_normal(5000).astype(np.float32)
+    versions = [hot.copy()]
+    for step in range(4):
+        hot[step * 300:(step + 1) * 300] += 0.05 * (step + 1)
+        versions.append(hot.copy())
+    versions.append(hot.copy())  # unchanged
+
+    async def go(device):
+        enc, dec = sdu.DeltaEncoder(fmt, 256, keyframe_every=3), sdu.DeltaDecoder()
+        blobs = []
+        for v, x in enumerate(versions):
+            blob, base = await enc.encode("hot", torch.from_numpy(x).to(device), v)
+            blobs.append(None if blob is None else blob.cpu())
+            if blob is not None:
+                await dec.decode("hot", blob)
+            assert torch.equal(dec.state["hot"]["blocks"], enc.entries["hot"]["baseline"])
+            assert dec.state["hot"]["blocks"].device.type == device.type
+        return blobs, enc.entries["hot"]["baseline"].cpu()
+
+    card_blobs, card_base = asyncio.run(go(cuda))
+    cpu_blobs, cpu_base = asyncio.run(go(torch.device("cpu")))
+    assert [b is None for b in card_blobs] == [b is None for b in cpu_blobs]
+    for a, b in zip(card_blobs, cpu_blobs):
+        assert a is None or torch.equal(a, b)
+    assert torch.equal(card_base, cpu_base)

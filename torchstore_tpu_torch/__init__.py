@@ -14,7 +14,10 @@ this port is held against; the port imports none of it.
 Leaves and targets may be sharded: a ``Shard(data, TensorSlice)`` or a
 DTensor is put as its local shard under its mesh coordinates, and a get
 with a ``Shard`` or DTensor target fills it with its region of the stored
-tensor, whatever layout the tensor was put in.
+tensor, whatever layout the tensor was put in. ``transfer_quant`` ships
+floating leaves as fused int8/int4 blobs (``quantize_transfer``,
+``parse_quant_blob``; ``DeltaEncoder`` / ``DeltaDecoder`` for the delta
+tier), byte-identical to the JAX package's.
 """
 
 from torchstore_tpu_torch.api import (
@@ -39,8 +42,12 @@ from torchstore_tpu_torch.api import (
 from torchstore_tpu_torch.client import Shard
 from torchstore_tpu_torch.config import StoreConfig
 from torchstore_tpu_torch.state_dict_utils import (
+    DeltaDecoder,
+    DeltaEncoder,
     NoMatchingPush,
     from_numpy_tree,
+    parse_quant_blob,
+    quantize_transfer,
     shards_from_numpy,
 )
 from torchstore_tpu_torch.strategy import HostStrategy, LocalRankStrategy, SingletonStrategy
@@ -48,6 +55,8 @@ from torchstore_tpu_torch.transport.types import TensorSlice
 
 __all__ = [
     "DEFAULT_STORE",
+    "DeltaDecoder",
+    "DeltaEncoder",
     "HostStrategy",
     "LocalRankStrategy",
     "NoMatchingPush",
@@ -69,7 +78,9 @@ __all__ = [
     "keys",
     "put",
     "put_batch",
+    "parse_quant_blob",
     "put_state_dict",
+    "quantize_transfer",
     "shards_from_numpy",
     "shutdown",
     "wait_for",

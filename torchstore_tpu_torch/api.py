@@ -140,6 +140,7 @@ async def put_state_dict(
     key: str,
     state_dict: Any,
     transfer_dtype: Optional[torch.dtype] = None,
+    transfer_quant: Optional[str] = None,
     direct: bool = False,
     rank: int = 0,
     num_ranks: int = 1,
@@ -147,12 +148,16 @@ async def put_state_dict(
 ) -> None:
     """Publish a state dict under ``key``: through the store (buffered), or
     with ``direct=True`` as staging buffers dests pull from in one hop.
-    ``transfer_dtype`` casts floating leaves for the transfer."""
+    ``transfer_dtype`` casts floating leaves for the transfer;
+    ``transfer_quant`` (int8, int8_block, int4_block; default: the config's
+    ``transfer_quant``) ships each as one fused quantized blob instead,
+    encoded on the leaf's device."""
     await state_dict_utils.put_state_dict(
         client(store_name),
         key,
         state_dict,
         transfer_dtype=transfer_dtype,
+        transfer_quant=transfer_quant,
         direct=direct,
         rank=rank,
         num_ranks=num_ranks,

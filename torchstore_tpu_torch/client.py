@@ -20,10 +20,12 @@ DTensor target's local tensor is filled in place.
 A put lands on every volume the strategy names (``replication``) and one
 notify indexes them all, detaching a replica whose landing failed. Located
 keys are cached (bounded) until the placement epoch moves: a get that
-finds any of its keys cached reads the epoch first (one RPC), and a fetch
-that finds a location stale, or a replica's volume dead, relocates once.
-The plan cache, the demotion ladder and the one-sided planes are later
-work.
+finds any of its keys cached reads the epoch first (one RPC; a caller that
+has just read it, as a plan-cached ``get_state_dict`` has, skips it), and
+a fetch that finds a location stale, or a replica's volume dead, relocates
+once. ``SyncPlanCache`` holds the transfer plans of ``put_state_dict`` /
+``get_state_dict``; an epoch move drops them with the cached locations.
+The demotion ladder and the one-sided planes are later work.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from torchstore_tpu_torch import sharding
 from torchstore_tpu_torch.config import StoreConfig, default_config
-from torchstore_tpu_torch.logging import get_logger
+from torchstore_tpu_torch.logging import Counter, get_logger
 from torchstore_tpu_torch.metadata.index_core import ObjectType, StorageInfo
 from torchstore_tpu_torch.runtime import ActorDiedError, ActorRef
 from torchstore_tpu_torch.strategy import StorageVolumeRef
@@ -52,6 +54,76 @@ from torchstore_tpu_torch.utils import (
 )
 
 logger = get_logger("torchstore_tpu_torch.client")
+
+_PLAN_HITS = Counter(
+    "ts_plan_cache_hits_total",
+    "put/get_state_dict iterations served by a cached transfer plan, by op",
+)
+_PLAN_MISSES = Counter(
+    "ts_plan_cache_misses_total",
+    "put/get_state_dict iterations that (re)built their transfer plan, by op",
+)
+_PLAN_INVALIDATIONS = Counter(
+    "ts_plan_cache_invalidations_total",
+    "Cached transfer plans dropped, by reason (epoch/capacity)",
+)
+
+
+class SyncPlanCache:
+    """Iteration-stable transfer plans for ``put_state_dict`` /
+    ``get_state_dict``. An RL loop syncs the same signature every step;
+    a plan keyed by (op, state-dict key, signature) and stamped with the
+    controller's placement epoch lets a warm step skip the commit marker,
+    the structure checks and the locate: one epoch read validates it. The
+    epoch moves only on structural changes (new, changed or deleted keys,
+    detached replicas), never on a same-layout overwrite; a move drops
+    every plan (and the client drops its cached locations with them)."""
+
+    MAX_ENTRIES = 64
+
+    def __init__(self) -> None:
+        self.entries: dict[tuple, dict] = {}
+        self.epoch: Optional[int] = None  # last adopted placement epoch
+        # key -> signature of this client's last put_state_dict of it: a
+        # changed signature is a restructure the index cannot always see
+        # (a republish that drops keys deletes nothing), so the publisher
+        # bumps the epoch itself.
+        self.last_put_sig: dict[str, tuple] = {}
+
+    def observe_epoch(self, epoch: Optional[int]) -> bool:
+        """Adopt a placement epoch; True when it moved (plans dropped)."""
+        if epoch is None or epoch == self.epoch:
+            return False
+        moved = self.epoch is not None
+        self.epoch = epoch
+        if moved and self.entries:
+            _PLAN_INVALIDATIONS.inc(len(self.entries), reason="epoch")
+            self.entries.clear()
+        return moved
+
+    def lookup(self, op: str, key: str, signature: tuple) -> Optional[dict]:
+        entry = self.entries.get((op, key, signature))
+        if entry is not None and entry.get("epoch") == self.epoch:
+            _PLAN_HITS.inc(op=op)
+            return entry
+        _PLAN_MISSES.inc(op=op)
+        return None
+
+    def peek(self, op: str, key: str, signature: tuple) -> Optional[dict]:
+        """``lookup`` without counting: whether an epoch read is worth it."""
+        return self.entries.get((op, key, signature))
+
+    def store(
+        self, op: str, key: str, signature: tuple, plan: dict, epoch: Optional[int] = None
+    ) -> None:
+        """``epoch``: the epoch the plan was built under, read before the
+        data it describes was fetched (a later one would let a structural
+        change in between validate the plan forever)."""
+        if len(self.entries) >= self.MAX_ENTRIES:
+            _PLAN_INVALIDATIONS.inc(len(self.entries), reason="capacity")
+            self.entries.clear()
+        plan["epoch"] = self.epoch if epoch is None else epoch
+        self.entries[(op, key, signature)] = plan
 
 
 @dataclass
@@ -90,9 +162,13 @@ class LocalClient:
         self._ctx = TransportContext()
         self._loc_cache: dict[str, dict[str, StorageInfo]] = {}
         self._seen_epoch: Optional[int] = None
+        self.plan_cache: Optional[SyncPlanCache] = (
+            SyncPlanCache() if self._config.plan_cache else None
+        )
         # Tensor parts fetched from volumes: one per whole tensor, one per
         # distinct intersection of a wanted region with a stored shard.
         self.parts_fetched = 0
+        self.epoch_reads = 0  # placement-epoch RPCs this client made
 
     @property
     def config(self) -> StoreConfig:
@@ -144,10 +220,24 @@ class LocalClient:
 
     def _observe_epoch(self, epoch: int) -> None:
         """Adopt the controller's placement epoch; a move drops the cached
-        locations, which describe the placement that changed."""
-        if self._seen_epoch is not None and epoch != self._seen_epoch:
-            self._loc_cache.clear()
+        plans and locations together: both describe the placement that
+        changed."""
+        if self.plan_cache is not None:
+            moved = self.plan_cache.observe_epoch(epoch)
+        else:
+            moved = self._seen_epoch is not None and epoch != self._seen_epoch
         self._seen_epoch = epoch
+        if moved:
+            self._loc_cache.clear()
+
+    async def placement_epoch(self) -> int:
+        """Read and adopt the controller's placement epoch: the one RPC
+        that validates a cached plan."""
+        await self._ensure_setup()
+        self.epoch_reads += 1
+        epoch = await self._controller.placement_epoch.call_one()
+        self._observe_epoch(epoch)
+        return epoch
 
     async def bump_placement_epoch(self) -> int:
         """Invalidate every consumer's cached transfer plans."""
@@ -223,14 +313,16 @@ class LocalClient:
     async def get(self, key: str, like: Any = None) -> Any:
         return (await self.get_batch({key: like}))[key]
 
-    async def get_batch(self, items) -> dict[str, Any]:
+    async def get_batch(self, items, _epoch_checked: bool = False) -> dict[str, Any]:
         """All-or-nothing batched get: a missing or partially committed key
         fails the batch before data moves. ``items`` is a list of keys or
         {key: target or None}. A tensor target is filled in place and
         returned; a ``Shard`` target fills its data (returned) with its
         region, or returns a fresh tensor of it when the data is None; a
         ``TensorSlice`` returns a fresh tensor of its region; a DTensor's
-        local tensor is filled with its shard and the DTensor returned."""
+        local tensor is filled with its shard and the DTensor returned.
+        ``_epoch_checked``: the caller read the placement epoch just now
+        (``placement_epoch``), so cached locations are valid as they are."""
         if isinstance(items, str):
             raise TypeError("get_batch takes a list of keys or a {key: target} dict")
         if not isinstance(items, dict):
@@ -238,9 +330,12 @@ class LocalClient:
         wants = [self._want(key, like) for key, like in items.items()]
         await self._ensure_setup()
         keys = list(items)
-        if self._seen_epoch is None or any(key in self._loc_cache for key in keys):
+        if not _epoch_checked and (
+            self._seen_epoch is None or any(key in self._loc_cache for key in keys)
+        ):
             # Cached locations hold while the placement epoch does: another
             # client's put may have detached a replica or added one since.
+            self.epoch_reads += 1
             self._observe_epoch(await self._controller.placement_epoch.call_one())
         cached = [key for key in keys if key in self._loc_cache]
         located = await self._locate(keys)

@@ -21,6 +21,11 @@ ENV_ZERO_COPY_GET = ENV_PREFIX + "ZERO_COPY_GET"
 ENV_SHM_POOL_MAX_BYTES = ENV_PREFIX + "SHM_POOL_MAX_BYTES"
 ENV_LANDING_THREADS = ENV_PREFIX + "LANDING_THREADS"
 ENV_ARENA_MAX_BYTES = ENV_PREFIX + "ARENA_MAX_BYTES"
+ENV_TRANSFER_QUANT = ENV_PREFIX + "TRANSFER_QUANT"
+ENV_TRANSFER_QUANT_BLOCK = ENV_PREFIX + "TRANSFER_QUANT_BLOCK"
+ENV_DELTA_KEYFRAME = ENV_PREFIX + "DELTA_KEYFRAME"
+ENV_DELTA_SKIP_EPS = ENV_PREFIX + "DELTA_SKIP_EPS"
+ENV_PLAN_CACHE = ENV_PREFIX + "PLAN_CACHE"
 
 _FALSE = ("0", "false", "no", "off")
 
@@ -33,6 +38,11 @@ def _env_float(name: str, default: float) -> float:
 def _env_int(name: str, default: int) -> int:
     raw = os.environ.get(name)
     return int(raw) if raw not in (None, "") else default
+
+
+def _env_str(name: str, default: str) -> str:
+    raw = os.environ.get(name)
+    return raw if raw not in (None, "") else default
 
 
 def _env_bool(name: str, default: bool) -> bool:
@@ -68,7 +78,21 @@ class StoreConfig:
     segments; the oldest go beyond it. ``landing_threads``: threads of the
     host-copy pool (0: one per core, at most 4). ``arena_max_bytes``:
     tensors of a put batch at or under this size share one segment (0: no
-    arena)."""
+    arena).
+
+    ``transfer_quant``: default wire quantization of state-dict publishes
+    (none|int8|int8_block|int4_block): floating leaves ship as one fused
+    blob each (packed codes and their f32 scale table in one segment); an
+    explicit ``transfer_quant`` or ``transfer_dtype`` argument overrides
+    it. ``quant_block``: elements per block of the blockwise modes (even
+    for int4_block; part of the plan signature, so a change is a
+    restructure). ``delta_keyframe``: the delta tier ships a full keyframe
+    every this many versions of a key, bounding the chain a joining reader
+    walks. ``delta_skip_eps``: absolute slack on the delta tier's skip
+    threshold (a block ships nothing while its residual is within half its
+    keyframe step plus this). ``plan_cache``: iteration-stable transfer
+    plans for ``put_state_dict`` / ``get_state_dict``, validated by the
+    placement epoch."""
 
     rpc_timeout: float = field(default_factory=lambda: _env_float(ENV_RPC_TIMEOUT, 300.0))
     shm_enabled: bool = field(default_factory=lambda: _env_bool(ENV_SHM_ENABLED, True))
@@ -83,6 +107,11 @@ class StoreConfig:
     arena_max_bytes: int = field(
         default_factory=lambda: _env_int(ENV_ARENA_MAX_BYTES, 256 << 10)
     )
+    transfer_quant: str = field(default_factory=lambda: _env_str(ENV_TRANSFER_QUANT, "none"))
+    quant_block: int = field(default_factory=lambda: _env_int(ENV_TRANSFER_QUANT_BLOCK, 256))
+    delta_keyframe: int = field(default_factory=lambda: _env_int(ENV_DELTA_KEYFRAME, 8))
+    delta_skip_eps: float = field(default_factory=lambda: _env_float(ENV_DELTA_SKIP_EPS, 0.0))
+    plan_cache: bool = field(default_factory=lambda: _env_bool(ENV_PLAN_CACHE, True))
 
 
 _default_config: Optional[StoreConfig] = None

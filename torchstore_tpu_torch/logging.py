@@ -3,13 +3,15 @@
 Port of ``torchstore_tpu/logging.py``: the level comes from
 ``TORCHSTORE_TORCH_LOG_LEVEL`` (or ``StoreConfig.log_level``), and
 ``LatencyTracker`` records named steps plus the end-to-end time, with GB/s
-where a byte count is given.
+where a byte count is given. ``Counter`` is a plain in-process counter by
+label set, under the reference's metric names.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Optional
 
@@ -31,6 +33,28 @@ def set_log_level(level_name: str) -> None:
     logging.getLogger(ROOT).setLevel(
         getattr(logging, level_name.upper(), logging.WARNING)
     )
+
+
+class Counter:
+    """A monotonic count per label set: ``inc(n, op="get")``,
+    ``value(op="get")`` (one label set), ``total()`` (every label set)."""
+
+    def __init__(self, name: str, help_text: str = "") -> None:
+        self.name = name
+        self.help = help_text
+        self._values: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1, **labels: str) -> None:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            self._values[key] = self._values.get(key, 0) + amount
+
+    def value(self, **labels: str) -> float:
+        return self._values.get(tuple(sorted(labels.items())), 0)
+
+    def total(self) -> float:
+        return sum(self._values.values())
 
 
 def _format_throughput(nbytes: int, seconds: float) -> str:

@@ -1,7 +1,8 @@
 """The landing copies of the shared-memory rung, and the arena layout.
 
-Port of ``torchstore_tpu/transport/landing.py`` (classic arena layout; the
-scale-slot layout of the quantized wire tier is later work). A put copies
+Port of ``torchstore_tpu/transport/landing.py``: the arena layout (with
+the scale-slot mode of the quantized wire tier and the fused quant-blob
+layout), the landing copies and the landing pool. A put copies
 every payload into its segment, and a get with destinations copies every
 part out of one; ``land_async`` runs such a batch without blocking the
 event loop:
@@ -175,16 +176,77 @@ async def land_async(pairs: list[tuple], config: Optional[StoreConfig] = None) -
             raise result
 
 
+async def run_in_pool(fn, *args, config: Optional[StoreConfig] = None):
+    """Run one CPU-bound callable on the landing pool (torch's CPU kernels
+    release the GIL, so several run at once beside the event loop)."""
+    loop = asyncio.get_running_loop()
+    return await loop.run_in_executor(get_executor(config), fn, *args)
+
+
 def align_up(n: int, align: int = ARENA_ALIGN) -> int:
     return (n + align - 1) // align * align
 
 
-def compute_arena_layout(sizes: list[int]) -> tuple[list[int], int]:
+# A scale table is f32: its slot after a payload needs 4-byte alignment only.
+SCALE_ALIGN = 4
+
+
+def compute_arena_layout(sizes: list[int], scale_sizes: Optional[list[int]] = None):
     """Offsets and total size for ``sizes`` byte payloads packed back to
-    back at ``ARENA_ALIGN`` boundaries."""
+    back at ``ARENA_ALIGN`` boundaries: ``(offsets, total)``. With
+    ``scale_sizes`` (the quantized wire tier) member ``i`` also has a scale
+    slot of ``scale_sizes[i]`` bytes right after its payload, at a
+    ``SCALE_ALIGN`` boundary, so the scales share the payload's segment:
+    ``(offsets, scale_offsets, total)``."""
     offsets: list[int] = []
+    scale_offsets: list[int] = []
     off = 0
-    for nbytes in sizes:
+    for i, nbytes in enumerate(sizes):
         offsets.append(off)
-        off = align_up(off + int(nbytes))
-    return offsets, max(off, 1)
+        end = off + int(nbytes)
+        if scale_sizes is not None:
+            s_off = align_up(end, SCALE_ALIGN)
+            scale_offsets.append(s_off)
+            end = s_off + int(scale_sizes[i])
+        off = align_up(end)
+    total = max(off, 1)
+    if scale_sizes is not None:
+        return offsets, scale_offsets, total
+    return offsets, total
+
+
+# --------------------------------------------------------------------------
+# the fused quant blob: [header + shape | changed-block bitmap | packed codes
+# | f32 scale table], one uint8 tensor per quantized leaf
+# --------------------------------------------------------------------------
+
+QUANT_HEADER_BYTES = 64
+
+
+def quant_payload_nbytes(fmt: str, block: int, changed: int) -> int:
+    """Packed-code bytes of ``changed`` blocks of ``block`` elements: one
+    byte an element, or two 4-bit codes a byte for int4_block (an odd block
+    takes a padding nibble)."""
+    if fmt == "int4_block":
+        return changed * ((block + 1) // 2)
+    return changed * block
+
+
+def quant_blob_layout(rank: int, nblocks: int, changed: int, fmt: str, block: int) -> dict:
+    """Section offsets and total size of one fused quant blob; the scale
+    table takes the payload's scale slot."""
+    head = QUANT_HEADER_BYTES + 8 * rank
+    bitmap = (nblocks + 7) // 8
+    offsets, scale_offsets, total = compute_arena_layout(
+        [head, bitmap, quant_payload_nbytes(fmt, block, changed)],
+        scale_sizes=[0, 0, 4 * changed],
+    )
+    return {"header": offsets[0], "bitmap": offsets[1], "payload": offsets[2],
+            "scales": scale_offsets[2], "total": total}
+
+
+def quant_wire_nbytes(fmt: str, block: int, nelems: int, rank: int) -> int:
+    """Size of the full keyframe blob of an ``nelems``-element tensor of
+    ``rank`` dimensions."""
+    nblocks = max(1, -(-int(nelems) // max(1, block)))
+    return quant_blob_layout(rank, nblocks, nblocks, fmt, block)["total"]
