@@ -68,7 +68,33 @@ Phases, each printing one JSON line:
                   the encoder's baseline at every version, v2 (no change)
                   ships zero bytes, a fresh decoder walks the chain to the
                   same bytes;
-8. flash_parity - the flash kernels, stats mode (K2) and normalized mode
+8. channel      - the versioned weight channel at full Llama-3-8B width
+                  (the port Llama's 291 tensors, fp32 on the card, bf16
+                  targets on the card; depth from a printed plan of /dev/shm
+                  and card memory): (a) barrier: WeightPublisher(keep=2)
+                  publishes v0..v4 in bf16, each after a seeded in-place step,
+                  the volume's warm-ups and the client's page-locking (the
+                  seconds waited printed), and one WeightSubscriber
+                  acquires each in place; per version the publish and
+                  acquire seconds and GB/s, the pool's offers by outcome,
+                  segments created, attachments page-locked, K1 launches and
+                  the versions left after GC; gates: every target bit-equal
+                  to its bf16 cast, v0..v4 delivered once each and in order,
+                  K1 launches = planned chunks, no fallback, two versions
+                  kept; (b) streamed: one publish of a fragment per module
+                  in forward order beside acquire_streamed(key_order=
+                  forward_key_order); first layer, last layer and seal
+                  seconds; gates: a layer served before the seal, served
+                  order = key_order, bit-equal, no fallback, K1 launches =
+                  the fragments' planned chunks; then a barrier put over the
+                  streamed key, served by the next streamed get through the
+                  barrier path (one marker_drift fallback), bit-equal; (c) a
+                  streamed delta channel (int8_block, keyframe every 3, keep
+                  3, v0..v3, v2 unchanged) at the delta plan's depth: the
+                  reader's state bit-equal to the encoder's baseline, v2
+                  ships nothing and serves every key from the reader's
+                  state, targets within one keyframe step; nothing left;
+9. flash_parity - the flash kernels, stats mode (K2) and normalized mode
                   (K3), against their plain versions on the card: Llama-3-8B
                   attention width, MHA, d = 64, 72 and 256, lengths 1 to 8192
                   and ragged ones, batch up to 4, a packed qkv projection
@@ -76,20 +102,30 @@ Phases, each printing one JSON line:
                   variant ``sm90_eligible`` picked; the sm90 cases are held
                   against the blockwise plain version and against the fp32
                   one with SDPA's error as the yardstick;
-9. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
+10. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
                   (and K2 at 4096) on the sm90 kernel, and at 8192 on the
                   simt kernel, beside their bound, the plain versions and
                   SDPA;
-10. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
+11. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
                   Llama-3-8B attention width: a bf16 path (forward at 8192,
                   forward and backward at 4096) and an fp32 forward path at
                   2048, held against the einsum body and the plain version;
                   K2's and K3's launches per variant on each path;
-11. model       - the RL loop at Llama-3-8B width (depth cut): a learner
+12. model       - the RL loop at Llama-3-8B width (depth cut): a learner
                   trains two steps and publishes with direct=True (cast
                   launches equal to the planner's chunk count), a bf16
                   generator pulls and decodes greedily;
-12. kernels     - one line listing every ported kernel.
+13. rl          - the RL example (torchstore_tpu_torch.examples.torchstore_rl)
+                  at Llama-3-8B width, 4 layers: a learner process trains 3
+                  steps and publishes through the weight channel in bf16;
+                  two generator processes, each with its bf16 model laid out
+                  tensor-parallel over 8 ranks, acquire resharded into views
+                  of their parameters and decode greedily; train, publish
+                  and acquire seconds per step, peak card memory per
+                  process; gates: the loss falls, both generators' tokens
+                  equal a local bf16 decoder's on the learner's weights, K1
+                  launches = planned chunks, no process left;
+14. kernels     - one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints no
@@ -110,8 +146,8 @@ import sys
 import time
 
 ALL_PHASES = (
-    "device", "build", "parity", "timing", "main", "reshard", "quant",
-    "flash_parity", "flash_timing", "ring", "model", "kernels",
+    "device", "build", "parity", "timing", "main", "reshard", "quant", "channel",
+    "flash_parity", "flash_timing", "ring", "model", "rl", "kernels",
 )
 
 # Llama-3-8B geometry (the store's north-star state dict: 291 tensors).
@@ -518,6 +554,8 @@ def main() -> int:
             res = phase_reshard(torch, staging)
         elif phase == "quant":
             res = phase_quant(torch)
+        elif phase == "channel":
+            res = phase_channel(torch, staging)
         elif phase == "flash_parity":
             res = phase_flash_parity(torch, flash)
         elif phase == "flash_timing":
@@ -526,6 +564,8 @@ def main() -> int:
             res = phase_ring(torch, flash)
         elif phase == "model":
             res = phase_model(torch, staging)
+        elif phase == "rl":
+            res = phase_rl(torch)
         else:
             res = phase_kernels(results)
         res["seconds"] = time.perf_counter() - t0
@@ -1461,6 +1501,343 @@ def phase_quant(torch) -> dict:
 
 
 # --------------------------------------------------------------------------
+# channel: the versioned weight channel and layer-streamed sync
+# --------------------------------------------------------------------------
+
+CHANNEL_VERSIONS = 5  # barrier leg: v0..v4
+CHANNEL_KEEP = 2
+# The streamed delta leg: v0 keyframe, v1 an update, v2 no change (every
+# key an alias, zero bytes), v3 the cadence keyframe. The encoder applies
+# the cadence before the unchanged rule (in both packages), so a cadence
+# of 2 would keyframe v2; 3 keeps v2 a delta version, and keep >= cadence.
+CHANNEL_DELTA_VERSIONS = 4
+CHANNEL_DELTA_KEYFRAME = 3
+CHANNEL_DELTA_KEEP = 3
+
+
+def _model_state(torch, cfg, layers: int, gen, dev) -> dict:
+    """The port Llama's state dict at ``cfg``'s width and ``layers`` deep
+    (Llama-3-8B: 291 tensors at 32 layers; the model's own key names, so
+    ``forward_key_order`` orders them), fp32 standard normal on ``dev``
+    from ``gen``, as ``workloads.llama_state_dict`` fills its tensors."""
+    import dataclasses
+
+    from torchstore_tpu_torch.models.llama import Llama
+
+    model = Llama(dataclasses.replace(cfg, num_layers=layers), torch.device("meta"))
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    return {k: torch.randn(s, generator=gen, device=dev) for k, s in shapes.items()}
+
+
+def _modules(order: list) -> list:
+    """The keys of ``order`` grouped by module (embed, layer_i, final_norm,
+    lm_head), in that order: one streamed fragment each."""
+    groups: dict = {}
+    for key in order:
+        groups.setdefault(key.split(".")[0], []).append(key)
+    return list(groups.values())
+
+
+def plan_channel_layers(torch, dev) -> tuple[int, dict]:
+    """Depth of the channel's barrier and streamed legs. /dev/shm holds
+    keep + 1 bf16 versions (two live, one landing) and the volume's warm
+    spare set; the card holds the fp32 source, the bf16 targets and a
+    publish's bf16 cast. Widths never change."""
+    from torchstore_tpu_torch.config import default_config
+    from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
+
+    geo = dict(LLAMA3_8B)
+    per_layer = sum(math.prod(s) for s in _leaves(llama_shapes(**{**geo, "layers": 1})["layers"]))
+    outer = sum(math.prod(s) for s in _leaves({**llama_shapes(**{**geo, "layers": 0}),
+                                               "layers": {}}))
+    shm_budget = 0.8 * min(shm_free_bytes(), mem_available_bytes())
+    free, _ = torch.cuda.mem_get_info(dev)
+    card_budget = 0.9 * free
+    params = lambda n: outer + n * per_layer  # noqa: E731
+    shm_need = lambda n: (CHANNEL_KEEP + 2) * 2 * params(n)  # noqa: E731
+    card_need = lambda n: (4 + 2 + 2) * params(n)  # noqa: E731
+    layers = geo["layers"]
+    while layers > 1 and (shm_need(layers) > shm_budget or card_need(layers) > card_budget):
+        layers -= 1
+    return layers, {"shm_budget_bytes": int(shm_budget), "shm_needed_bytes": shm_need(layers),
+                    "shm_versions": CHANNEL_KEEP + 2, "card_budget_bytes": int(card_budget),
+                    "card_needed_bytes": card_need(layers),
+                    "pool_cap": default_config().shm_pool_max_bytes}
+
+
+async def _channel_barrier(torch, staging, tst, client, src, targets, dev, gen) -> dict:
+    """Versions v0..v4 of one keep=2 channel in bf16, each after a seeded
+    in-place step on the card, each acquired in place by one subscriber."""
+    from torchstore_tpu_torch.weight_channel import _versions_present
+
+    bf16 = torch.bfloat16
+    wire = 2 * sum(t.numel() for t in src.values())
+    chunks = len(staging.plan_chunks(list(src.values()), bf16))
+    pub = tst.WeightPublisher("chan", store_name="channel", keep=CHANNEL_KEEP)
+    sub = tst.WeightSubscriber("chan", store_name="channel")
+    rows = []
+    for v in range(CHANNEL_VERSIONS):
+        if v:
+            for t in src.values():  # the training step, in place
+                t.add_(torch.randn(t.shape, generator=gen, device=dev), alpha=1e-3)
+        # The training step's gap, as main's reput waits it out: the
+        # volume's warm-ups settle and the client's page-locking ends.
+        warm_wait = await _wait_warm(client)
+        pin_pending = client.shm_stats()["pin_pending"]
+        pin_wait = await client.wait_pinned()
+        for t in targets.values():
+            t.zero_()
+        torch.cuda.synchronize()
+        before = await _pool_counts(client)
+        launched, fell_back = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+        t0 = time.perf_counter()
+        version = await pub.publish(src, transfer_dtype=bf16)
+        torch.cuda.synchronize()
+        publish_s = time.perf_counter() - t0
+        after_put = await _pool_counts(client)
+        t0 = time.perf_counter()
+        _, got = await sub.acquire(targets, timeout=600)
+        torch.cuda.synchronize()
+        acquire_s = time.perf_counter() - t0
+        after = await _pool_counts(client)
+        bad = [k for k, t in targets.items() if not torch.equal(t, src[k].to(bf16))]
+        rows.append({
+            "version": version, "acquired": got, "publish_s": publish_s, "acquire_s": acquire_s,
+            "publish_gb_per_s": wire / publish_s / 1e9, "acquire_gb_per_s": wire / acquire_s / 1e9,
+            "warm_wait_s": warm_wait, "pin_pending": pin_pending, "wait_pinned_s": pin_wait,
+            "offers": {k: after_put[k] - before[k] for k in ("spare", "pooled", "miss")},
+            "volume_created": after_put["volume_created"] - before["volume_created"],
+            "cold_create": after_put["cold_create"] - before["cold_create"],
+            "pinned": after["pinned"] - before["pinned"],
+            "launches": staging.cast_kernel.launches - launched,
+            "cast_fallbacks": staging.cast_kernel.fallbacks - fell_back,
+            "versions_present": sorted(_versions_present("chan", await client.keys("chan"))),
+            "mismatched": len(bad),
+        })
+    ok = (
+        [r["acquired"] for r in rows] == list(range(CHANNEL_VERSIONS))
+        and all(r["version"] == r["acquired"] and r["mismatched"] == 0 for r in rows)
+        and all(r["cast_fallbacks"] == 0 for r in rows)
+        and (dev.type != "cuda" or all(r["launches"] == chunks for r in rows))
+        and all(len(r["versions_present"]) == min(r["version"] + 1, CHANNEL_KEEP) for r in rows)
+    )
+    return {"versions": rows, "chunks_per_publish": chunks, "wire_bytes": wire, "ok": ok,
+            "publisher": pub, "subscriber": sub}
+
+
+async def _channel_streamed(torch, staging, tst, client, pub, sub, src, targets, dev,
+                            gen) -> dict:
+    """One streamed publish, a fragment per module in forward order, with
+    a streamed acquire beside it; then a barrier put over the streamed key,
+    which the next streamed get serves through the barrier path."""
+    from torchstore_tpu_torch import stream_sync
+    from torchstore_tpu_torch.models.generate import forward_key_order
+
+    bf16 = torch.bfloat16
+    order = forward_key_order(list(src))
+    fragments = _modules(order)
+    chunks = sum(len(staging.plan_chunks([src[k] for k in frag], bf16)) for frag in fragments)
+    for t in src.values():
+        t.add_(torch.randn(t.shape, generator=gen, device=dev), alpha=1e-3)
+    for t in targets.values():
+        t.zero_()
+    await _wait_warm(client)
+    await client.wait_pinned()
+    torch.cuda.synchronize()
+    served: list = []
+    stamps: dict = {}
+
+    def on_layer(fk, value):
+        stamps.setdefault("first", time.perf_counter())
+        stamps["last"] = time.perf_counter()
+        served.append(fk)
+
+    counts0 = stream_sync.stream_counters()
+    launched = staging.cast_kernel.launches
+    task = asyncio.ensure_future(sub.acquire_streamed(targets, key_order=order,
+                                                      on_layer=on_layer, timeout=600))
+    await asyncio.sleep(0)
+    cs = pub.stream(transfer_dtype=bf16)
+    t0 = time.perf_counter()
+    for frag in fragments:
+        await cs.put({k: src[k] for k in frag})
+    stamps["seal_start"] = time.perf_counter()
+    version = await cs.seal()
+    stamps["sealed"] = time.perf_counter()
+    _, got = await task
+    torch.cuda.synchronize()
+    stamps["done"] = time.perf_counter()
+    counts1 = stream_sync.stream_counters()
+    bad = [k for k, t in targets.items() if not torch.equal(t, src[k].to(bf16))]
+    out = {
+        "version": version, "acquired": got, "fragments": len(fragments),
+        "first_layer_s": stamps["first"] - t0, "last_layer_s": stamps["last"] - t0,
+        "seal_s": stamps["sealed"] - t0, "acquire_done_s": stamps["done"] - t0,
+        "overlap_ratio": counts1["overlap_ratio"],
+        "launches": staging.cast_kernel.launches - launched, "chunks": chunks,
+        "fallbacks": {k: counts1["fallbacks"][k] - counts0["fallbacks"][k]
+                      for k in counts1["fallbacks"]},
+        "served_in_order": served == order, "mismatched": len(bad),
+    }
+    # A barrier publish over the streamed key: the stream record stays, the
+    # marker is the barrier's; the streamed get falls back to the barrier.
+    for t in src.values():
+        t.add_(torch.randn(t.shape, generator=gen, device=dev), alpha=1e-3)
+    for t in targets.values():
+        t.zero_()
+    key = f"chan/v{version}"
+    t0 = time.perf_counter()
+    await tst.put_state_dict(key, src, transfer_dtype=bf16, store_name="channel")
+    torch.cuda.synchronize()
+    out["republish_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await tst.get_state_dict_streamed(key, targets, timeout=600, store_name="channel")
+    torch.cuda.synchronize()
+    out["drift_get_s"] = time.perf_counter() - t0
+    counts2 = stream_sync.stream_counters()
+    out["drift_fallbacks"] = counts2["fallbacks"]["marker_drift"] - counts1["fallbacks"]["marker_drift"]
+    out["drift_mismatched"] = sum(not torch.equal(t, src[k].to(bf16)) for k, t in targets.items())
+    out["ok"] = (
+        got == version and out["served_in_order"] and out["mismatched"] == 0
+        and stamps["first"] < stamps["seal_start"]  # a layer served before the seal
+        and not any(out["fallbacks"].values())
+        and (dev.type != "cuda" or out["launches"] == chunks)
+        and out["drift_fallbacks"] == 1 and out["drift_mismatched"] == 0
+    )
+    return out
+
+
+async def _channel_delta(torch, tst, sdu, client, cfg, layers: int, dev, gen) -> dict:
+    """The delta tier through a streamed channel at the depth the plan
+    allows: int8_block, keyframe every 3, keep 3, v0..v3, v2's source left
+    unchanged. The reader's state bit-equal to the encoder's baseline at
+    every version; v2 ships nothing and serves every key from the reader's
+    state; the targets within one keyframe step."""
+    from torchstore_tpu_torch.models.generate import forward_key_order
+
+    src = _model_state(torch, cfg, layers, gen, dev)
+    order = forward_key_order(list(src))
+    fragments = _modules(order)
+    targets = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=dev) for k, v in src.items()}
+    pub = tst.WeightPublisher("delta", store_name="channel", keep=CHANNEL_DELTA_KEEP,
+                              transfer_quant="int8_block", delta=True,
+                              keyframe_every=CHANNEL_DELTA_KEYFRAME)
+    sub = tst.WeightSubscriber("delta", store_name="channel")
+    rows = []
+    for v in range(CHANNEL_DELTA_VERSIONS):
+        if v in (1, 3):
+            for k, t in src.items():
+                layer = k.split(".")[0]
+                odd = layer.startswith("layer_") and int(layer[6:]) % 2
+                if (v == 1 and layer.startswith("layer_") and not odd) or (v == 3 and (odd or layer == "embed")):
+                    t.add_(0.05)  # the training step, in place
+        before = sdu.sync_counters()
+        task = asyncio.ensure_future(sub.acquire_streamed(targets, key_order=order, timeout=600))
+        await asyncio.sleep(0)
+        t0 = time.perf_counter()
+        cs = pub.stream()
+        for frag in fragments:
+            await cs.put({k: src[k] for k in frag})
+        version = await cs.seal()
+        _, got = await task
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _delta(sdu.sync_counters(), before)
+        state = sub._delta_decoder().state
+        worst = max(err / max(step, 1e-30)
+                    for err, step in (_within_step(targets[k], src[k], 127) for k in src))
+        rows.append({
+            "version": version, "acquired": got, "seconds": seconds,
+            "wire_bytes": counts["quant_bytes_wire"], "keyframes": counts["delta_keyframes"],
+            "unchanged": counts["delta_unchanged_keys"],
+            "served_from_state": counts["delta_unchanged_served"],
+            "stored_keys": len(await client.keys(f"delta/v{version}")),
+            "state_equals_baseline": all(torch.equal(state[k]["blocks"],
+                                                     pub._codec.entries[k]["baseline"])
+                                         for k in src),
+            "state_on_device": all(state[k]["blocks"].device.type == dev.type for k in src),
+            "max_err_over_step": worst,
+        })
+    keys = len(src)
+    out = {"layers": layers, "tensors": keys, "params": sum(t.numel() for t in src.values()),
+           "keyframe_every": CHANNEL_DELTA_KEYFRAME, "keep": CHANNEL_DELTA_KEEP, "versions": rows}
+    out["ok"] = (
+        [r["acquired"] for r in rows] == list(range(CHANNEL_DELTA_VERSIONS))
+        and all(r["state_equals_baseline"] and r["state_on_device"]
+                and r["max_err_over_step"] <= 1.0 for r in rows)
+        and rows[0]["keyframes"] == keys and rows[3]["keyframes"] == keys
+        and rows[2]["wire_bytes"] == 0 and rows[2]["unchanged"] == keys
+        and rows[2]["served_from_state"] == keys and rows[2]["stored_keys"] == 1
+        and 0 < rows[1]["wire_bytes"] < rows[0]["wire_bytes"]
+    )
+    return out
+
+
+async def _channel_path(torch, staging, layers: int, dev, delta_layers=None, cfg=None) -> dict:
+    """``cfg``: the model whose width the state dict takes (Llama-3-8B)."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch import state_dict_utils as sdu
+    from torchstore_tpu_torch.models.llama import LlamaConfig
+    from torchstore_tpu_torch.transport.shared_memory import PREFIX, SHM_DIR
+
+    cfg = cfg or LlamaConfig.llama3_8b()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    src = _model_state(torch, cfg, layers, gen, dev)
+    targets = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=dev) for k, v in src.items()}
+    out: dict = {"layers": layers, "tensors": len(src),
+                 "params": sum(t.numel() for t in src.values())}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    staging.cast_kernel.launches = 0  # count the channel path's launches only
+    staging.cast_kernel.fallbacks = 0
+    await tst.initialize(store_name="channel")
+    pids = [p.pid for p in multiprocessing.active_children()]
+    client = tst.client("channel")
+    try:
+        barrier = await _channel_barrier(torch, staging, tst, client, src, targets, dev, gen)
+        pub, sub = barrier.pop("publisher"), barrier.pop("subscriber")
+        out["barrier"] = barrier
+        out["streamed"] = await _channel_streamed(torch, staging, tst, client, pub, sub, src,
+                                                  targets, dev, gen)
+        out["launches"] = staging.cast_kernel.launches
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        del src, targets
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            if delta_layers is None:
+                delta_layers, plan = plan_delta_layers(torch, dev)
+                out["delta_plan"] = plan
+                if delta_layers < LAYERS:
+                    emit({"reduced": {"channel_delta_layers": delta_layers, "of": LAYERS},
+                          **plan})
+        out["delta"] = await _channel_delta(torch, tst, sdu, client, cfg, delta_layers, dev, gen)
+    finally:
+        await tst.shutdown("channel")
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children() if p.pid in pids]
+    own = set(pids) | {os.getpid()}
+    leaked = [n for n in os.listdir(SHM_DIR)
+              if n.startswith(PREFIX) and int(n[len(PREFIX):].split("_")[0]) in own]
+    out.update({"processes_left": alive, "segments_left": leaked[:5]})
+    out["ok"] = (out["barrier"]["ok"] and out["streamed"]["ok"] and out["delta"]["ok"]
+                 and not alive and not leaked)
+    return out
+
+
+def phase_channel(torch, staging) -> dict:
+    dev = torch.device("cuda", 0)
+    layers, plan = plan_channel_layers(torch, dev)
+    if layers < LAYERS:
+        emit({"reduced": {"channel_layers": layers, "of": LAYERS}, **plan})
+    res = asyncio.run(_channel_path(torch, staging, layers, dev))
+    res["phase"] = "channel"
+    res["plan"] = plan
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return res
+
+
+# --------------------------------------------------------------------------
 # attention: the flash kernel, ring attention, the model
 # --------------------------------------------------------------------------
 
@@ -2050,6 +2427,67 @@ def phase_model(torch, staging) -> dict:
 
 
 
+RL_STEPS = 3
+RL_TP = 8  # each generator lays its model out tensor-parallel over 8 ranks
+
+
+async def _rl_path(torch, cfg, device: str, seq: int = 2049, prompt_len: int = 16,
+                   new_tokens: int = 16) -> dict:
+    """The RL example (``torchstore_tpu_torch.examples.torchstore_rl``): a
+    learner process trains and publishes through the weight channel, two
+    generator processes acquire, resharded tensor-parallel into their bf16
+    models in place, and decode greedily."""
+    from torchstore_tpu_torch.examples import torchstore_rl
+
+    before = {p.pid for p in multiprocessing.active_children()}
+    t0 = time.perf_counter()
+    records = await torchstore_rl.main(
+        cfg, device, steps=RL_STEPS, transfer_dtype=torch.bfloat16, tp=RL_TP, batch=1,
+        seq=seq, prompt_len=prompt_len, new_tokens=new_tokens,
+    )
+    seconds = time.perf_counter() - t0
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children() if p.pid not in before]
+    losses = [r["loss"] for r in records]
+    steps = [{
+        "version": r["version"], "loss": r["loss"], "train_s": r["train_s"],
+        "publish_s": r["publish_s"], "acquire_s": [g["acquire_s"] for g in r["generators"]],
+        "cast_launches": r["cast_launches"], "cast_chunks": r["cast_chunks"],
+        "copies": [g["copies"] for g in r["generators"]],
+        "tokens_equal": all(g["tokens"] == r["local_tokens"] for g in r["generators"]),
+    } for r in records]
+    last = records[-1]
+    out = {
+        "layers": cfg.num_layers, "steps": steps, "seconds": seconds,
+        "tp": RL_TP, "targets_per_generator": last["generators"][0]["targets"],
+        "tokens": last["local_tokens"][0],
+        "peak_device_bytes": {"learner": last["peak_device_bytes"],
+                              **{f"generator_{i}": g["peak_device_bytes"]
+                                 for i, g in enumerate(last["generators"])}},
+        "processes_left": alive,
+    }
+    out["ok"] = (
+        all(math.isfinite(x) for x in losses)
+        and all(b < a for a, b in zip(losses, losses[1:]))
+        and [s["version"] for s in steps] == list(range(RL_STEPS))
+        and all(s["tokens_equal"] for s in steps)
+        and (device == "cpu" or all(s["cast_launches"] == s["cast_chunks"] > 0 for s in steps))
+        and not alive
+    )
+    return out
+
+
+def phase_rl(torch) -> dict:
+    from torchstore_tpu_torch.workloads import llama3_8b_config
+
+    emit({"reduced": {"rl_layers": MODEL_LAYERS, "of": LAYERS}})
+    res = asyncio.run(_rl_path(torch, llama3_8b_config(MODEL_LAYERS), "cuda"))
+    res["phase"] = "rl"
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return res
+
+
+
 def phase_kernels(results: dict) -> dict:
     """One entry per ported kernel, and per (mode, variant) of the flash
     kernels. The cast's times are the timing phase's measured publish row
@@ -2066,12 +2504,22 @@ def phase_kernels(results: dict) -> dict:
     parity = results["parity"]
     (publish,) = [r for r in results["timing"]["rows"] if r["shape"] == "publish"]
     steps = main["launches_by_step"]
+    # K1's launches on each path that casts, each path's counts set to 0
+    # just before it ran and read just after.
+    by_path = {"main": main["launches"]}
+    if "reshard" in results:
+        by_path["reshard"] = sum(results["reshard"]["launches_by_step"].values())
+    if "channel" in results:
+        by_path["channel"] = results["channel"]["launches"]
+    if "rl" in results:
+        by_path["rl"] = sum(s["cast_launches"] for s in results["rl"]["steps"])
     entries = [{
         "name": "cast",
         "route": "cuda",
         "source": "torchstore_tpu_torch/csrc/cast.cu",
         "replaces": "torchstore_tpu/ops/staging.py:78",
         "launches": main["launches"],
+        "launches_by_path": by_path,
         "max_abs_err": parity["max_abs_err"],
         "parity": "bit-equal" if parity["ok"] else "differs",
         "ms": publish["ms"],
@@ -2083,7 +2531,10 @@ def phase_kernels(results: dict) -> dict:
         "per": f"one publish: cast_group over the {publish['tensors']} fp32 tensors of the "
                f"Llama-3-8B state dict; launches over the main phase's run, per step {steps}"
                + (f"; on reshard (8 FSDP ranks) {results['reshard']['launches_by_step']}"
-                  if "reshard" in results else ""),
+                  if "reshard" in results else "")
+               + ("; on channel: 5 barrier publishes and one streamed publish of a fragment "
+                  "per module" if "channel" in results else "")
+               + ("; on rl: the learner process's publishes" if "rl" in results else ""),
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"
@@ -2117,7 +2568,8 @@ def phase_kernels(results: dict) -> dict:
                 + ("; launches from the fp32 ring path" if variant == "simt" else ""),
             })
     print(json.dumps({"kernels": entries}), flush=True)
-    ok = parity["ok"] and fparity["ok"] and ring["ok"] and all(e["launches"] for e in entries)
+    ok = (parity["ok"] and fparity["ok"] and ring["ok"] and all(e["launches"] for e in entries)
+          and all(by_path.values()))
     return {"phase": "kernels", "ok": ok}
 
 

@@ -490,3 +490,92 @@ def test_delta_sequence_on_the_card_matches_the_cpu(cuda, fmt):
     for a, b in zip(card_blobs, cpu_blobs):
         assert a is None or torch.equal(a, b)
     assert torch.equal(card_base, cpu_base)
+
+
+@pytest.mark.cuda
+def test_channel_barrier_round_trip_into_card_targets(cuda):
+    """A bf16 channel publish of fp32 leaves on the card casts through the
+    grouped kernel (one launch per planned chunk, no fallback) and an
+    acquire fills bf16 targets on the card, bit-equal to the cast."""
+    import asyncio
+
+    import torchstore_tpu_torch as tst
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    src = {"a": torch.randn(1024, 384, generator=gen, device=cuda),
+           "b": torch.randn(4096, generator=gen, device=cuda)}
+    targets = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=cuda) for k, v in src.items()}
+    chunks = len(staging.plan_chunks(list(src.values()), torch.bfloat16))
+
+    async def go():
+        await tst.initialize(store_name="chcuda")
+        try:
+            pub = tst.WeightPublisher("policy", store_name="chcuda")
+            sub = tst.WeightSubscriber("policy", store_name="chcuda")
+            launches = staging.cast_kernel.launches
+            versions = []
+            for step in range(3):
+                if step:
+                    for t in src.values():
+                        t.add_(1.0)
+                await pub.publish(src, transfer_dtype=torch.bfloat16)
+                _, v = await sub.acquire(user_state_dict=targets, timeout=60)
+                torch.cuda.synchronize()
+                versions.append((v, all(torch.equal(targets[k], src[k].to(torch.bfloat16))
+                                        for k in src)))
+            return versions, staging.cast_kernel.launches - launches, \
+                await tst.keys("policy", store_name="chcuda")
+        finally:
+            await tst.shutdown("chcuda")
+
+    fallbacks = staging.cast_kernel.fallbacks
+    versions, launched, keys = asyncio.run(go())
+    assert versions == [(0, True), (1, True), (2, True)]
+    assert launched == 3 * chunks and staging.cast_kernel.fallbacks == fallbacks
+    assert {k.split("/")[1] for k in keys} == {"LATEST", "v1", "v2"}
+
+
+@pytest.mark.cuda
+def test_channel_streamed_round_trip_into_card_targets(cuda):
+    """A streamed bf16 publish, one fragment per layer, served in forward
+    order into bf16 card targets before the seal, bit-equal to the cast."""
+    import asyncio
+
+    import torchstore_tpu_torch as tst
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    src = {f"layer_{i}": torch.randn(512, 256, generator=gen, device=cuda) for i in range(4)}
+    targets = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=cuda) for k, v in src.items()}
+
+    async def go():
+        await tst.initialize(store_name="stcuda")
+        try:
+            pub = tst.WeightPublisher("policy", store_name="stcuda")
+            sub = tst.WeightSubscriber("policy", store_name="stcuda")
+            served, first = [], asyncio.Event()
+
+            def on_layer(fk, value):
+                served.append((fk, value is targets[fk]))
+                first.set()
+
+            task = asyncio.ensure_future(sub.acquire_streamed(
+                targets, key_order=list(src), on_layer=on_layer, timeout=60))
+            cs = pub.stream(transfer_dtype=torch.bfloat16)
+            names = list(src)
+            await cs.put({names[0]: src[names[0]]})
+            await asyncio.wait_for(first.wait(), 30)
+            before_seal = len(served)
+            for name in names[1:]:
+                await cs.put({name: src[name]})
+            await cs.seal()
+            _, v = await task
+            torch.cuda.synchronize()
+            return v, before_seal, served
+        finally:
+            await tst.shutdown("stcuda")
+
+    v, before_seal, served = asyncio.run(go())
+    assert v == 0 and before_seal >= 1
+    assert served == [(k, True) for k in src]
+    for k in src:
+        assert torch.equal(targets[k], src[k].to(torch.bfloat16))

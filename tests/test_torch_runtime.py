@@ -96,3 +96,34 @@ async def test_remote_errors_reach_the_caller():
             await mesh.stop()
         with pytest.raises(ActorDiedError):
             await ref.get_id.call_one()
+
+
+def test_concurrent_first_calls_share_one_connection():
+    """Calls that open a connection to one address at once share it: each
+    opening its own would replace the others' in the pool and leave their
+    reader tasks pending when they are dropped."""
+    from torchstore_tpu_torch.runtime import actors
+
+    async def go():
+        accepted = []
+
+        async def handle(reader, writer):
+            accepted.append(writer)
+
+        server = await asyncio.start_server(handle, "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        try:
+            conns = await asyncio.gather(*(actors.get_connection("127.0.0.1", port)
+                                           for _ in range(8)))
+            await asyncio.sleep(0.05)
+            opened = len(accepted)
+            for conn in set(conns):
+                await conn.close()
+            return len({id(c) for c in conns}), opened
+        finally:
+            for writer in accepted:
+                writer.close()
+            server.close()
+            await server.wait_closed()
+
+    assert asyncio.run(go()) == (1, 1)

@@ -18,6 +18,12 @@ tensor, whatever layout the tensor was put in. ``transfer_quant`` ships
 floating leaves as fused int8/int4 blobs (``quantize_transfer``,
 ``parse_quant_blob``; ``DeltaEncoder`` / ``DeltaDecoder`` for the delta
 tier), byte-identical to the JAX package's.
+
+``WeightPublisher`` / ``WeightSubscriber`` package the RL loop as a
+versioned channel (publish, block for the next version, GC old ones), and
+``state_dict_stream`` / ``get_state_dict_streamed`` sync layer by layer
+under per-key watermarks, so a generator starts on the first layers while
+the trainer still publishes the last.
 """
 
 from torchstore_tpu_torch.api import (
@@ -31,12 +37,14 @@ from torchstore_tpu_torch.api import (
     get,
     get_batch,
     get_state_dict,
+    get_state_dict_streamed,
     initialize,
     keys,
     put,
     put_batch,
     put_state_dict,
     shutdown,
+    state_dict_stream,
     wait_for,
 )
 from torchstore_tpu_torch.client import Shard
@@ -51,7 +59,9 @@ from torchstore_tpu_torch.state_dict_utils import (
     shards_from_numpy,
 )
 from torchstore_tpu_torch.strategy import HostStrategy, LocalRankStrategy, SingletonStrategy
+from torchstore_tpu_torch.stream_sync import MixedGenerationError
 from torchstore_tpu_torch.transport.types import TensorSlice
+from torchstore_tpu_torch.weight_channel import WeightPublisher, WeightSubscriber
 
 __all__ = [
     "DEFAULT_STORE",
@@ -59,11 +69,14 @@ __all__ = [
     "DeltaEncoder",
     "HostStrategy",
     "LocalRankStrategy",
+    "MixedGenerationError",
     "NoMatchingPush",
     "Shard",
     "SingletonStrategy",
     "StoreConfig",
     "TensorSlice",
+    "WeightPublisher",
+    "WeightSubscriber",
     "client",
     "delete",
     "delete_prefix",
@@ -74,6 +87,7 @@ __all__ = [
     "get",
     "get_batch",
     "get_state_dict",
+    "get_state_dict_streamed",
     "initialize",
     "keys",
     "put",
@@ -83,5 +97,6 @@ __all__ = [
     "quantize_transfer",
     "shards_from_numpy",
     "shutdown",
+    "state_dict_stream",
     "wait_for",
 ]

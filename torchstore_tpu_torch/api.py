@@ -3,13 +3,18 @@
 Port of ``torchstore_tpu/api.py`` for one host: a registry of stores keyed
 by ``store_name``; ``initialize`` spawns the storage volumes and the
 controller as processes and wires them; ``put``/``get``/... delegate to the
-store's ``LocalClient``. Reaching a store from a process other than the one
-that initialized it is later work.
+store's ``LocalClient``. ``initialize`` publishes the controller's handle in
+``TORCHSTORE_TORCH_STORE_<name>``, which ``runtime.spawn_actors`` hands to
+its children, so an actor process reaches the store by name (a learner
+publishing, a generator acquiring).
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
+import os
+import pickle
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -17,7 +22,7 @@ import torch
 
 from torchstore_tpu_torch import state_dict_utils
 from torchstore_tpu_torch.client import LocalClient
-from torchstore_tpu_torch.config import StoreConfig, default_config
+from torchstore_tpu_torch.config import ENV_PREFIX, StoreConfig, default_config
 from torchstore_tpu_torch.controller import Controller
 from torchstore_tpu_torch.logging import get_logger, set_log_level
 from torchstore_tpu_torch.runtime import (
@@ -34,16 +39,29 @@ from torchstore_tpu_torch.strategy import LocalRankStrategy, SingletonStrategy, 
 logger = get_logger("torchstore_tpu_torch.api")
 
 DEFAULT_STORE = "default"
+ENV_STORE_PREFIX = ENV_PREFIX + "STORE_"
 
 
 @dataclass
 class _StoreHandle:
     controller: ActorRef
-    volume_mesh: ActorMesh
+    volume_mesh: Optional[ActorMesh]  # None in a process that did not initialize
     client: LocalClient
 
 
 _stores: dict[str, _StoreHandle] = {}
+
+
+def _publish_handle(store_name: str, controller: ActorRef) -> None:
+    payload = base64.b64encode(pickle.dumps(controller)).decode()
+    os.environ[ENV_STORE_PREFIX + store_name] = payload
+
+
+def _discover_handle(store_name: str) -> Optional[ActorRef]:
+    payload = os.environ.get(ENV_STORE_PREFIX + store_name)
+    if not payload:
+        return None
+    return pickle.loads(base64.b64decode(payload))
 
 
 def _controller_name(store_name: str) -> str:
@@ -84,15 +102,24 @@ async def initialize(
     _stores[store_name] = _StoreHandle(
         controller=controller, volume_mesh=volumes, client=LocalClient(controller, config)
     )
+    _publish_handle(store_name, controller)
     return controller
 
 
 def client(store_name: str = DEFAULT_STORE) -> LocalClient:
-    """The ``LocalClient`` of ``store_name``."""
+    """The ``LocalClient`` of ``store_name``: of the store this process
+    initialized, or, in an actor process its spawner started after
+    ``initialize``, of the store whose handle it was given."""
     handle = _stores.get(store_name)
     if handle is None:
-        raise RuntimeError(
-            f"store {store_name!r} is not initialized in this process; call initialize() first"
+        controller = _discover_handle(store_name)
+        if controller is None:
+            raise RuntimeError(
+                f"store {store_name!r} is not initialized in this process and no published "
+                "handle was found; call initialize() first"
+            )
+        handle = _stores[store_name] = _StoreHandle(
+            controller=controller, volume_mesh=None, client=LocalClient(controller)
         )
     return handle.client
 
@@ -180,24 +207,76 @@ async def get_state_dict(
     user_state_dict: Any = None,
     direct: bool = False,
     strict: bool = True,
+    key_order: Optional[list] = None,
+    on_layer: Any = None,
+    stream: bool = False,
     store_name: str = DEFAULT_STORE,
 ) -> Any:
     """Fetch the state dict published under ``key``; with
-    ``user_state_dict`` its tensors (CPU or CUDA) are filled in place."""
+    ``user_state_dict`` its tensors (CPU or CUDA) are filled in place.
+    ``stream=True`` (or a ``key_order`` / ``on_layer``) reads a streamed
+    publish layer by layer (``get_state_dict_streamed``)."""
     return await state_dict_utils.get_state_dict(
-        client(store_name), key, user_state_dict, direct=direct, strict=strict
+        client(store_name), key, user_state_dict, direct=direct, strict=strict,
+        key_order=key_order, on_layer=on_layer, stream=stream,
+    )
+
+
+def state_dict_stream(
+    key: str,
+    transfer_dtype: Optional[torch.dtype] = None,
+    transfer_quant: Optional[str] = None,
+    store_name: str = DEFAULT_STORE,
+):
+    """Open a layer-streamed publish of ``key``: ``await stream.put(...)``
+    each fragment as its tensors become ready, then ``await
+    stream.seal()``. Each fragment is watermarked per key, so streaming
+    readers serve it at once, while barrier readers still wake only on the
+    sealed dict. Delta encoding is the weight channel's
+    (``WeightPublisher(delta=True)``)."""
+    return state_dict_utils.stream_state_dict(
+        client(store_name), key, transfer_dtype=transfer_dtype, transfer_quant=transfer_quant
+    )
+
+
+async def get_state_dict_streamed(
+    key: str,
+    user_state_dict: Any = None,
+    key_order: Optional[list] = None,
+    on_layer: Any = None,
+    strict: bool = True,
+    timeout: Optional[float] = None,
+    wait_for_stream_s: Optional[float] = None,
+    store_name: str = DEFAULT_STORE,
+) -> Any:
+    """Acquire a streamed publish layer by layer: each key once its
+    watermark lands, in ``key_order`` when given, with ``on_layer(flat_key,
+    value)`` per served leaf; ``wait_for_stream_s`` waits for a publisher
+    that has not begun yet. Never mixes generations (``stream_sync``)."""
+    from torchstore_tpu_torch import stream_sync
+
+    return await stream_sync.get_state_dict_streamed(
+        client(store_name), key, user_state_dict=user_state_dict, key_order=key_order,
+        on_layer=on_layer, strict=strict, timeout=timeout,
+        wait_for_stream_s=wait_for_stream_s,
     )
 
 
 async def shutdown(store_name: str = DEFAULT_STORE) -> None:
     """Tear down a store: release its direct-sync staging and the client's
     segment attachments, reset and stop the volume and controller
-    processes."""
+    processes. In a process that reached the store by its published handle,
+    only this process's client and connections go."""
     handle = _stores.pop(store_name, None)
     if handle is None:
         return
     await state_dict_utils.close_direct_caches(handle.client)
     handle.client.close()
+    if handle.volume_mesh is None:
+        # A process that reached the store by its handle: the store lives on.
+        await close_all_connections()
+        return
+    os.environ.pop(ENV_STORE_PREFIX + store_name, None)
     try:
         await handle.controller.teardown.call_one()
     except Exception:  # noqa: BLE001 - stop the processes regardless

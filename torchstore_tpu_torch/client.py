@@ -271,12 +271,24 @@ class LocalClient:
     async def put(self, key: str, value: Any) -> None:
         await self.put_batch({key: value})
 
-    async def put_batch(self, items: dict[str, Any]) -> None:
+    async def put_batch(
+        self,
+        items: dict[str, Any],
+        watermark: Optional[tuple] = None,
+        unchanged: Optional[dict] = None,
+    ) -> None:
         """Land every item on each of the strategy's volumes at once, then
         index them all in one notify: a key is visible to readers only once
         its bytes landed (a sharded key once every coordinate has). A
         replica whose landing failed is detached from these keys in the same
-        notify; the put fails only when no replica landed."""
+        notify; the put fails only when no replica landed.
+
+        ``watermark``: ``(stream_key, version)`` of a layer-streamed
+        publish; the notify watermarks every key at ``version`` in the same
+        indexing step, so a streaming reader trusts a key only once its
+        bytes are committed. ``unchanged``: ``{store_key: (base_store_key,
+        base_version)}`` aliases of the same publish, watermarked with it
+        (see ``stream_sync``)."""
         await self._ensure_setup()
         requests = [r for k, v in items.items() for r in self._value_to_requests(k, v)]
         volumes = self._put_volumes()
@@ -297,6 +309,8 @@ class LocalClient:
             [v.volume_id for v, _ in landed],
             detach_volume_ids=[v.volume_id for v, _ in failed] or None,
             write_gens={v.volume_id: gens for v, gens in landed},
+            watermark=watermark,
+            unchanged=unchanged,
         )
         self._observe_epoch(epoch)
 
@@ -572,3 +586,52 @@ class LocalClient:
         return await self._controller.wait_for_change.with_timeout(
             self._wait_rpc_timeout(timeout)
         ).call_one(key, last_gen, timeout)
+
+    # ------------------------------------------------------------------
+    # layer-streamed sync (see stream_sync.py)
+    # ------------------------------------------------------------------
+
+    async def stream_begin(self, key: str, quant: Optional[dict] = None) -> int:
+        """Open the next streamed publish of ``key``; returns its version.
+        ``quant`` is the decode meta readers need before the seal."""
+        await self._ensure_setup()
+        return await self._controller.stream_begin.call_one(key, quant)
+
+    async def stream_seal(self, key: str, version: int) -> None:
+        await self._ensure_setup()
+        await self._controller.stream_seal.call_one(key, version)
+
+    async def stream_mark_unchanged(self, key: str, version: int, aliases: dict) -> None:
+        """Watermark the keys of a streamed delta fragment that landed no
+        bytes (each an alias of an earlier version's committed key)."""
+        await self._ensure_setup()
+        await self._controller.stream_mark_unchanged.call_one(key, version, aliases)
+
+    async def stream_state(self, key: str) -> Optional[dict]:
+        """``key``'s stream record, or None when it was never streamed.
+        Read watermarks through ``stream_sync.watermark_of`` /
+        ``inconsistent_keys``."""
+        await self._ensure_setup()
+        return await self._controller.stream_state.call_one(key)
+
+    async def wait_for_stream(
+        self,
+        key: str,
+        version: int,
+        known: int = 0,
+        timeout: Optional[float] = None,
+        volume_id: Optional[str] = None,
+    ) -> dict:
+        """Long-poll a streamed publish's progress (``Controller.
+        wait_for_stream``); the RPC outlives the controller's wait, as
+        every blocking wait's does."""
+        await self._ensure_setup()
+        return await self._controller.wait_for_stream.with_timeout(
+            self._wait_rpc_timeout(timeout)
+        ).call_one(key, version, known, timeout, volume_id)
+
+    async def stream_ack(self, key: str, version: int, subscriber: str) -> None:
+        """This subscriber's acquire completion on the stream's timeline
+        (telemetry)."""
+        await self._ensure_setup()
+        await self._controller.stream_ack.call_one(key, version, subscriber)

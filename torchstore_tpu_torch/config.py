@@ -26,6 +26,8 @@ ENV_TRANSFER_QUANT_BLOCK = ENV_PREFIX + "TRANSFER_QUANT_BLOCK"
 ENV_DELTA_KEYFRAME = ENV_PREFIX + "DELTA_KEYFRAME"
 ENV_DELTA_SKIP_EPS = ENV_PREFIX + "DELTA_SKIP_EPS"
 ENV_PLAN_CACHE = ENV_PREFIX + "PLAN_CACHE"
+ENV_STREAM_POLL_S = ENV_PREFIX + "STREAM_POLL_S"
+ENV_STREAM_RETRIES = ENV_PREFIX + "STREAM_RETRIES"
 
 _FALSE = ("0", "false", "no", "off")
 
@@ -92,7 +94,14 @@ class StoreConfig:
     threshold (a block ships nothing while its residual is within half its
     keyframe step plus this). ``plan_cache``: iteration-stable transfer
     plans for ``put_state_dict`` / ``get_state_dict``, validated by the
-    placement epoch."""
+    placement epoch.
+
+    ``stream_poll_s``: seconds of one long-poll round of a layer-streamed
+    acquire on the controller (``wait_for_stream``; the acquire re-polls
+    after each round to refresh its lag and deadline; wakeups come from
+    the notifies, never a spin). ``stream_retries``: how many times a
+    streamed acquire restarts after a superseded or mixed-generation
+    stream before it fails loudly."""
 
     rpc_timeout: float = field(default_factory=lambda: _env_float(ENV_RPC_TIMEOUT, 300.0))
     shm_enabled: bool = field(default_factory=lambda: _env_bool(ENV_SHM_ENABLED, True))
@@ -112,6 +121,8 @@ class StoreConfig:
     delta_keyframe: int = field(default_factory=lambda: _env_int(ENV_DELTA_KEYFRAME, 8))
     delta_skip_eps: float = field(default_factory=lambda: _env_float(ENV_DELTA_SKIP_EPS, 0.0))
     plan_cache: bool = field(default_factory=lambda: _env_bool(ENV_PLAN_CACHE, True))
+    stream_poll_s: float = field(default_factory=lambda: _env_float(ENV_STREAM_POLL_S, 10.0))
+    stream_retries: int = field(default_factory=lambda: _env_int(ENV_STREAM_RETRIES, 2))
 
 
 _default_config: Optional[StoreConfig] = None

@@ -3,8 +3,9 @@
 Port of ``torchstore_tpu/logging.py``: the level comes from
 ``TORCHSTORE_TORCH_LOG_LEVEL`` (or ``StoreConfig.log_level``), and
 ``LatencyTracker`` records named steps plus the end-to-end time, with GB/s
-where a byte count is given. ``Counter`` is a plain in-process counter by
-label set, under the reference's metric names.
+where a byte count is given. ``Counter`` is a plain in-process counter and
+``Gauge`` a plain last value, by label set, under the reference's metric
+names.
 """
 
 from __future__ import annotations
@@ -55,6 +56,22 @@ class Counter:
 
     def total(self) -> float:
         return sum(self._values.values())
+
+
+class Gauge:
+    """A last-set value per label set: ``set(x, channel="policy")``,
+    ``value(channel="policy")``."""
+
+    def __init__(self, name: str, help_text: str = "") -> None:
+        self.name = name
+        self.help = help_text
+        self._values: dict[tuple, float] = {}
+
+    def set(self, value: float, **labels: str) -> None:
+        self._values[tuple(sorted(labels.items()))] = value
+
+    def value(self, **labels: str) -> float:
+        return self._values.get(tuple(sorted(labels.items())), 0)
 
 
 def _format_throughput(nbytes: int, seconds: float) -> str:

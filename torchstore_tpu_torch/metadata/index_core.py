@@ -92,11 +92,16 @@ class IndexCore:
         return self._update_cond
 
     async def bump(self, keys) -> None:
-        cond = self.cond()
-        async with cond:
-            for key in keys:
-                self._key_gens[key] = self._key_gens.get(key, 0) + 1
-            cond.notify_all()
+        async with self.cond():
+            self.bump_locked(keys)
+
+    def bump_locked(self, keys) -> None:
+        """``bump`` for a caller that holds the condition already: the
+        notify that commits a put and the watermark step of a streamed
+        publish share one hold of it."""
+        for key in keys:
+            self._key_gens[key] = self._key_gens.get(key, 0) + 1
+        self.cond().notify_all()
 
     def contains(self, key: str) -> str:
         """'missing', 'partial' or 'committed'."""

@@ -11,6 +11,7 @@ whose weights were pulled through the store (``get_state_dict``).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Iterable, Optional
 
 import torch
@@ -22,10 +23,11 @@ def forward_key_order(keys: Iterable[str]) -> list:
     """The keys of a :class:`Llama` state dict in MODEL-FORWARD order:
     embedding, then ``layer_0 .. layer_N`` numerically, then the final
     norm, then the lm head (anything else after, lexically): the order a
-    layer-streamed pull consumes layers in."""
+    layer-streamed pull consumes layers in. Keys may be nested flat keys
+    of a published tree (``params/layer_0.attn.q_proj.kernel``)."""
 
     def rank(key: str) -> tuple:
-        for part in key.split("."):
+        for part in re.split(r"[./]", key):
             if part == "embed":
                 return (0, 0)
             if part.startswith("layer_") and part[6:].isdigit():

@@ -12,8 +12,10 @@ Compute follows flax: parameters in ``param_dtype``, inputs and weights
 cast to ``cfg.dtype`` for each product, RMSNorm in fp32, logits in fp32.
 Attention is ``F.scaled_dot_product_attention`` (the counterpart of
 ``jax.nn.dot_product_attention``) unless ``cfg.mesh`` has an ``sp`` axis
-larger than 1, where ring or Ulysses attention runs over it. MoE layers
-(``num_experts > 0``) and tensor-parallel heads are later slices.
+larger than 1, where ring or Ulysses attention runs over it. Each
+parameter carries the flax model's logical axes (``Llama.logical_axes``),
+which ``parallel.shard_params`` lays out on a mesh. MoE layers
+(``num_experts > 0``) and tensor-parallel compute are later slices.
 """
 
 from __future__ import annotations
@@ -149,12 +151,15 @@ def _lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 
 class DenseGeneral(nn.Module):
     """flax ``DenseGeneral`` over the trailing ``len(in_shape)`` axes:
-    ``kernel`` is in_shape + out_shape; the product runs in ``dtype``."""
+    ``kernel`` is in_shape + out_shape; the product runs in ``dtype``.
+    ``axes``: the kernel's logical axes (the bias takes the output ones)."""
 
-    def __init__(self, in_shape, out_shape, dtype, param_dtype, device, bias: bool = False):
+    def __init__(self, in_shape, out_shape, dtype, param_dtype, device, bias: bool = False,
+                 axes: Optional[tuple] = None):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.dtype = dtype
+        self.axes = axes
         kw = dict(dtype=param_dtype, device=device)
         self.kernel = nn.Parameter(torch.empty(*self.in_shape, *self.out_shape, **kw))
         self.bias = nn.Parameter(torch.empty(*self.out_shape, **kw)) if bias else None
@@ -163,6 +168,14 @@ class DenseGeneral(nn.Module):
         _lecun_normal_(self.kernel, math.prod(self.in_shape), generator)
         if self.bias is not None:
             self.bias.zero_()
+
+    def param_axes(self) -> dict:
+        if self.axes is None:
+            return {}
+        out = {"kernel": self.axes}
+        if self.bias is not None:
+            out["bias"] = self.axes[len(self.in_shape):]
+        return out
 
     def forward(self, x):
         lead = x.shape[: x.dim() - len(self.in_shape)]
@@ -184,6 +197,9 @@ class Embed(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.embedding.normal_(0.0, 0.02, generator=generator)
 
+    def param_axes(self) -> dict:
+        return {"embedding": ("vocab", "embed")}
+
     def forward(self, tokens):
         return F.embedding(tokens, self.embedding).to(self.dtype)
 
@@ -199,6 +215,9 @@ class RMSNorm(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.scale.fill_(0.0 if self.offset else 1.0)
+
+    def param_axes(self) -> dict:
+        return {"scale": (None,)}
 
     def forward(self, x):
         xf = x.float()
@@ -263,13 +282,15 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, hk, hd, dim = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
-        mk = lambda out, bias: DenseGeneral(  # noqa: E731
-            (dim,), out, cfg.dtype, cfg.param_dtype, device, bias
+        mk = lambda out, heads: DenseGeneral(  # noqa: E731
+            (dim,), out, cfg.dtype, cfg.param_dtype, device, cfg.attention_bias,
+            axes=("embed", heads, None),
         )
-        self.q_proj = mk((h, hd), cfg.attention_bias)
-        self.k_proj = mk((hk, hd), cfg.attention_bias)
-        self.v_proj = mk((hk, hd), cfg.attention_bias)
-        self.o_proj = DenseGeneral((h, hd), (dim,), cfg.dtype, cfg.param_dtype, device)
+        self.q_proj = mk((h, hd), "heads")
+        self.k_proj = mk((hk, hd), "kv_heads")
+        self.v_proj = mk((hk, hd), "kv_heads")
+        self.o_proj = DenseGeneral((h, hd), (dim,), cfg.dtype, cfg.param_dtype, device,
+                                   axes=("heads", None, "embed"))
 
     def forward(self, x, positions, cache: Optional[KVCache] = None, layer: int = 0):
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
@@ -335,10 +356,12 @@ class MLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         dim, inter = cfg.hidden_size, cfg.intermediate_size
-        mk = lambda i, o: DenseGeneral((i,), (o,), cfg.dtype, cfg.param_dtype, device)  # noqa: E731
-        self.gate_proj = mk(dim, inter)
-        self.up_proj = mk(dim, inter)
-        self.down_proj = mk(inter, dim)
+        mk = lambda i, o, axes: DenseGeneral(  # noqa: E731
+            (i,), (o,), cfg.dtype, cfg.param_dtype, device, axes=axes
+        )
+        self.gate_proj = mk(dim, inter, ("embed", "mlp"))
+        self.up_proj = mk(dim, inter, ("embed", "mlp"))
+        self.down_proj = mk(inter, dim, ("mlp", "embed"))
         self.act = _mlp_act(cfg)
 
     def forward(self, x):
@@ -379,8 +402,20 @@ class Llama(nn.Module):
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, cfg.rms_offset, device)
         if not cfg.tie_embeddings:
             self.lm_head = DenseGeneral(
-                (cfg.hidden_size,), (cfg.vocab_size,), torch.float32, cfg.param_dtype, device
+                (cfg.hidden_size,), (cfg.vocab_size,), torch.float32, cfg.param_dtype, device,
+                axes=("embed", "vocab"),
             )
+
+    def logical_axes(self) -> dict[str, tuple]:
+        """Each parameter's logical axes, by state-dict key: the ones the
+        flax model boxes it with (``nn.with_logical_partitioning``), which
+        ``parallel.shard_params`` maps onto a mesh."""
+        out = {}
+        for prefix, mod in self.named_modules():
+            if hasattr(mod, "param_axes"):
+                for pname, axes in mod.param_axes().items():
+                    out[f"{prefix}.{pname}" if prefix else pname] = axes
+        return out
 
     def forward(self, tokens, cache: Optional[KVCache] = None):
         """Logits (batch, seq, vocab) in fp32. With ``cache`` the attention

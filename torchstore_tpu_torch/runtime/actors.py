@@ -165,6 +165,7 @@ def _rebuild_remote_error(msg: dict) -> Exception:
 # Connections per (event loop, address): tests run many asyncio.run loops,
 # and a connection belongs to the loop that opened it.
 _conn_pools: dict[tuple[int, str, int], tuple[asyncio.AbstractEventLoop, _Connection]] = {}
+_conn_locks: dict[tuple[int, str, int], tuple[asyncio.AbstractEventLoop, asyncio.Lock]] = {}
 
 
 async def get_connection(host: str, port: int) -> _Connection:
@@ -179,15 +180,28 @@ async def get_connection(host: str, port: int) -> _Connection:
                 except OSError:
                     pass
             _conn_pools.pop(k, None)
+    for k, (lock_loop, _) in list(_conn_locks.items()):
+        if lock_loop.is_closed():
+            _conn_locks.pop(k, None)
     key = (id(loop), host, port)
     entry = _conn_pools.get(key)
     if entry is not None and not entry[1].closed:
         return entry[1]
-    reader, writer = await asyncio.open_connection(host, port, limit=2**20)
-    _set_nodelay(writer)
-    conn = _Connection(reader, writer)
-    _conn_pools[key] = (loop, conn)
-    return conn
+    # Concurrent first calls share one connection: without the lock each
+    # would open its own and replace the others' in the pool, whose reader
+    # tasks would then be dropped while still pending.
+    held = _conn_locks.get(key)
+    if held is None or held[0] is not loop:
+        held = _conn_locks[key] = (loop, asyncio.Lock())
+    async with held[1]:
+        entry = _conn_pools.get(key)
+        if entry is not None and not entry[1].closed:
+            return entry[1]
+        reader, writer = await asyncio.open_connection(host, port, limit=2**20)
+        _set_nodelay(writer)
+        conn = _Connection(reader, writer)
+        _conn_pools[key] = (loop, conn)
+        return conn
 
 
 def _set_nodelay(writer: asyncio.StreamWriter) -> None:

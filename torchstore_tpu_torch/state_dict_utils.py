@@ -31,8 +31,10 @@ publisher's baseline, skips blocks within half a keyframe step, and makes
 fully unchanged keys aliases of the previous version (zero bytes). With
 the client's ``SyncPlanCache`` a warm put skips the epoch bump and a warm
 get skips the commit marker, the structure checks and the locate: one
-placement-epoch read validates its plan. Streamed publishes are later
-work.
+placement-epoch read validates its plan. Layer-streamed publishes and
+acquires live in ``stream_sync.py``: ``stream_state_dict`` opens one, and
+``get_state_dict(stream=True)`` (or a ``key_order`` / ``on_layer``) reads
+one layer by layer.
 """
 
 from __future__ import annotations
@@ -535,19 +537,12 @@ def parse_quant_blob(value: Any, head: Optional[bytes] = None) -> Optional[dict]
     where possible); None when ``value`` is not a blob (not a 1-D uint8
     tensor, or no magic). ``head``: the blob's first bytes already on the
     host (a get reads every card blob's head in one copy)."""
-    if (
-        not isinstance(value, torch.Tensor)
-        or value.dtype != torch.uint8
-        or value.dim() != 1
-        or value.numel() < landing.QUANT_HEADER_BYTES
-    ):
+    if not is_quant_blob(value, head):
         return None
     blob = value.contiguous()
     if head is None or len(head) < landing.QUANT_HEADER_BYTES:
         head = _host_bytes(blob[:_HEAD_READ])
-    magic, codec, fmt_code, flags, block, nblocks, changed = struct.unpack_from("<IHBBIII", head, 0)
-    if magic != _QUANT_MAGIC or codec != _QUANT_CODEC:
-        return None
+    fmt_code, flags, block, nblocks, changed = struct.unpack_from("<BBIII", head, 6)
     rank = head[20]
     if len(head) < landing.QUANT_HEADER_BYTES + 8 * rank:
         head = _host_bytes(blob[:landing.QUANT_HEADER_BYTES + 8 * rank])
@@ -575,6 +570,22 @@ def parse_quant_blob(value: Any, head: Optional[bytes] = None) -> Optional[dict]
         "base_version": int(base_version),
         "version": int(version),
     }
+
+
+def is_quant_blob(value: Any, head: Optional[bytes] = None) -> bool:
+    """Whether ``value`` is a fused quant blob, from its magic alone (no
+    section is unpacked). ``head``: its first bytes already on the host."""
+    if (
+        not isinstance(value, torch.Tensor)
+        or value.dtype != torch.uint8
+        or value.dim() != 1
+        or value.numel() < landing.QUANT_HEADER_BYTES
+    ):
+        return False
+    if head is None or len(head) < 6:
+        head = _host_bytes(value[:6])
+    magic, codec = struct.unpack_from("<IH", head, 0)
+    return magic == _QUANT_MAGIC and codec == _QUANT_CODEC
 
 
 def _read_heads(blobs: dict[str, Any]) -> dict[str, bytes]:
@@ -1284,19 +1295,52 @@ def direct_staging_buffers(client, key: str, rank: int = 0) -> Any:
     return None if source is None else source.staging_state_dict()
 
 
+def stream_state_dict(
+    client, key: str, transfer_dtype=None, transfer_quant: Optional[str] = None
+):
+    """Open a layer-streamed publish of ``key``: push fragments with
+    ``await stream.put(...)`` as tensors become ready, then ``await
+    stream.seal()`` (see ``stream_sync``)."""
+    from torchstore_tpu_torch import stream_sync
+
+    return stream_sync.stream_state_dict(
+        client, key, transfer_dtype=transfer_dtype, transfer_quant=transfer_quant
+    )
+
+
 async def get_state_dict(
     client,
     key: str,
     user_state_dict: Any = None,
     direct: bool = False,
     strict: bool = True,
+    key_order: Optional[list] = None,
+    on_layer=None,
+    stream: bool = False,
     delta_state: Optional[DeltaDecoder] = None,
 ) -> Any:
     """Fetch a complete state dict. With ``user_state_dict``, its tensor
     leaves are filled in place (CPU or CUDA) and the stored structure must
     match it (``strict=False`` allows pulling a subset). A quantized leaf is
     decoded on its target's device; ``delta_state`` is the reader's
-    ``DeltaDecoder`` across the versions of a delta channel."""
+    ``DeltaDecoder`` across the versions of a delta channel.
+
+    ``stream=True`` (or a ``key_order`` / ``on_layer``) reads a streamed
+    publish layer by layer, each key once its watermark lands, in
+    ``key_order`` when given, with ``on_layer(flat_key, value)`` per served
+    leaf; a key never streamed is served by the barrier path."""
+    if direct and (key_order is not None or on_layer is not None):
+        raise NotImplementedError(
+            "key_order / on_layer on the direct path (the ordered one-hop pull) is "
+            "not ported yet; see ROADMAP.md, queue A, item A7"
+        )
+    if not direct and (stream or key_order is not None or on_layer is not None):
+        from torchstore_tpu_torch import stream_sync
+
+        return await stream_sync.get_state_dict_streamed(
+            client, key, user_state_dict=user_state_dict, key_order=key_order,
+            on_layer=on_layer, strict=strict, delta_state=delta_state,
+        )
     if direct:
         result = await _get_state_dict_direct(client, key, user_state_dict)
         if strict:
