@@ -243,7 +243,7 @@ def test_both_legs_cast_an_uncovered_pair_outside_the_kernel(cuda):
 
 @pytest.mark.cuda
 def test_direct_sync_page_locks_and_lands_sharded_targets(cuda):
-    """A direct source on the card: its staging buffers read as pinned, a
+    """A direct source on the card, on the host rung: its staging buffers read as pinned, a
     float64 leaf is cast outside the kernel, a refresh lands, and a dest
     pulls row and column shards into CUDA targets through pinned
     attachments."""
@@ -263,7 +263,7 @@ def test_direct_sync_page_locks_and_lands_sharded_targets(cuda):
     extra = torch.randn(33, dtype=torch.float64, device=cuda)
 
     async def run():
-        sources = [DirectWeightSyncSource(use_shm=True) for _ in halves]
+        sources = [DirectWeightSyncSource(use_shm=True, device=False) for _ in halves]
         dest = DirectWeightSyncDest()
         try:
             before = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
@@ -579,3 +579,128 @@ def test_channel_streamed_round_trip_into_card_targets(cuda):
     assert served == [(k, True) for k in src]
     for k in src:
         assert torch.equal(targets[k], src[k].to(torch.bfloat16))
+
+
+# --------------------------------------------------------------------------
+# the device rung of direct sync: CUDA IPC between processes
+# --------------------------------------------------------------------------
+
+
+def _ipc_targets(tree, dtype, card=0):
+    """Target specs: floating leaves in ``dtype``, the others in their own."""
+    return {k: (tuple(v.shape), str(dtype if v.is_floating_point() else v.dtype)
+                .removeprefix("torch."), card) for k, v in tree.items()}
+
+
+def _bits(t):
+    t = t.detach().cpu()
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+@pytest.mark.cuda
+def test_device_rung_cross_process_ipc_pull(cuda):
+    """A source on the card and a dest in another process: the dest opens
+    the staging block once over IPC and pulls twice (after a refresh of an
+    in-place step), bit-equal to the bf16 cast each time; K1 casts the
+    staging in place, one launch per planned chunk per publish."""
+    import asyncio
+
+    import test_torch_sp_worker as worker
+
+    from torchstore_tpu_torch import direct_weight_sync as dws
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    tree = {"w": torch.randn(1024, 257, generator=gen, device=cuda),
+            "b": torch.randn(33, generator=gen, device=cuda),
+            "steps": torch.arange(5, device=cuda)}
+
+    async def run():
+        source = dws.DirectWeightSyncSource()
+        launched = staging.cast_kernel.launches
+        await source.register(tree, transfer_dtype=torch.bfloat16)
+        chunks = len(staging.plan_chunks([tree["w"], tree["b"]], torch.bfloat16))
+        assert staging.cast_kernel.launches - launched == chunks
+        assert source.device_info is not None and len(source._blocks) == 1
+        dest = worker.IpcDest([source.device_info], _ipc_targets(tree, torch.bfloat16))
+        try:
+            for step in range(2):
+                status, got, opens = await asyncio.to_thread(dest.pull)
+                assert status == "ok", (got, opens)
+                assert opens == 1  # the block, opened once for both pulls
+                for k, v in tree.items():
+                    want = v.to(torch.bfloat16) if v.is_floating_point() else v
+                    np.testing.assert_array_equal(got[k], _bits(want), err_msg=k)
+                for v in tree.values():
+                    v.add_(1)
+                launched = staging.cast_kernel.launches
+                await source.refresh()
+                assert staging.cast_kernel.launches - launched == chunks
+        finally:
+            dest.close()
+            await source.close()
+
+    asyncio.run(run())
+
+
+@pytest.mark.cuda
+def test_device_rung_pull_after_close_raises(cuda):
+    """After the source closed, the dest's next pull raises KeyError before
+    it touches the staging it still holds open (the source's memory stays
+    allocated until the dest lets go)."""
+    import asyncio
+
+    import test_torch_sp_worker as worker
+
+    from torchstore_tpu_torch import direct_weight_sync as dws
+
+    tree = {"w": torch.arange(4096.0, device=cuda)}
+
+    async def run():
+        source = dws.DirectWeightSyncSource()
+        await source.register(tree)
+        dest = worker.IpcDest([source.device_info], _ipc_targets(tree, torch.float32))
+        try:
+            status, got, _ = await asyncio.to_thread(dest.pull)
+            assert status == "ok"
+            np.testing.assert_array_equal(got["w"], _bits(tree["w"]))
+            await source.close()
+            reply = await asyncio.to_thread(dest.pull)
+            assert reply[:2] == ("error", "KeyError"), reply
+        finally:
+            dest.close()
+            await source.close()
+
+    asyncio.run(run())
+
+
+@pytest.mark.cuda
+def test_device_rung_leaves_on_two_cards(cuda):
+    """Leaves on two cards: one staging block each, both opened over IPC by
+    a dest whose targets are all on card 0."""
+    import asyncio
+
+    import test_torch_sp_worker as worker
+
+    from torchstore_tpu_torch import direct_weight_sync as dws
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    gen = torch.Generator().manual_seed(22)
+    tree = {"a": torch.randn(4096, generator=gen).to("cuda:0"),
+            "b": torch.randn(512, 3, generator=gen).to("cuda:1")}
+
+    async def run():
+        source = dws.DirectWeightSyncSource()
+        await source.register(tree, transfer_dtype=torch.bfloat16)
+        assert len(source._blocks) == 2
+        dest = worker.IpcDest([source.device_info], _ipc_targets(tree, torch.bfloat16))
+        try:
+            status, got, opens = await asyncio.to_thread(dest.pull)
+            assert status == "ok" and opens == 2, (got, opens)
+            for k, v in tree.items():
+                np.testing.assert_array_equal(got[k], _bits(v.to(torch.bfloat16)), err_msg=k)
+        finally:
+            dest.close()
+            await source.close()
+
+    asyncio.run(run())

@@ -176,7 +176,7 @@ async def test_pull_waits_out_a_refresh_then_gives_up(pair, monkeypatch):
     with anyio.fail_after(TIMEOUT_S):
         handles = await source.register({"w": torch.ones(4)})
         source._set_busy(True)  # a refresh that never finishes
-        monkeypatch.setattr(port_dws, "SETTLE_TIMEOUT_S", 0.2)
+        monkeypatch.setattr(port_dws.default_config(), "direct_settle_timeout", 0.2)
         with pytest.raises(PullRaceError, match="never settled"):
             await dest.pull(handles, {"w": torch.zeros(4)})
         source._set_busy(False)
@@ -217,10 +217,13 @@ class FakeCards:
         def card_of(t):
             return cards.devices.get(t.data_ptr()) if t.numel() else None
 
-        def chunks(tensors, dtype, max_chunk_bytes=staging.DEFAULT_CHUNK_BYTES):
+        def chunks(tensors, dtype, max_chunk_bytes=staging.DEFAULT_CHUNK_BYTES, outs=None):
             cards.chunk_calls.append({card_of(t) for t in tensors})
             for chunk in staging.plan_chunks(tensors, dtype, max_chunk_bytes):
-                yield chunk, [tensors[i].to(dtype) for i in chunk.indices]
+                ys = [tensors[i].to(dtype) for i in chunk.indices]
+                if outs is not None:
+                    ys = [outs[i].copy_(y) for i, y in zip(chunk.indices, ys)]
+                yield chunk, ys
 
         class Stream:
             def __init__(self, device):
@@ -386,13 +389,13 @@ def two_cards():
 
 @pytest.mark.cuda
 async def test_leaves_on_two_cards_publish_and_pull(two_cards):
-    """On two real cards: one kernel launch per card for the fp32 leaves,
+    """On two real cards, on the host rung: one kernel launch per card for the fp32 leaves,
     a float64 leaf cast by x.to(), every staged byte equal to x.to()."""
     d0, d1 = two_cards
     gen = torch.Generator().manual_seed(3)
     tree = {"a": torch.randn(4096, generator=gen).to(d0), "b": torch.randn(512, generator=gen).to(d1),
             "c": torch.randn(64, generator=gen, dtype=torch.float64).to(d1)}
-    source = DirectWeightSyncSource(use_shm=True)
+    source = DirectWeightSyncSource(use_shm=True, device=False)
     dest = DirectWeightSyncDest()
     before = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
     try:

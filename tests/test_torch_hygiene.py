@@ -58,6 +58,7 @@ def test_import_leaves_no_jax_or_reference_module():
         "import torchstore_tpu_torch.models.llama, torchstore_tpu_torch.models.generate\n"
         "import torchstore_tpu_torch.weight_channel, torchstore_tpu_torch.stream_sync\n"
         "import torchstore_tpu_torch.examples.torchstore_rl\n"
+        "import torchstore_tpu_torch.transport.device_transfer, torchstore_tpu_torch.provision.pool\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN_ROOTS)!r})\n"
         "print(json.dumps(bad))\n"

@@ -1,9 +1,11 @@
 """Multi-rank drives of the port's sequence-parallel code on the CPU:
 ``spawn(job, args)`` starts 4 ranks over gloo on an ephemeral port, each
 runs ``JOBS[job](rank, args)``, and the per-rank results come back as numpy
-arrays. This module imports torch and numpy only, so the spawned ranks load
-no JAX; the test files hold the results against the JAX package. It holds
-no tests itself."""
+arrays. ``IpcDest`` is a direct-sync dest in a process of its own, which
+pulls a source's card-side staging over CUDA IPC on request. This module
+imports torch and numpy only, so the spawned processes load no JAX; the
+test files hold the results against the JAX package. It holds no tests
+itself."""
 
 from __future__ import annotations
 
@@ -190,3 +192,61 @@ def spawn(job: str, args=None) -> list:
                 p.kill()
                 p.join(timeout=10)
     return results
+
+
+def _as_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _ipc_dest_main(infos, targets, requests, replies) -> None:
+    """Pull ``infos`` into ``targets`` ({key: (shape, dtype name, card
+    index)}) once per request, until ``None``; reply ("ok", {key: numpy},
+    blocks opened so far) or ("error", exception type, message)."""
+    import asyncio
+
+    from torchstore_tpu_torch.direct_weight_sync import DirectWeightSyncDest
+    from torchstore_tpu_torch.transport import device_transfer as dt
+
+    async def run():
+        dest = DirectWeightSyncDest()
+        sd = {k: torch.zeros(shape, dtype=getattr(torch, dtype), device=f"cuda:{card}")
+              for k, (shape, dtype, card) in targets.items()}
+        try:
+            while requests.get(timeout=TIMEOUT_S) is not None:
+                try:
+                    out = await dest.pull_device(infos, sd)
+                    replies.put(("ok", {k: _as_numpy(v) for k, v in out.items()},
+                                 dt.DeviceTransferEngine.get().opens))
+                except Exception as exc:  # noqa: BLE001 - reported to the parent
+                    replies.put(("error", type(exc).__name__, str(exc)))
+        finally:
+            await dest.close()
+
+    try:
+        asyncio.run(run())
+    except BaseException:  # noqa: BLE001 - reported to the parent, which raises
+        replies.put(("error", "crash", traceback.format_exc()))
+
+
+class IpcDest:
+    """A dest process: ``pull()`` asks it for one pull and returns its
+    reply; ``close()`` ends it."""
+
+    def __init__(self, infos, targets) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self.requests, self.replies = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=_ipc_dest_main,
+                                args=(infos, targets, self.requests, self.replies), daemon=True)
+        self.proc.start()
+
+    def pull(self):
+        self.requests.put(True)
+        return self.replies.get(timeout=TIMEOUT_S)
+
+    def close(self) -> None:
+        self.requests.put(None)
+        self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(timeout=10)

@@ -199,13 +199,14 @@ async def protocol_cases(store: str, out: dict) -> None:
         no_push = True
     out["retired"] = (had, removed, gone, no_push)
 
-    # The ordered direct pull is ROADMAP A7's.
-    try:
-        await tst.get_state_dict("x", {"w": torch.zeros(2)}, direct=True, key_order=["w"],
-                                 store_name=store)
-        out["direct_order"] = None
-    except NotImplementedError as exc:
-        out["direct_order"] = str(exc)
+    # The ordered direct pull (ROADMAP A7): the one-hop pull in key_order.
+    await tst.put_state_dict("x", {"w": torch.ones(2), "v": torch.ones(3)}, direct=True,
+                             store_name=store)
+    served = []
+    await tst.get_state_dict("x", {"w": torch.zeros(2), "v": torch.zeros(3)}, direct=True,
+                             key_order=["v", "w"], on_layer=lambda k, v: served.append(k),
+                             store_name=store)
+    out["direct_order"] = served
 
 
 async def channel_cases(store: str, out: dict) -> None:
@@ -461,7 +462,8 @@ def test_stream_record_retired_with_its_keys(port):
 
 
 def test_direct_key_order_is_not_ported_yet(port):
-    assert "A7" in port["direct_order"]
+    # Ported in A7: the direct path serves key_order instead of raising.
+    assert port["direct_order"] == ["v", "w"]
 
 
 # --------------------------------------------------------------------------

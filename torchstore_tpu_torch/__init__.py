@@ -40,6 +40,7 @@ from torchstore_tpu_torch.api import (
     get_state_dict_streamed,
     initialize,
     keys,
+    prewarm,
     put,
     put_batch,
     put_state_dict,
@@ -90,6 +91,7 @@ __all__ = [
     "get_state_dict_streamed",
     "initialize",
     "keys",
+    "prewarm",
     "put",
     "put_batch",
     "parse_quant_blob",

@@ -197,8 +197,8 @@ def direct_staging_buffers(key: str, store_name: str = DEFAULT_STORE) -> Any:
 
 
 def direct_sync_stats(key: str, store_name: str = DEFAULT_STORE) -> dict:
-    """Page-locking seconds and the last pull's copied regions of the
-    direct sync of ``key`` in this process."""
+    """The rung, page-locking seconds and the last pull's copied regions of
+    the direct sync of ``key`` in this process."""
     return state_dict_utils.direct_sync_stats(client(store_name), key)
 
 
@@ -220,6 +220,70 @@ async def get_state_dict(
         client(store_name), key, user_state_dict, direct=direct, strict=strict,
         key_order=key_order, on_layer=on_layer, stream=stream,
     )
+
+
+async def prewarm(
+    state_dict: Any,
+    store_name: str = DEFAULT_STORE,
+    transfer_dtype: Optional[torch.dtype] = None,
+    direct: bool = False,
+    acquire_key: Optional[str] = None,
+) -> dict:
+    """Provision the direct path ahead of its first sync. ``acquire_key``
+    (with ``state_dict`` as the acquire's targets): build and cache the
+    dest's transfer plan of that direct-pushed key, dial its sources and
+    attach their same-host staging, so the first ``get_state_dict(...,
+    direct=True)`` starts at the data movement. ``direct=True``: create and
+    pre-fault the client-local ``/dev/shm`` staging a direct source's
+    ``register`` draws (one segment per tensor, in ``transfer_dtype`` for
+    floating leaves); when the leaves would take the device rung, which
+    stages on the card, make the device engine ready instead. Advisory: a failure is logged and reported
+    (``ok``, ``errors``), never raised. Provisioning the store's volumes
+    (the manifest, pool reservations, dials) is not ported."""
+    from torchstore_tpu_torch.provision.pool import local_pool
+
+    def advisory_failure(stage: str, exc: Exception) -> dict:
+        logger.warning("prewarm %s failed: %s; the lazy path will serve", stage, exc)
+        return {"ok": False, "errors": {stage: str(exc)}}
+
+    if acquire_key is not None:
+        try:
+            return await state_dict_utils.preplan_direct(client(store_name), acquire_key,
+                                                         state_dict)
+        except Exception as exc:  # noqa: BLE001 - advisory, never raises
+            return advisory_failure("preplan", exc)
+    if not direct:
+        raise NotImplementedError(
+            "prewarm of the store's volumes (manifest, pool reservations, dials) is not "
+            "ported yet; see ROADMAP.md, queue A, item A11"
+        )
+    try:
+        from torchstore_tpu_torch.direct_weight_sync import _local_shard, device_rung_eligible
+
+        flat, _ = state_dict_utils.flatten_state_dict(state_dict)
+        shards = {k: _local_shard(v) for k, v in flat.items()}
+        if device_rung_eligible(shards, client(store_name).config):
+            from torchstore_tpu_torch.transport.device_transfer import prewarm_engine
+
+            return {"ok": True, "errors": {}, "local_segments": 0, "bytes": 0, "device": True,
+                    "device_server": prewarm_engine()}
+        sizes: dict[int, int] = {}
+        for shard in shards.values():
+            if shard is None:
+                continue
+            t = shard[1]
+            dtype = transfer_dtype if transfer_dtype is not None and t.is_floating_point() \
+                else t.dtype
+            size = t.numel() * torch.empty((), dtype=dtype).element_size()
+            sizes[size] = sizes.get(size, 0) + 1
+        result = await asyncio.get_running_loop().run_in_executor(
+            None, local_pool().provision, sizes)
+    except Exception as exc:  # noqa: BLE001 - advisory, never raises
+        return advisory_failure("local_staging", exc)
+    if result.get("error"):
+        return advisory_failure("local_staging", RuntimeError(result["error"]))
+    return {"ok": True, "errors": {}, "local_segments": result["created"],
+            "bytes": result["bytes"], "clamped_bytes": result["clamped_bytes"]}
 
 
 def state_dict_stream(
@@ -267,10 +331,14 @@ async def shutdown(store_name: str = DEFAULT_STORE) -> None:
     segment attachments, reset and stop the volume and controller
     processes. In a process that reached the store by its published handle,
     only this process's client and connections go."""
+    from torchstore_tpu_torch.provision.pool import local_pool
+
     handle = _stores.pop(store_name, None)
     if handle is None:
         return
     await state_dict_utils.close_direct_caches(handle.client)
+    if not _stores:
+        local_pool().clear()  # staging prewarmed for sources never registered
     handle.client.close()
     if handle.volume_mesh is None:
         # A process that reached the store by its handle: the store lives on.

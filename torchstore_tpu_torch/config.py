@@ -28,6 +28,8 @@ ENV_DELTA_SKIP_EPS = ENV_PREFIX + "DELTA_SKIP_EPS"
 ENV_PLAN_CACHE = ENV_PREFIX + "PLAN_CACHE"
 ENV_STREAM_POLL_S = ENV_PREFIX + "STREAM_POLL_S"
 ENV_STREAM_RETRIES = ENV_PREFIX + "STREAM_RETRIES"
+ENV_ICI_ENABLED = ENV_PREFIX + "ICI_ENABLED"
+ENV_DIRECT_SETTLE_TIMEOUT = ENV_PREFIX + "DIRECT_SETTLE_TIMEOUT"
 
 _FALSE = ("0", "false", "no", "off")
 
@@ -101,7 +103,16 @@ class StoreConfig:
     after each round to refresh its lag and deadline; wakeups come from
     the notifies, never a spin). ``stream_retries``: how many times a
     streamed acquire restarts after a superseded or mixed-generation
-    stream before it fails loudly."""
+    stream before it fails loudly.
+
+    ``ici_enabled``: a direct publish whose tensor leaves all live on
+    cards takes the device rung (CUDA IPC on one host: dests copy card to
+    card from the source's card-side staging), as the reference's field of
+    the same name turns on its device rung; off, every direct publish
+    stages through the host. ``direct_settle_timeout``: seconds a direct
+    pull waits for a source whose staging is being overwritten (the
+    generation odd) before it gives up; a model-scale refresh or another
+    dest's host-fallback staging legitimately holds it odd for seconds."""
 
     rpc_timeout: float = field(default_factory=lambda: _env_float(ENV_RPC_TIMEOUT, 300.0))
     shm_enabled: bool = field(default_factory=lambda: _env_bool(ENV_SHM_ENABLED, True))
@@ -123,6 +134,10 @@ class StoreConfig:
     plan_cache: bool = field(default_factory=lambda: _env_bool(ENV_PLAN_CACHE, True))
     stream_poll_s: float = field(default_factory=lambda: _env_float(ENV_STREAM_POLL_S, 10.0))
     stream_retries: int = field(default_factory=lambda: _env_int(ENV_STREAM_RETRIES, 2))
+    ici_enabled: bool = field(default_factory=lambda: _env_bool(ENV_ICI_ENABLED, True))
+    direct_settle_timeout: float = field(
+        default_factory=lambda: _env_float(ENV_DIRECT_SETTLE_TIMEOUT, 30.0)
+    )
 
 
 _default_config: Optional[StoreConfig] = None

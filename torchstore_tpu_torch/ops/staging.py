@@ -213,11 +213,15 @@ class CastKernel:
         tensors: Sequence[torch.Tensor],
         dtype: torch.dtype,
         max_chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+        outs: Optional[Sequence[torch.Tensor]] = None,
     ) -> Iterator[tuple[CastChunk, list[torch.Tensor]]]:
         """Launch the chunks of ``_iter_chunks`` one at a time, yielding each
         chunk with its outputs (in ``chunk.indices`` order) before the next
         launches, so a caller that drops them holds at most one chunk of
-        outputs. A chunk's tensors are checked before its launch."""
+        outputs. With ``outs`` (one per tensor: contiguous, of the tensor's
+        shape, in ``dtype``, on its device) the kernel writes into them
+        instead of new tensors. A chunk's tensors are checked before its
+        launch."""
         device = None
         for chunk in _iter_chunks(tensors, dtype, max_chunk_bytes):
             srcs = [tensors[i] for i in chunk.indices]
@@ -230,13 +234,21 @@ class CastKernel:
                     raise ValueError(f"one cast group takes one device: {device} and {t.device}")
                 if not t.is_contiguous():
                     raise ValueError("cast kernel needs a contiguous input (pass x.contiguous())")
+            if outs is None:
+                dsts = [torch.empty_like(x, dtype=dtype) for x in srcs]  # contiguous, as x
+            else:
+                dsts = [outs[i] for i in chunk.indices]
+                for x, y in zip(srcs, dsts):
+                    if (y.device != x.device or y.dtype != dtype or y.shape != x.shape
+                            or not y.is_contiguous()):
+                        raise ValueError("a cast output must be contiguous, of its input's "
+                                         "shape and device, in the target dtype")
             if self.lib.fn is None:
                 self.lib.build()
-            outs = [torch.empty_like(x, dtype=dtype) for x in srcs]  # contiguous, as x
             in_size, out_size = _ITEMSIZE[chunk.pair[0]], _ITEMSIZE[dtype]
             table, units = pack_table(
                 [(x.data_ptr(), y.data_ptr(), x.numel(), in_size, out_size)
-                 for x, y in zip(srcs, outs)]
+                 for x, y in zip(srcs, dsts)]
             )
             kinds = _PAIR_KINDS[chunk.pair]
             # The launch goes to the current stream of the tensors' device,
@@ -254,7 +266,7 @@ class CastKernel:
             if err != 0:
                 raise RuntimeError(f"cast kernel launch failed: CUDA error {err}")
             self.launches += 1
-            yield chunk, outs
+            yield chunk, dsts
 
     def _launch(self, table, count, kinds, units, device) -> int:
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -297,21 +309,28 @@ def cast_on_card(
     tensors: Sequence[torch.Tensor],
     dtype: torch.dtype,
     max_chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+    outs: Optional[Sequence[torch.Tensor]] = None,
 ) -> Iterator[tuple[tuple[int, ...], list[torch.Tensor]]]:
     """Cast contiguous CUDA tensors of one device to ``dtype``, yielding
     (positions in ``tensors``, outputs) a batch at a time: the pairs the
     kernel covers through ``cast_kernel.chunks`` (one launch per chunk, each
     chunk's outputs yielded before the next launches), any other pair by the
     plain ``x.to()``, counted in ``cast_kernel.fallbacks`` (the reference
-    leaves such pairs to XLA's ``astype``). A covered pair whose kernel
-    fails to build or launch raises; it never takes the plain cast."""
+    leaves such pairs to XLA's ``astype``). With ``outs`` (one per tensor,
+    as ``CastKernel.chunks`` takes them) every cast lands in its out. A
+    covered pair whose kernel fails to build or launch raises; it never
+    takes the plain cast."""
     covered = []
     for i, t in enumerate(tensors):
         if (t.dtype, dtype) in _PAIR_KINDS:
             covered.append(i)
         else:
             cast_kernel.fallbacks += 1
-            yield (i,), [t.to(dtype)]
+            y = t.to(dtype)
+            if outs is not None:
+                y = outs[i].copy_(y)
+            yield (i,), [y]
     srcs = [tensors[i] for i in covered]
-    for chunk, outs in cast_kernel.chunks(srcs, dtype, max_chunk_bytes):
-        yield tuple(covered[j] for j in chunk.indices), outs
+    dsts = None if outs is None else [outs[i] for i in covered]
+    for chunk, ys in cast_kernel.chunks(srcs, dtype, max_chunk_bytes, outs=dsts):
+        yield tuple(covered[j] for j in chunk.indices), ys

@@ -1071,13 +1071,14 @@ class _DirectSyncCache:
 
     def __init__(self) -> None:
         self.sources: dict[tuple[str, int], Any] = {}
-        self.dests: dict[str, tuple[Any, dict]] = {}  # key -> (dest, all_handles)
+        # key -> (dest, all_handles, device_infos or None)
+        self.dests: dict[str, tuple[Any, dict, Optional[list]]] = {}
 
     async def close(self) -> None:
         for source in self.sources.values():
             await source.close()
-        for dest, _ in self.dests.values():
-            await dest.close()
+        for entry in self.dests.values():
+            await entry[0].close()
         self.sources.clear()
         self.dests.clear()
 
@@ -1109,7 +1110,8 @@ async def _put_state_dict_direct(
     cache = _direct_cache(client)
     source = cache.sources.get((key, rank))
     if source is None:
-        source = DirectWeightSyncSource(use_shm=client.config.shm_enabled)
+        config = client.config
+        source = DirectWeightSyncSource(use_shm=config.shm_enabled, config=config)
         try:
             handles = await source.register(
                 state_dict, rank, transfer_dtype, num_ranks=num_ranks
@@ -1118,7 +1120,11 @@ async def _put_state_dict_direct(
             await source.close()
             raise
         cache.sources[(key, rank)] = source
-        await client.put(f"{key}{_SEP}rank_{rank}", {"handles": handles})
+        published = {"handles": handles}
+        if source.device_info is not None:
+            # The device rung: dests copy card to card from the staging.
+            published["device"] = source.device_info
+        await client.put(f"{key}{_SEP}rank_{rank}", published)
         if rank == 0:
             # num_ranks is the direct-mode commit marker, written last.
             await client.put(f"{key}{_SEP}num_ranks", num_ranks)
@@ -1128,6 +1134,9 @@ async def _put_state_dict_direct(
 
 
 async def _resolve_direct_entry(client, key: str):
+    """The cached (dest, all_handles, device_infos) of a direct-pushed key,
+    fetching the published handles and making the dest on first use (the
+    pull and ``preplan_direct`` share it)."""
     from torchstore_tpu_torch.direct_weight_sync import DirectWeightSyncDest
 
     cache = _direct_cache(client)
@@ -1139,6 +1148,7 @@ async def _resolve_direct_entry(client, key: str):
     except KeyError as exc:
         raise NoMatchingPush(f"no matching direct push for state dict key {key!r}") from exc
     all_handles: dict[str, list] = {}
+    device_infos: list = []
     for rank in range(num_ranks):
         try:
             published = await client.get(f"{key}{_SEP}rank_{rank}")
@@ -1148,20 +1158,43 @@ async def _resolve_direct_entry(client, key: str):
             ) from exc
         for flat_key, handle_list in published["handles"].items():
             all_handles.setdefault(flat_key, []).extend(handle_list)
-    entry = (DirectWeightSyncDest(), all_handles)
+        if published.get("device") is not None:
+            device_infos.append(published["device"])
+    if device_infos and len(device_infos) != num_ranks:
+        raise RuntimeError(
+            f"direct push {key!r}: {len(device_infos)} of {num_ranks} ranks published on the "
+            "device rung; a mixed device / host publication cannot be merged (check that "
+            "ici_enabled agrees across ranks)"
+        )
+    entry = (DirectWeightSyncDest(), all_handles, device_infos or None)
     cache.dests[key] = entry
     return entry
 
 
-async def _get_state_dict_direct(client, key: str, user_state_dict: Any, _retry: bool = True):
+async def preplan_direct(client, key: str, user_state_dict: Any) -> dict:
+    """``api.prewarm``'s hook for the direct acquire: resolve the published
+    handles, build and cache the transfer plan, dial the sources and attach
+    same-host staging, so the first ``get_state_dict(direct=True)`` starts
+    at the data movement. A device-rung publication has no host plan."""
+    dest, all_handles, device_infos = await _resolve_direct_entry(client, key)
+    if device_infos is not None:
+        return {"ok": True, "errors": {}, "plan_ops": 0, "device": True}
+    return {"ok": True, "errors": {}, **await dest.preplan(all_handles, user_state_dict)}
+
+
+async def _get_state_dict_direct(client, key: str, user_state_dict: Any, _retry: bool = True,
+                                 key_order: Optional[list] = None, on_layer=None):
     from torchstore_tpu_torch.direct_weight_sync import PullRaceError
 
     if user_state_dict is None:
         raise ValueError("direct get_state_dict requires user_state_dict targets")
     cache = _direct_cache(client)
-    dest, all_handles = await _resolve_direct_entry(client, key)
+    dest, all_handles, device_infos = await _resolve_direct_entry(client, key)
     try:
-        return await dest.pull(all_handles, user_state_dict)
+        if device_infos is not None:
+            # The device rung takes no ordering, as in the reference.
+            return await dest.pull_device(device_infos, user_state_dict)
+        return await dest.pull(all_handles, user_state_dict, key_order, on_layer)
     except (ConnectionError, OSError, KeyError, ValueError, PullRaceError):
         if not _retry:
             raise
@@ -1169,7 +1202,8 @@ async def _get_state_dict_direct(client, key: str, user_state_dict: Any, _retry:
         # key: drop the cached set and retry once.
         cache.dests.pop(key, None)
         await dest.close()
-        return await _get_state_dict_direct(client, key, user_state_dict, _retry=False)
+        return await _get_state_dict_direct(client, key, user_state_dict, _retry=False,
+                                            key_order=key_order, on_layer=on_layer)
 
 
 async def put_state_dict(
@@ -1273,14 +1307,20 @@ async def put_state_dict(
 
 
 def direct_sync_stats(client, key: str) -> dict:
-    """This client's direct sync of ``key``: the seconds its sources (every
-    rank it published) and its dest spent page-locking host memory, and the
-    regions the dest's last pull copied (one per distinct intersection of a
-    target with a source shard)."""
+    """This client's direct sync of ``key``: the rung it rides (``device``
+    or ``host``, as its sources registered or its dest resolved), the
+    seconds its sources (every rank it published) and its dest spent
+    page-locking host memory, and the regions the dest's last host-rung
+    pull copied (one per distinct intersection of a target with a source
+    shard)."""
     cache = _direct_cache(client)
     sources = [s for (k, _), s in cache.sources.items() if k == key]
-    dest = cache.dests.get(key, (None, None))[0]
+    entry = cache.dests.get(key)
+    dest = None if entry is None else entry[0]
+    device = (entry[2] is not None if entry is not None
+              else any(s.device_info is not None for s in sources))
     return {
+        "rung": "device" if device else "host",
         "source_pin_seconds": sum(s.pin_seconds for s in sources),
         "dest_pin_seconds": 0.0 if dest is None else dest.pin_seconds,
         "pulled_regions": 0 if dest is None else dest.planned_ops,
@@ -1328,12 +1368,10 @@ async def get_state_dict(
     ``stream=True`` (or a ``key_order`` / ``on_layer``) reads a streamed
     publish layer by layer, each key once its watermark lands, in
     ``key_order`` when given, with ``on_layer(flat_key, value)`` per served
-    leaf; a key never streamed is served by the barrier path."""
-    if direct and (key_order is not None or on_layer is not None):
-        raise NotImplementedError(
-            "key_order / on_layer on the direct path (the ordered one-hop pull) is "
-            "not ported yet; see ROADMAP.md, queue A, item A7"
-        )
+    leaf; a key never streamed is served by the barrier path. With
+    ``direct=True`` they order the one-hop pull instead (on the host rung;
+    the device rung pulls every key at once and ignores them, as the
+    reference does)."""
     if not direct and (stream or key_order is not None or on_layer is not None):
         from torchstore_tpu_torch import stream_sync
 
@@ -1342,11 +1380,16 @@ async def get_state_dict(
             on_layer=on_layer, strict=strict, delta_state=delta_state,
         )
     if direct:
-        result = await _get_state_dict_direct(client, key, user_state_dict)
-        if strict:
-            _, all_handles = _direct_cache(client).dests[key]
+        result = await _get_state_dict_direct(client, key, user_state_dict,
+                                              key_order=key_order, on_layer=on_layer)
+        entry = _direct_cache(client).dests.get(key)
+        if strict and entry is not None:
+            _, all_handles, device_infos = entry
+            published = set(all_handles)
+            for info in device_infos or ():
+                published |= set(info["keys"])
             user_flat, _ = flatten_state_dict(user_state_dict)
-            missing = set(all_handles) - set(user_flat)
+            missing = published - set(user_flat)
             if missing:
                 raise ValueError(
                     f"state dict structure mismatch for {key!r}: missing in user "
