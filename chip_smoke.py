@@ -152,7 +152,40 @@ Phases, each printing one JSON line:
                   launches per publish (the planner's chunks), card memory
                   a pull leaves (0), peak card memory per process; every
                   target bit-equal; no process or segment left;
-15. kernels     - one line listing every ported kernel.
+15. runtime     - the runtime's foundations, in four legs: (a) start-up:
+                  initialize + shutdown twice under the forkserver (the
+                  default) and twice under TORCHSTORE_TORCH_MP_CONTEXT=spawn,
+                  seconds each, and a forked actor child that allocates on
+                  the card and casts with K1, bit-equal to this process's
+                  cast; (b) a colocated store (initialize(colocated=True),
+                  with an auth secret) at Llama-3-8B width: put, get, reput,
+                  reget, reput2, reget2 of the 291 fp32 tensors on the card
+                  into bf16 targets on the card, GB/s per step; gates: every
+                  target bit-equal, K1 launches per casting step = planned
+                  chunks, no fallback, no connection of the client's pool to
+                  its own volume, a CPU tensor, a dict and a CUDA tensor put
+                  and then changed read back unchanged, a raw connection
+                  without the MAC closed by the volume's and the controller's
+                  servers, no segment or process left; then 2000 put+get of a
+                  4 KiB CPU tensor, p50 / p99 us per op, colocated and against
+                  a spawned volume; (c) faults on a spawned volume (2 of 32
+                  layers: the demoted put moves the bytes in RPC frames): a
+                  put whose first landing raises lands on the rpc rung, a get
+                  whose first fetch raises is retried once, a notify delayed
+                  200 ms; gates: bit-equal, put_retries{transport=rpc},
+                  fetch_retries and failovers{op=put}, {op=get} 1 each, the
+                  delayed put >= 0.2 s, nothing armed after; (d) this script
+                  started again as a user's process with
+                  TORCHSTORE_TORCH_TRACE set: a spawned volume's put / get /
+                  reput / reget / reput2 / reget2 at main's depth, then the
+                  device rung in process (register, pull, republish,
+                  repull); after shutdown the merged trace: each put_batch's
+                  trace id in the controller's and the volume's rpc spans,
+                  each get_batch's in the volume's, every rpc span of those
+                  traces parented by a client span; printed: span counts and
+                  total ms per warm step, and the repull's open / land /
+                  generation split;
+16. kernels     - one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints no
@@ -180,7 +213,8 @@ except ImportError:  # alone in a directory: main() finds no package and fails
 
 ALL_PHASES = (
     "device", "build", "parity", "timing", "main", "reshard", "quant", "channel",
-    "flash_parity", "flash_timing", "ring", "model", "rl", "direct_device", "kernels",
+    "flash_parity", "flash_timing", "ring", "model", "rl", "direct_device", "runtime",
+    "kernels",
 )
 
 # Llama-3-8B geometry (the store's north-star state dict: 291 tensors).
@@ -557,7 +591,10 @@ def _publish_row(torch, staging, gen, dev) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES))
+    parser.add_argument("--trace-leg", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.trace_leg is not None:  # the runtime phase's traced process
+        return trace_leg_main(args.trace_leg)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
@@ -602,6 +639,8 @@ def main() -> int:
             res = phase_rl(torch)
         elif phase == "direct_device":
             res = phase_direct_device(torch, staging)
+        elif phase == "runtime":
+            res = phase_runtime(torch, staging)
         else:
             res = phase_kernels(results)
         res["seconds"] = time.perf_counter() - t0
@@ -2933,6 +2972,572 @@ def phase_rl(torch) -> dict:
 
 
 
+# --------------------------------------------------------------------------
+# runtime: start-up, colocated volumes, auth, faults and the trace
+# --------------------------------------------------------------------------
+
+RUNTIME_SECRET = "chip-smoke-runtime-secret"
+FAULT_LAYERS = 2  # the fault leg's depth: its demoted put moves the bytes in RPC frames
+SMALL_OPS = 2000  # put+get pairs of the small-op leg
+SMALL_BYTES = 4096
+# The cast a forked actor child makes on the card: one per kind of the
+# attention and MLP projections and a norm.
+CHILD_CAST_SHAPES = (CAST_SHAPES["q/o"], CAST_SHAPES["k/v"], CAST_SHAPES["gate/up"],
+                     CAST_SHAPES["norm"])
+
+
+class RuntimeCastActor(_Actor):
+    """Leg (a)'s forked child: it allocates on the card and casts with K1."""
+
+    @_endpoint
+    async def cast(self, seed: int, shapes: list, device: str) -> dict:
+        import torch
+
+        from torchstore_tpu_torch.ops import staging
+
+        state = {"cuda_initialized_at_start": torch.cuda.is_initialized(),
+                 "start_method": multiprocessing.get_start_method(allow_none=True)}
+        dev = torch.device(device)
+        xs = _seeded(torch, seed, shapes, dev)
+        staging.cast_kernel.launches = 0
+        outs = staging.cast_group(xs, torch.bfloat16)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return {**state, "launches": staging.cast_kernel.launches,
+                "outs": [o.view(torch.int16).cpu() for o in outs]}
+
+
+def _seeded(torch, seed: int, shapes, dev) -> list:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn(tuple(s), generator=gen, device=dev) for s in shapes]
+
+
+def _own_segments(pids) -> list:
+    """The tst_shm_ segments whose creator is one of ``pids``."""
+    from torchstore_tpu_torch.transport.shared_memory import PREFIX, SHM_DIR
+
+    pids = set(pids)
+    return [n for n in os.listdir(SHM_DIR)
+            if n.startswith(PREFIX) and int(n[len(PREFIX):].split("_")[0]) in pids]
+
+
+def _quantiles_us(samples: list) -> dict:
+    ordered = sorted(samples)
+    pick = lambda q: ordered[min(len(ordered) - 1, int(q * len(ordered)))] * 1e6  # noqa: E731
+    return {"p50_us": pick(0.50), "p99_us": pick(0.99), "n": len(ordered)}
+
+
+async def _small_ops(torch, tst, store_name: str, n: int = SMALL_OPS) -> dict:
+    """``n`` put+get pairs of one 4 KiB CPU tensor: per-op latency."""
+    x = torch.arange(SMALL_BYTES // 4, dtype=torch.float32)
+    puts, gets = [], []
+    for i in range(n):
+        x[0] = float(i)
+        t0 = time.perf_counter()
+        await tst.put("small", x, store_name=store_name)
+        t1 = time.perf_counter()
+        got = await tst.get("small", store_name=store_name)
+        gets.append(time.perf_counter() - t1)
+        puts.append(t1 - t0)
+        if got[0] != float(i):
+            return {"ok": False, "wrong_value_at": i}
+    return {"ok": True, "put": _quantiles_us(puts), "get": _quantiles_us(gets)}
+
+
+async def _rogue_closed(host: str, port: int) -> bool:
+    """A raw connection that skips the MAC (it sends a would-be frame where
+    the MAC belongs) is closed before the server parses anything."""
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        hello = await asyncio.wait_for(reader.readexactly(20), 10)
+        writer.write(b"\x00" * 64)
+        await writer.drain()
+        rest = await asyncio.wait_for(reader.read(16), 10)
+        return hello[:4] == b"TSAU" and rest == b""
+    except asyncio.TimeoutError:  # no challenge, or the frame was served
+        return False
+    except (ConnectionError, OSError):  # reset instead of closed: refused as well
+        return True
+    finally:
+        writer.close()
+
+
+async def _startup_leg(torch, dev) -> dict:
+    """(a) initialize + shutdown twice under the forkserver and twice under
+    spawn, then a forked actor child casting on the card with K1."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.config import ENV_MP_CONTEXT
+    from torchstore_tpu_torch.ops import staging
+    from torchstore_tpu_torch.runtime import spawn_actors
+
+    rows: dict = {}
+    for method in ("forkserver", "spawn"):
+        os.environ[ENV_MP_CONTEXT] = method
+        for i in range(2):
+            t0 = time.perf_counter()
+            await tst.initialize(store_name="startup")
+            t1 = time.perf_counter()
+            await tst.shutdown("startup")
+            rows[f"{method}_{i}"] = {"initialize_s": t1 - t0,
+                                     "shutdown_s": time.perf_counter() - t1}
+    os.environ.pop(ENV_MP_CONTEXT)
+    shapes = [list(s) for s in CHILD_CAST_SHAPES]
+    t0 = time.perf_counter()
+    mesh = await spawn_actors(1, RuntimeCastActor, "tst_cast_child")
+    rows["child_spawn_s"] = time.perf_counter() - t0
+    try:
+        child = await mesh.refs[0].cast.call_one(9753, shapes, str(dev))
+    finally:
+        await mesh.stop()
+    mine = staging.cast_group(_seeded(torch, 9753, shapes, dev), torch.bfloat16)
+    equal = all(torch.equal(c, m.view(torch.int16).cpu()) for c, m in zip(child["outs"], mine))
+    planned = len(staging.plan_chunks(_seeded(torch, 9753, shapes, dev), torch.bfloat16))
+    cuda = dev.type == "cuda"
+    out = {"startup": rows,
+           "child": {k: v for k, v in child.items() if k != "outs"} | {
+               "bit_equal": equal, "planned_chunks": planned, "shapes": shapes}}
+    out["ok"] = (equal and child["start_method"] == "forkserver"
+                 and not child["cuda_initialized_at_start"]
+                 and (not cuda or child["launches"] == planned))
+    return out
+
+
+async def _colocated_leg(torch, staging, layers: int, dev, geometry=None) -> dict:
+    """(b) the Llama-3-8B round trip on a colocated, authenticated store:
+    put, get and the steady state, value semantics, no connection to the
+    store's own volume, rogue connections refused; then the small-op leg,
+    colocated and against a spawned volume."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.runtime import actors
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    cuda = dev.type == "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers,
+                           **(geometry or {}))
+    wire = 2 * sum(t.numel() for t in _leaves(src))
+    targets = _bf16_zeros_like(torch, src, dev)
+    chunks = len(staging.plan_chunks(list(_leaves(src)), bf16))
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def check(label: str) -> dict:
+        bad = sum(1 for t, s in _pairs(targets, src) if not torch.equal(t, s.to(bf16)))
+        return {"check": label, "bit_equal": not bad, "mismatched_tensors": bad}
+
+    config = tst.StoreConfig(auth_secret=RUNTIME_SECRET, ici_enabled=False)
+    staging.cast_kernel.launches = 0  # count this leg's launches only
+    staging.cast_kernel.fallbacks = 0
+    t0 = time.perf_counter()
+    await tst.initialize(store_name="colo", colocated=True, config=config)
+    out: dict = {"layers": layers, "wire_bytes": wire, "chunks": chunks,
+                 "initialize_s": time.perf_counter() - t0}
+    pids = [p.pid for p in multiprocessing.active_children()] + [os.getpid()]
+    client = tst.client("colo")
+    timings, launches, fallbacks, checks, pool = {}, {}, {}, [], {}
+
+    async def step(name: str, coro, cast: bool) -> None:
+        launched, fell_back = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+        before = await _pool_counts(client)
+        t0 = time.perf_counter()
+        await coro
+        sync()
+        timings[name] = time.perf_counter() - t0
+        after = await _pool_counts(client)
+        pool[name] = {k: after[k] - before[k] for k in after if k != "warming"}
+        if cast:
+            launches[name] = staging.cast_kernel.launches - launched
+            fallbacks[name] = staging.cast_kernel.fallbacks - fell_back
+
+    try:
+        await step("put", tst.put_state_dict("policy", src, transfer_dtype=bf16,
+                                             store_name="colo"), True)
+        await step("get", tst.get_state_dict("policy", targets, store_name="colo"), False)
+        checks.append(check("get"))
+        waited = {}
+        for n, (put, get) in enumerate((("reput", "reget"), ("reput2", "reget2"))):
+            for t in _leaves(src):
+                t.add_(1.0)  # the training step, in place
+            waited[put] = {"warm_s": await _wait_warm(client),
+                           "pinned_s": await client.wait_pinned()}
+            for t in _leaves(targets):
+                t.zero_()
+            sync()
+            await step(put, tst.put_state_dict("policy", src, transfer_dtype=bf16,
+                                               store_name="colo"), True)
+            await step(get, tst.get_state_dict("policy", targets, store_name="colo"), False)
+            checks.append(check(get))
+        (volume,) = client._volume_refs.values()
+        own_conns = [k for k in actors._conn_pools if k[1:] == (volume.actor.host,
+                                                                 volume.actor.port)]
+        # Value semantics: a CPU tensor and a dict, changed after their put.
+        x = torch.arange(1 << 16, dtype=torch.float32)
+        obj = {"step": 7, "lrs": [0.1, 0.2]}
+        await tst.put("x_cpu", x, store_name="colo")
+        await tst.put("obj", obj, store_name="colo")
+        x.mul_(-1.0)
+        obj["lrs"].append(9.9)
+        values_kept = (
+            torch.equal(await tst.get("x_cpu", store_name="colo"),
+                        torch.arange(1 << 16, dtype=torch.float32))
+            and await tst.get("obj", store_name="colo") == {"step": 7, "lrs": [0.1, 0.2]})
+        if cuda:
+            xc = torch.randn(1 << 20, device=dev, generator=gen)
+            want = xc.clone()
+            await tst.put("x_cuda", xc, store_name="colo")
+            xc.zero_()
+            values_kept = values_kept and torch.equal(
+                (await tst.get("x_cuda", store_name="colo")).to(dev), want)
+        controller = client.controller
+        rogue = {"volume": await _rogue_closed(volume.actor.host, volume.actor.port),
+                 "controller": await _rogue_closed(controller.host, controller.port)}
+        # Small ops on the store that holds the model (its pool and the
+        # client's attachments full), a few hundred: beside the fresh ones.
+        small_loaded = await _small_ops(torch, tst, "colo", n=300)
+    finally:
+        await tst.shutdown("colo")
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children() if p.pid in pids]
+    leaked = _own_segments(pids)
+    # The small ops on fresh stores, colocated and with a spawned volume (the
+    # same secret: auth on in both).
+    small = {}
+    for name, colocated in (("colocated", True), ("spawned", False)):
+        await tst.initialize(store_name="small", colocated=colocated, config=config)
+        small_pids = [p.pid for p in multiprocessing.active_children()] + [os.getpid()]
+        try:
+            small[name] = await _small_ops(torch, tst, "small")
+        finally:
+            await tst.shutdown("small")
+        await asyncio.sleep(0.5)
+        leaked += _own_segments(small_pids)
+    small["colocated_holding_the_model"] = small_loaded
+    out.update({
+        "timings": timings,
+        "gb_per_s": {k: wire / v / 1e9 for k, v in timings.items()},
+        "waited": waited, "pool": pool, "checks": checks, "launches_by_step": launches,
+        "cast_fallbacks": fallbacks, "launches": staging.cast_kernel.launches,
+        "own_volume_connections": len(own_conns), "values_kept": values_kept,
+        "rogue_closed": rogue,
+        "small_ops": small,
+        "processes_left": alive, "segments_left": leaked[:5],
+    })
+    out["ok"] = (all(c["bit_equal"] for c in checks)
+                 and (not cuda or all(n == chunks for n in launches.values()))
+                 and not any(fallbacks.values()) and not own_conns and values_kept
+                 and all(rogue.values()) and all(r["ok"] for r in small.values())
+                 and not alive and not leaked)
+    return out
+
+
+async def _fault_leg(torch, staging, layers: int, dev, geometry=None) -> dict:
+    """(c) a spawned volume under injected faults: a put that lands on the
+    demoted rung, a get retried once, a delayed notify; counters under the
+    reference's names, nothing armed after."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch import faults
+    from torchstore_tpu_torch.observability import metrics
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    cuda = dev.type == "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8642)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers,
+                           **(geometry or {}))
+    targets = _bf16_zeros_like(torch, src, dev)
+    wire = 2 * sum(t.numel() for t in _leaves(src))
+    chunks = len(staging.plan_chunks(list(_leaves(src)), bf16))
+
+    def counters() -> dict:
+        c = metrics.counter
+        return {"put_retries_rpc": c("ts_client_put_retries_total").value(transport="rpc"),
+                "put_retries": c("ts_client_put_retries_total").total(),
+                "fetch_retries": c("ts_client_fetch_retries_total").total(),
+                "failovers_put": c("ts_client_failovers_total").value(op="put"),
+                "failovers_get": c("ts_client_failovers_total").value(op="get"),
+                "k1": staging.cast_kernel.launches,
+                "fallbacks": staging.cast_kernel.fallbacks}
+
+    def check(label: str) -> dict:
+        bad = sum(1 for t, s in _pairs(targets, src) if not torch.equal(t, s.to(bf16)))
+        return {"check": label, "bit_equal": not bad, "mismatched_tensors": bad}
+
+    async def timed(coro) -> float:
+        t0 = time.perf_counter()
+        await coro
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    staging.cast_kernel.launches = 0
+    staging.cast_kernel.fallbacks = 0
+    await tst.initialize(store_name="faults")
+    pids = [p.pid for p in multiprocessing.active_children()] + [os.getpid()]
+    client = tst.client("faults")
+    rows, checks = {}, []
+    try:
+        before = counters()
+        await tst.inject_fault("volume.put", "raise", count=1, store_name="faults")
+        rows["demoted_put_s"] = await timed(tst.put_state_dict(
+            "policy", src, transfer_dtype=bf16, store_name="faults"))
+        put_moved = _delta(counters(), before)
+        before = counters()
+        await tst.inject_fault("volume.get", "raise", count=1, store_name="faults")
+        rows["retried_get_s"] = await timed(tst.get_state_dict("policy", targets,
+                                                               store_name="faults"))
+        get_moved = _delta(counters(), before)
+        checks.append(check("retried get"))
+        for t in _leaves(src):
+            t.add_(1.0)
+        await tst.inject_fault("controller.notify", "delay", delay_ms=200, scope="controller",
+                               store_name="faults")
+        rows["delayed_put_s"] = await timed(tst.put_state_dict(
+            "policy", src, transfer_dtype=bf16, store_name="faults"))
+        cleared = await tst.clear_faults(store_name="faults")
+        rows["get_after_clear_s"] = await timed(tst.get_state_dict("policy", targets,
+                                                                   store_name="faults"))
+        checks.append(check("get after the delayed put"))
+        (volume,) = client._volume_refs.values()
+        armed = {"client": faults.armed(),
+                 "controller": await client.controller.list_faults.call_one(),
+                 "volume": await volume.actor.list_faults.call_one()}
+    finally:
+        await tst.shutdown("faults")
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children() if p.pid in pids]
+    leaked = _own_segments(pids)
+    out = {"layers": layers, "wire_bytes": wire, "chunks": chunks, "seconds": rows,
+           "gb_per_s": {"demoted_put": wire / rows["demoted_put_s"] / 1e9},
+           "put_counters": put_moved, "get_counters": get_moved, "checks": checks,
+           "cleared": cleared, "armed_after": armed, "launches": staging.cast_kernel.launches,
+           "processes_left": alive, "segments_left": leaked[:5]}
+    out["ok"] = (all(c["bit_equal"] for c in checks)
+                 and put_moved["put_retries_rpc"] == 1 and put_moved["put_retries"] == 1
+                 and put_moved["failovers_put"] == 1
+                 and get_moved["fetch_retries"] == 1 and get_moved["failovers_get"] == 1
+                 and (not cuda or put_moved["k1"] == chunks)
+                 and put_moved["fallbacks"] == 0
+                 and rows["delayed_put_s"] >= 0.2
+                 and not any(armed.values()) and not alive and not leaked)
+    return out
+
+
+TRACE_WARM = ("reput", "reget", "reput2", "reget2", "republish", "repull")
+
+
+async def _trace_leg(torch, staging, layers: int, dev, geometry=None) -> dict:
+    """(d), in a process started with TORCHSTORE_TORCH_TRACE set: a spawned
+    volume's put / get / reput / reget / reput2 / reget2, then the device
+    rung in process (register, pull, republish, repull); after shutdown
+    the merged trace, its cross-process links, and the spans per warm
+    step."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.observability import tracing
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    cuda = dev.type == "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers,
+                           **(geometry or {}))
+    targets = _bf16_zeros_like(torch, src, dev)
+    wire = 2 * sum(t.numel() for t in _leaves(src))
+    chunks = len(staging.plan_chunks(list(_leaves(src)), bf16))
+    windows, launches, checks = {}, {}, []
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def check(label: str) -> dict:
+        bad = sum(1 for t, s in _pairs(targets, src) if not torch.equal(t, s.to(bf16)))
+        return {"check": label, "bit_equal": not bad, "mismatched_tensors": bad}
+
+    async def step(name: str, coro) -> None:
+        launched = staging.cast_kernel.launches
+        t0 = time.perf_counter()
+        await coro
+        sync()
+        windows[name] = (t0, time.perf_counter())
+        launches[name] = staging.cast_kernel.launches - launched
+
+    def clear_targets() -> None:
+        for t in _leaves(targets):
+            t.zero_()
+        sync()
+
+    staging.cast_kernel.launches = 0
+    staging.cast_kernel.fallbacks = 0
+    await tst.initialize(store_name="traced")
+    client = tst.client("traced")
+    try:
+        await step("put", tst.put_state_dict("policy", src, transfer_dtype=bf16,
+                                             store_name="traced"))
+        await step("get", tst.get_state_dict("policy", targets, store_name="traced"))
+        checks.append(check("get"))
+        for put, get in (("reput", "reget"), ("reput2", "reget2")):
+            for t in _leaves(src):
+                t.add_(1.0)
+            await _wait_warm(client)
+            await client.wait_pinned()
+            clear_targets()
+            await step(put, tst.put_state_dict("policy", src, transfer_dtype=bf16,
+                                               store_name="traced"))
+            await step(get, tst.get_state_dict("policy", targets, store_name="traced"))
+            checks.append(check(get))
+        clear_targets()
+        await step("register", tst.put_state_dict(DD_KEY, src, transfer_dtype=bf16,
+                                                  direct=True, store_name="traced"))
+        await step("pull", tst.get_state_dict(DD_KEY, targets, direct=True,
+                                              store_name="traced"))
+        checks.append(check("pull"))
+        for t in _leaves(src):
+            t.add_(1.0)
+        clear_targets()
+        await step("republish", tst.put_state_dict(DD_KEY, src, transfer_dtype=bf16,
+                                                   direct=True, store_name="traced"))
+        await step("repull", tst.get_state_dict(DD_KEY, targets, direct=True,
+                                                store_name="traced"))
+        checks.append(check("repull"))
+        rung = tst.direct_sync_stats(DD_KEY, store_name="traced")["rung"]
+    finally:
+        await tst.shutdown("traced")
+    merged = tracing.collect_trace()
+    with open(merged["path"]) as f:
+        events = json.load(f)
+    me = os.getpid()
+    spans = [e for e in events if e.get("ph") == "X"]
+    labels = {e["pid"]: e["args"]["name"] for e in events if e.get("ph") == "M"}
+    client_ids = {e["args"]["span_id"] for e in spans
+                  if e["pid"] == me and "span_id" in e.get("args", {})}
+    rpcs = [e for e in spans if e["pid"] != me and e["name"].startswith("rpc/")]
+    by_role: dict = {"controller": set(), "volume": set()}
+    for e in rpcs:
+        role = "controller" if "controller" in labels.get(e["pid"], "") else "volume"
+        by_role[role].add(e["args"].get("trace_id"))
+    ops = [e for e in spans if e["pid"] == me and e["name"] in ("put_batch", "get_batch")]
+    unlinked = {
+        "put_batch": sum(1 for e in ops if e["name"] == "put_batch"
+                         and not all(e["args"]["trace_id"] in by_role[r] for r in by_role)),
+        "get_batch": sum(1 for e in ops if e["name"] == "get_batch"
+                         and e["args"]["trace_id"] not in by_role["volume"]),
+    }
+    ours = {e["args"]["trace_id"] for e in ops}
+    orphans = sum(1 for e in rpcs if e["args"].get("trace_id") in ours
+                  and e["args"].get("parent_id") not in client_ids)
+    per_step: dict = {}
+    for name in TRACE_WARM:
+        lo, hi = windows[name]
+        rows: dict = {}
+        for e in spans:
+            if lo * 1e6 <= e["ts"] <= hi * 1e6:
+                row = rows.setdefault(e["name"], [0, 0.0])
+                row[0] += 1
+                row[1] += e["dur"] / 1e3
+        per_step[name] = {k: {"count": n, "total_ms": ms} for k, (n, ms) in sorted(rows.items())}
+    repull = per_step["repull"]
+    out = {
+        "layers": layers, "wire_bytes": wire, "chunks": chunks, "rung": rung,
+        "seconds": {k: hi - lo for k, (lo, hi) in windows.items()},
+        "launches_by_step": launches, "checks": checks,
+        "trace": {"files": len(merged["files"]), "events": merged["events"],
+                  "trace_ids": len(merged["trace_ids"]), "client_ops": len(ops),
+                  "controller_rpc_traces": len(by_role["controller"]),
+                  "volume_rpc_traces": len(by_role["volume"]),
+                  "unlinked": unlinked, "rpc_spans_without_client_parent": orphans},
+        "warm_steps": per_step,
+        "repull_split_ms": {k.split("/", 1)[1]: v["total_ms"] for k, v in repull.items()
+                            if k.startswith("direct_pull_device/")},
+    }
+    casting = ("put", "reput", "reput2", "register", "republish")
+    out["ok"] = (all(c["bit_equal"] for c in checks) and bool(ops)
+                 and not any(unlinked.values())
+                 and orphans == 0 and merged["events"] > 0
+                 and (not cuda or (rung == "device"
+                                   and all(launches[s] == chunks for s in casting)
+                                   and set(out["repull_split_ms"]) == {"open", "land",
+                                                                       "generation"})))
+    return out
+
+
+def _run_trace_child(spec: dict) -> dict:
+    """Start this script as a traced user process (``--trace-leg``) and
+    read its result; the trace files live under ``spec["dir"]``."""
+    env = dict(os.environ)
+    env["TORCHSTORE_TORCH_TRACE"] = os.path.join(spec["dir"], "trace.json")
+    env.pop("TORCHSTORE_TORCH_TRACE_RUN", None)
+    out_path = os.path.join(spec["dir"], "result.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace-leg",
+                           json.dumps({**spec, "out": out_path})],
+                          env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        return {"ok": False, "rc": proc.returncode, "stderr": proc.stderr[-3000:]}
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def trace_leg_main(spec_json: str) -> int:
+    """The traced process of the runtime phase's leg (d)."""
+    import torch
+
+    from torchstore_tpu_torch.ops import staging
+
+    spec = json.loads(spec_json)
+    dev = torch.device(spec["device"])
+    res = asyncio.run(_trace_leg(torch, staging, spec["layers"], dev, spec.get("geometry")))
+    with open(spec["out"], "w") as f:
+        json.dump(res, f)
+    return 0 if res["ok"] else 1
+
+
+async def _runtime_path(torch, staging, layers: int, trace_layers: int, dev,
+                        geometry=None, trace_dir=None) -> dict:
+    """The four legs of the runtime phase; see the module docstring."""
+    from torchstore_tpu_torch import config as config_mod
+    from torchstore_tpu_torch.config import ENV_AUTH_SECRET
+
+    legs: dict = {}
+    legs["a_startup"] = await _startup_leg(torch, dev)
+    try:
+        legs["b_colocated"] = await _colocated_leg(torch, staging, layers, dev, geometry)
+    finally:  # auth is per process: the phases after run without it
+        os.environ.pop(ENV_AUTH_SECRET, None)
+        config_mod._default_config = None
+    legs["c_faults"] = await _fault_leg(torch, staging, min(FAULT_LAYERS, layers), dev, geometry)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the traced process needs the card's memory
+    legs["d_trace"] = _run_trace_child({"device": str(dev), "layers": trace_layers,
+                                        "geometry": geometry, "dir": trace_dir})
+    launches = sum(legs[k]["launches"] for k in ("b_colocated", "c_faults"))
+    launches += sum(legs["d_trace"].get("launches_by_step", {}).values())
+    return {"legs": legs, "launches": launches, "ok": all(leg.get("ok") for leg in legs.values())}
+
+
+def phase_runtime(torch, staging) -> dict:
+    import tempfile
+
+    dev = torch.device("cuda", 0)
+    layers, sizing = plan_layers()
+    trace_layers = min(layers, plan_direct_device_layers(torch, dev)[0])
+    if layers < LAYERS or trace_layers < LAYERS:
+        emit({"reduced": {"runtime_layers": layers, "trace_layers": trace_layers}, **sizing})
+    emit({"reduced": {"fault_layers": FAULT_LAYERS, "of": LAYERS,
+                      "why": "the demoted put moves the bytes in RPC frames"}})
+    with tempfile.TemporaryDirectory() as tdir:
+        res = asyncio.run(_runtime_path(torch, staging, layers, trace_layers, dev,
+                                        trace_dir=tdir))
+    res["phase"] = "runtime"
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return res
+
+
 def phase_kernels(results: dict) -> dict:
     """One entry per ported kernel, and per (mode, variant) of the flash
     kernels. The cast's times are the timing phase's measured publish row
@@ -2960,6 +3565,8 @@ def phase_kernels(results: dict) -> dict:
         by_path["rl"] = sum(s["cast_launches"] for s in results["rl"]["steps"])
     if "direct_device" in results:
         by_path["direct_device"] = results["direct_device"]["launches"]
+    if "runtime" in results:
+        by_path["runtime"] = results["runtime"]["launches"]
     entries = [{
         "name": "cast",
         "route": "cuda",
@@ -2985,7 +3592,9 @@ def phase_kernels(results: dict) -> dict:
                + ("; on direct_device: the device rung's register and refreshes, and leg (e)'s "
                   "host-rung register, per publish "
                   f"{results['direct_device']['launches_per_publish']}"
-                  if "direct_device" in results else ""),
+                  if "direct_device" in results else "")
+               + ("; on runtime: the colocated leg's 3 puts, the fault leg's 2 and the traced "
+                  "process's 3 puts and 2 device-rung publishes" if "runtime" in results else ""),
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"

@@ -704,3 +704,35 @@ def test_device_rung_leaves_on_two_cards(cuda):
             await source.close()
 
     asyncio.run(run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", [None, "rpc"], ids=["shm", "rpc"])
+def test_colocated_cuda_value_semantics(cuda, transport):
+    """A colocated volume is called without serialization: a CUDA tensor put
+    and then changed in place (an optimizer step) reads back as it was put,
+    into a CUDA target and as a fresh tensor, on either rung."""
+    import asyncio
+    import uuid
+
+    import torchstore_tpu_torch as ts
+
+    async def go():
+        name = f"tst_colo_cuda_{uuid.uuid4().hex[:6]}"
+        await ts.initialize(store_name=name, colocated=True,
+                            strategy=ts.SingletonStrategy(default_transport_type=transport))
+        try:
+            x = torch.randn(1 << 18, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+            want = x.clone()
+            await ts.put("w", x, store_name=name)
+            x.mul_(-3.0)
+            dest = torch.zeros_like(x)
+            await ts.get("w", dest, store_name=name)
+            assert torch.equal(dest, want)
+            dest.zero_()
+            fresh = await ts.get("w", store_name=name)
+            assert torch.equal(fresh.to(cuda), want)
+        finally:
+            await ts.shutdown(name)
+
+    asyncio.run(go())

@@ -59,6 +59,9 @@ def test_import_leaves_no_jax_or_reference_module():
         "import torchstore_tpu_torch.weight_channel, torchstore_tpu_torch.stream_sync\n"
         "import torchstore_tpu_torch.examples.torchstore_rl\n"
         "import torchstore_tpu_torch.transport.device_transfer, torchstore_tpu_torch.provision.pool\n"
+        "import torchstore_tpu_torch.faults, torchstore_tpu_torch.observability\n"
+        "import torchstore_tpu_torch.observability.recorder, torchstore_tpu_torch.runtime.auth\n"
+        "import torchstore_tpu_torch.storage_utils.trie\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN_ROOTS)!r})\n"
         "print(json.dumps(bad))\n"

@@ -24,11 +24,19 @@ versioned channel (publish, block for the next version, GC old ones), and
 ``state_dict_stream`` / ``get_state_dict_streamed`` sync layer by layer
 under per-key watermarks, so a generator starts on the first layers while
 the trainer still publishes the last.
+
+``initialize(colocated=True)`` hosts the volume in the caller's process;
+``StoreConfig(auth_secret=...)`` authenticates every connection;
+``inject_fault`` / ``clear_faults`` drive the fault points,
+``metrics_snapshot`` and ``collect_trace`` read the metrics and the trace
+(``TORCHSTORE_TORCH_TRACE``, ``TORCHSTORE_TORCH_METRICS_DUMP``).
 """
 
 from torchstore_tpu_torch.api import (
     DEFAULT_STORE,
+    clear_faults,
     client,
+    collect_trace,
     delete,
     delete_prefix,
     direct_staging_buffers,
@@ -39,7 +47,9 @@ from torchstore_tpu_torch.api import (
     get_state_dict,
     get_state_dict_streamed,
     initialize,
+    inject_fault,
     keys,
+    metrics_snapshot,
     prewarm,
     put,
     put_batch,
@@ -49,6 +59,7 @@ from torchstore_tpu_torch.api import (
     wait_for,
 )
 from torchstore_tpu_torch.client import Shard
+from torchstore_tpu_torch.config import RetryPolicy
 from torchstore_tpu_torch.config import StoreConfig
 from torchstore_tpu_torch.state_dict_utils import (
     DeltaDecoder,
@@ -72,13 +83,16 @@ __all__ = [
     "LocalRankStrategy",
     "MixedGenerationError",
     "NoMatchingPush",
+    "RetryPolicy",
     "Shard",
     "SingletonStrategy",
     "StoreConfig",
     "TensorSlice",
     "WeightPublisher",
     "WeightSubscriber",
+    "clear_faults",
     "client",
+    "collect_trace",
     "delete",
     "delete_prefix",
     "direct_staging_buffers",
@@ -90,7 +104,9 @@ __all__ = [
     "get_state_dict",
     "get_state_dict_streamed",
     "initialize",
+    "inject_fault",
     "keys",
+    "metrics_snapshot",
     "prewarm",
     "put",
     "put_batch",
@@ -102,3 +118,7 @@ __all__ = [
     "state_dict_stream",
     "wait_for",
 ]
+
+from torchstore_tpu_torch.observability import maybe_start_dumper  # noqa: E402
+
+maybe_start_dumper()

@@ -7,6 +7,15 @@ store's ``LocalClient``. ``initialize`` publishes the controller's handle in
 ``TORCHSTORE_TORCH_STORE_<name>``, which ``runtime.spawn_actors`` hands to
 its children, so an actor process reaches the store by name (a learner
 publishing, a generator acquiring).
+
+``initialize(colocated=True)`` hosts the one volume in this process: its
+actor server still answers other processes, and this process's calls on it
+are direct (the transports copy what they store and serve, as the frames
+would). ``config.auth_secret`` turns on the HMAC challenge on every
+listener; it is one per process. ``inject_fault`` / ``clear_faults`` arm
+fault points in running processes, ``metrics_snapshot`` returns this
+process's registry and ``collect_trace`` merges the per-process trace
+files.
 """
 
 from __future__ import annotations
@@ -20,11 +29,14 @@ from typing import Any, Optional
 
 import torch
 
+from torchstore_tpu_torch import config as config_mod
 from torchstore_tpu_torch import state_dict_utils
 from torchstore_tpu_torch.client import LocalClient
-from torchstore_tpu_torch.config import ENV_PREFIX, StoreConfig, default_config
+from torchstore_tpu_torch.config import ENV_AUTH_SECRET, ENV_PREFIX, StoreConfig, default_config
 from torchstore_tpu_torch.controller import Controller
 from torchstore_tpu_torch.logging import get_logger, set_log_level
+from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability import tracing
 from torchstore_tpu_torch.runtime import (
     ActorMesh,
     ActorRef,
@@ -32,7 +44,13 @@ from torchstore_tpu_torch.runtime import (
     spawn_actors,
     stop_singleton,
 )
-from torchstore_tpu_torch.runtime.actors import close_all_connections
+from torchstore_tpu_torch.runtime.actors import (
+    BIND_HOST,
+    ActorServer,
+    close_all_connections,
+    register_inproc,
+    unregister_inproc,
+)
 from torchstore_tpu_torch.storage_volume import StorageVolume
 from torchstore_tpu_torch.strategy import LocalRankStrategy, SingletonStrategy, StoreStrategy
 
@@ -47,6 +65,8 @@ class _StoreHandle:
     controller: ActorRef
     volume_mesh: Optional[ActorMesh]  # None in a process that did not initialize
     client: LocalClient
+    # A colocated volume: (its actor server, its ref, the volume).
+    inproc_volume: Optional[tuple] = None
 
 
 _stores: dict[str, _StoreHandle] = {}
@@ -73,21 +93,44 @@ async def initialize(
     strategy: Optional[StoreStrategy] = None,
     store_name: str = DEFAULT_STORE,
     config: Optional[StoreConfig] = None,
+    colocated: bool = False,
 ) -> ActorRef:
     """Boot a store on this host: spawn the volume processes and the
-    controller process, and wire them."""
+    controller process, and wire them. ``colocated=True`` hosts the one
+    volume in this process instead."""
     if store_name in _stores:
         raise RuntimeError(f"store {store_name!r} already initialized")
     config = config or default_config()
+    if colocated and num_storage_volumes != 1:
+        raise ValueError("colocated=True hosts exactly one volume")
     set_log_level(config.log_level)
     if strategy is None:
         strategy = SingletonStrategy() if num_storage_volumes == 1 else LocalRankStrategy()
-    # Volumes and controller start together: each is a fresh interpreter.
+    if config.auth_secret:
+        # Auth is per process: the connection pool and every listener of
+        # this process read one secret, so a second store with another one
+        # would break the first's connections. Exported, the secret reaches
+        # the volume and controller processes with the other settings.
+        existing = os.environ.get(ENV_AUTH_SECRET)
+        if existing and existing != config.auth_secret:
+            raise ValueError(
+                f"a different {ENV_AUTH_SECRET} is already active in this process; auth "
+                "secrets are per-process, not per-store"
+            )
+        if existing != config.auth_secret:
+            os.environ[ENV_AUTH_SECRET] = config.auth_secret
+            config_mod._default_config = None
+    # Volumes and controller start together.
     volumes, controller = await asyncio.gather(
-        spawn_actors(num_storage_volumes, StorageVolume, f"tst_{store_name}_volume", strategy),
+        _host_colocated_volume(store_name, strategy) if colocated else spawn_actors(
+            num_storage_volumes, StorageVolume, f"tst_{store_name}_volume", strategy
+        ),
         get_or_spawn_singleton(_controller_name(store_name), Controller),
         return_exceptions=True,
     )
+    inproc_volume = None
+    if colocated and not isinstance(volumes, BaseException):
+        volumes, inproc_volume = volumes
     try:
         for res in (volumes, controller):
             if isinstance(res, BaseException):
@@ -95,15 +138,46 @@ async def initialize(
         controller.rpc_timeout = config.rpc_timeout
         await controller.init.call_one(strategy, volumes.refs)
     except BaseException:
-        if isinstance(volumes, ActorMesh):
+        if inproc_volume is not None:
+            await _stop_colocated_volume(inproc_volume)
+        elif isinstance(volumes, ActorMesh):
             await volumes.stop()
         await stop_singleton(_controller_name(store_name))
         raise
     _stores[store_name] = _StoreHandle(
-        controller=controller, volume_mesh=volumes, client=LocalClient(controller, config)
+        controller=controller,
+        volume_mesh=None if colocated else volumes,
+        client=LocalClient(controller, config),
+        inproc_volume=inproc_volume,
     )
     _publish_handle(store_name, controller)
     return controller
+
+
+async def _host_colocated_volume(store_name: str, strategy) -> tuple[ActorMesh, tuple]:
+    """One ``StorageVolume`` in this process: a real actor server (other
+    processes reach it over RPC) and an in-process registration (this
+    process's calls are direct)."""
+    volume = StorageVolume(strategy)
+    name = f"tst_{store_name}_volume_0"
+    server = ActorServer()
+    server.register(name, volume)
+    port = await server.start(BIND_HOST)
+    ref = ActorRef(name, BIND_HOST, port)
+    register_inproc(BIND_HOST, port, name, volume)
+    return ActorMesh([ref], []), (server, ref, volume)
+
+
+async def _stop_colocated_volume(inproc_volume: tuple) -> None:
+    """Unregister and close a colocated volume, and release its segments:
+    the orphan reaper keys on dead creators, and this process lives on."""
+    server, ref, volume = inproc_volume
+    unregister_inproc(ref.host, ref.port, ref.name)
+    try:
+        await volume.on_stop()
+    except Exception:  # noqa: BLE001 - close the server regardless
+        logger.exception("colocated volume cleanup failed")
+    await server.close()
 
 
 def client(store_name: str = DEFAULT_STORE) -> LocalClient:
@@ -340,7 +414,7 @@ async def shutdown(store_name: str = DEFAULT_STORE) -> None:
     if not _stores:
         local_pool().clear()  # staging prewarmed for sources never registered
     handle.client.close()
-    if handle.volume_mesh is None:
+    if handle.volume_mesh is None and handle.inproc_volume is None:
         # A process that reached the store by its handle: the store lives on.
         await close_all_connections()
         return
@@ -349,6 +423,90 @@ async def shutdown(store_name: str = DEFAULT_STORE) -> None:
         await handle.controller.teardown.call_one()
     except Exception:  # noqa: BLE001 - stop the processes regardless
         logger.exception("controller teardown failed")
-    await handle.volume_mesh.stop()
+    if handle.volume_mesh is not None:
+        await handle.volume_mesh.stop()
+    if handle.inproc_volume is not None:
+        await _stop_colocated_volume(handle.inproc_volume)
     await stop_singleton(_controller_name(store_name))
     await close_all_connections()
+
+
+# ---- faults, metrics, traces ------------------------------------------------
+
+
+async def inject_fault(
+    name: str,
+    action: str,
+    count: Optional[int] = None,
+    prob: Optional[float] = None,
+    delay_ms: Optional[float] = None,
+    scope: str = "volumes",
+    store_name: str = DEFAULT_STORE,
+) -> dict:
+    """Arm a fault point (``faults.py``) in running processes of the store.
+    ``scope``: ``"client"`` (this process), ``"controller"``, ``"volumes"``
+    (every volume), a volume id, or ``"all"``. Returns ``{target: armed
+    spec}``."""
+    from torchstore_tpu_torch import faults
+
+    c = client(store_name)
+    await c._ensure_setup()
+    kwargs = {"count": count, "prob": prob, "delay_ms": delay_ms}
+    out: dict[str, dict] = {}
+    if scope in ("client", "all"):
+        out["client"] = faults.arm(name, action, **kwargs)
+    if scope in ("controller", "all"):
+        out["controller"] = await c.controller.inject_fault.call_one(name, action, **kwargs)
+    if scope in ("volumes", "all"):
+        targets = list(c._volume_refs)
+    elif scope in c._volume_refs:
+        targets = [scope]
+    elif scope in ("client", "controller"):
+        targets = []
+    else:
+        raise ValueError(
+            f"unknown fault scope {scope!r}; expected 'client', 'controller', 'volumes', "
+            f"'all', or a volume id ({sorted(c._volume_refs)})"
+        )
+    for vid in targets:
+        out[f"volume:{vid}"] = await c._volume_refs[vid].actor.inject_fault.call_one(
+            name, action, **kwargs
+        )
+    return out
+
+
+async def clear_faults(name: Optional[str] = None, store_name: str = DEFAULT_STORE) -> int:
+    """Disarm ``name`` (every fault point when None) in this process, the
+    controller and every volume that answers; returns how many armed specs
+    were dropped."""
+    from torchstore_tpu_torch import faults
+
+    cleared = faults.disarm(name)
+    try:
+        c = client(store_name)
+        await c._ensure_setup()
+    except Exception:  # noqa: BLE001 - no store: the local disarm is all
+        return cleared
+    refs = [c.controller] + [v.actor for v in c._volume_refs.values()]
+    for ref in refs:
+        try:
+            cleared += await ref.clear_faults.call_one(name)
+        except Exception:  # noqa: BLE001 - a dead process cannot disarm
+            pass
+    return cleared
+
+
+def metrics_snapshot() -> dict:
+    """This process's metrics registry, ``{name: {"kind", "help", "series"}}``.
+    Metrics are per process: volumes and the controller return theirs in
+    ``stats()``, and ``TORCHSTORE_TORCH_METRICS_DUMP`` makes every process
+    dump its own."""
+    return obs_metrics.metrics_snapshot()
+
+
+def collect_trace(out_path: Optional[str] = None) -> Optional[dict]:
+    """Merge every process's trace file (the ``TORCHSTORE_TORCH_TRACE`` base
+    and its pid-suffixed siblings) into one timeline; call after
+    ``shutdown`` so the actor processes have flushed. Returns ``{"path",
+    "files", "events", "trace_ids"}``, or None when tracing is off."""
+    return tracing.collect_trace(out_path)

@@ -25,7 +25,14 @@ has just read it, as a plan-cached ``get_state_dict`` has, skips it), and
 a fetch that finds a location stale, or a replica's volume dead, relocates
 once. ``SyncPlanCache`` holds the transfer plans of ``put_state_dict`` /
 ``get_state_dict``; an epoch move drops them with the cached locations.
-The demotion ladder and the one-sided planes are later work.
+
+Transient failures (``RETRYABLE_ERRORS``: a dead or wedged actor, a broken
+socket, an injected fault) are retried under ``config.retry``: a put whose
+every replica failed is landed again, a single-volume put walks down the
+transport ladder one rung per attempt (shm -> rpc), and a get relocates and
+fetches again from the replicas still alive. ``put_batch`` / ``get_batch``
+root a trace (``ensure_root``) under their spans. The one-sided planes are
+later work.
 """
 
 from __future__ import annotations
@@ -38,12 +45,20 @@ import torch
 
 from torchstore_tpu_torch import sharding
 from torchstore_tpu_torch.config import StoreConfig, default_config
-from torchstore_tpu_torch.logging import Counter, get_logger
+from torchstore_tpu_torch.faults import FaultInjectedError
+from torchstore_tpu_torch.logging import get_logger
+from torchstore_tpu_torch.observability import context as obs_context
+from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability.tracing import span
 from torchstore_tpu_torch.metadata.index_core import ObjectType, StorageInfo
 from torchstore_tpu_torch.runtime import ActorDiedError, ActorRef
 from torchstore_tpu_torch.strategy import StorageVolumeRef
 from torchstore_tpu_torch.transport.buffers import TransportContext
-from torchstore_tpu_torch.transport.factory import create_transport_buffer
+from torchstore_tpu_torch.transport.factory import (
+    TransportType,
+    create_transport_buffer,
+    demotion_ladder,
+)
 from torchstore_tpu_torch.transport.shared_memory import ShmClientCache
 from torchstore_tpu_torch.transport.types import OpaqueBlob, Request, TensorSlice
 from torchstore_tpu_torch.utils import (
@@ -55,18 +70,37 @@ from torchstore_tpu_torch.utils import (
 
 logger = get_logger("torchstore_tpu_torch.client")
 
-_PLAN_HITS = Counter(
+_PLAN_HITS = obs_metrics.counter(
     "ts_plan_cache_hits_total",
     "put/get_state_dict iterations served by a cached transfer plan, by op",
 )
-_PLAN_MISSES = Counter(
+_PLAN_MISSES = obs_metrics.counter(
     "ts_plan_cache_misses_total",
     "put/get_state_dict iterations that (re)built their transfer plan, by op",
 )
-_PLAN_INVALIDATIONS = Counter(
+_PLAN_INVALIDATIONS = obs_metrics.counter(
     "ts_plan_cache_invalidations_total",
     "Cached transfer plans dropped, by reason (epoch/capacity)",
 )
+_FETCH_RETRIES = obs_metrics.counter(
+    "ts_client_fetch_retries_total", "Batch fetches retried after a stale-location/ref failure"
+)
+_PUT_RETRIES = obs_metrics.counter(
+    "ts_client_put_retries_total",
+    "Non-replicated put landings retried under the unified RetryPolicy, "
+    "by the transport rung the retry used",
+)
+_FAILOVERS = obs_metrics.counter(
+    "ts_client_failovers_total",
+    "Operations that succeeded only after failing over (get replica "
+    "re-route or put transport demotion), by op",
+)
+
+# The one family of transient failures every retry and failover keys on:
+# dead or wedged actors (ActorTimeoutError is an ActorDiedError), broken
+# sockets and injected faults. Anything else (a missing key, a shape
+# mismatch) is an answer and surfaces at once.
+RETRYABLE_ERRORS = (ActorDiedError, ConnectionError, OSError, FaultInjectedError)
 
 
 class SyncPlanCache:
@@ -288,15 +322,44 @@ class LocalClient:
         indexing step, so a streaming reader trusts a key only once its
         bytes are committed. ``unchanged``: ``{store_key: (base_store_key,
         base_version)}`` aliases of the same publish, watermarked with it
-        (see ``stream_sync``)."""
+        (see ``stream_sync``).
+
+        Every replica failing transiently lands the batch again under
+        ``config.retry``; a single-volume put retries down the transport
+        ladder (``_retry_put_demoted``)."""
+        with obs_context.ensure_root(), span(
+            "put_batch", keys=len(items), key=next(iter(items), None)
+        ) as sp:
+            await self._put_batch(items, sp, watermark, unchanged)
+
+    async def _put_batch(self, items: dict[str, Any], sp: span, watermark, unchanged) -> None:
         await self._ensure_setup()
         requests = [r for k, v in items.items() for r in self._value_to_requests(k, v)]
         volumes = self._put_volumes()
-        results = await asyncio.gather(
-            *(self._land(volume, requests) for volume in volumes), return_exceptions=True
-        )
-        landed = [(v, r) for v, r in zip(volumes, results) if not isinstance(r, BaseException)]
-        failed = [(v, r) for v, r in zip(volumes, results) if isinstance(r, BaseException)]
+        sp.set(nbytes=sum(r.nbytes for r in requests), replicas=len(volumes))
+        landed, failed = await self._land_all(volumes, requests)
+        if (not landed and len(volumes) > 1
+                and all(isinstance(r, RETRYABLE_ERRORS) for _, r in failed)):
+            # Every replica failed transiently: with no copy landed there is
+            # nothing to commit, so land the whole batch again.
+            policy = self._config.retry
+            deadline = policy.start()
+            attempt = 0
+            while not landed and policy.should_retry(attempt, deadline):
+                await asyncio.sleep(policy.backoff(attempt))
+                attempt += 1
+                landed, retry_failed = await self._land_all(volumes, requests)
+                if landed:
+                    failed = retry_failed
+                    _FAILOVERS.inc(op="put")
+                    logger.warning("replicated put recovered on retry %d", attempt)
+                elif not all(isinstance(r, RETRYABLE_ERRORS) for _, r in retry_failed):
+                    failed = retry_failed
+                    break  # an answer, not a transient
+        if not landed and len(volumes) == 1:
+            gens = await self._retry_put_demoted(volumes[0], requests, failed[0][1])
+            if gens is not None:
+                landed, failed = [(volumes[0], gens)], []
         if not landed:
             raise failed[0][1]
         for volume, exc in failed:
@@ -314,11 +377,78 @@ class LocalClient:
         )
         self._observe_epoch(epoch)
 
-    async def _land(self, volume: StorageVolumeRef, requests: list[Request]) -> dict[str, int]:
-        """Put ``requests`` on one volume; returns its write generations."""
-        buffer = create_transport_buffer(volume, self._config)
-        await buffer.put_to_storage_volume(volume, requests)
+    async def _land_all(self, volumes: list[StorageVolumeRef], requests: list[Request]):
+        """Land on every volume at once; ``(landed, failed)`` lists of
+        (volume, write generations or exception). Every landing finishes
+        before the caller decides."""
+        results = await asyncio.gather(
+            *(self._land(volume, requests) for volume in volumes), return_exceptions=True
+        )
+        landed = [(v, r) for v, r in zip(volumes, results) if not isinstance(r, BaseException)]
+        failed = [(v, r) for v, r in zip(volumes, results) if isinstance(r, BaseException)]
+        return landed, failed
+
+    async def _land(
+        self,
+        volume: StorageVolumeRef,
+        requests: list[Request],
+        transport: Optional[TransportType] = None,
+    ) -> dict[str, int]:
+        """Put ``requests`` on one volume (over ``transport`` when given);
+        returns its write generations."""
+        buffer = create_transport_buffer(volume, self._config, force=transport)
+        try:
+            await buffer.put_to_storage_volume(volume, requests)
+        except (ConnectionError, OSError) as exc:
+            # A dead volume surfaces as a broken socket: one family for the
+            # callers and the retries.
+            raise ActorDiedError(f"volume {volume.volume_id} unreachable: {exc!r}") from exc
         return buffer.write_gens or {}
+
+    async def _volume_alive(self, volume: StorageVolumeRef) -> bool:
+        """Whether the volume's process answers a ping: no transport reaches
+        a dead one, so its put is not retried."""
+        try:
+            return await asyncio.wait_for(volume.actor.ping(), timeout=5.0)
+        except Exception:  # noqa: BLE001 - any failure means not alive
+            return False
+
+    async def _retry_put_demoted(
+        self, volume: StorageVolumeRef, requests: list[Request], first_exc: BaseException
+    ) -> Optional[dict[str, int]]:
+        """Retry a failed single-volume landing under ``config.retry``, one
+        rung down the transport ladder per attempt. Returns the write
+        generations, or None when the policy ran out or the volume is dead
+        (the caller raises ``first_exc``)."""
+        if not isinstance(first_exc, RETRYABLE_ERRORS):
+            return None
+        policy = self._config.retry
+        deadline = policy.start()
+        ladder = demotion_ladder(volume, self._config)
+        attempt = 0
+        last = first_exc
+        while policy.should_retry(attempt, deadline):
+            if not isinstance(last, FaultInjectedError) and not await self._volume_alive(volume):
+                return None
+            await asyncio.sleep(policy.backoff(attempt))
+            rung = ladder[min(attempt + 1, len(ladder) - 1)]
+            try:
+                gens = await self._land(volume, requests, transport=rung)
+            except RETRYABLE_ERRORS as exc:
+                attempt += 1
+                last = exc
+                logger.warning("put retry %d on %s over %s failed: %s",
+                               attempt, volume.volume_id, rung.value, exc)
+                continue
+            _PUT_RETRIES.inc(transport=rung.value)
+            _FAILOVERS.inc(op="put")
+            logger.warning(
+                "non-replicated put to %s recovered on transport %s after %d retr%s "
+                "(first failure: %s)", volume.volume_id, rung.value, attempt + 1,
+                "y" if attempt == 0 else "ies", first_exc,
+            )
+            return gens
+        return None
 
     # ------------------------------------------------------------------
     # get
@@ -336,7 +466,16 @@ class LocalClient:
         ``TensorSlice`` returns a fresh tensor of its region; a DTensor's
         local tensor is filled with its shard and the DTensor returned.
         ``_epoch_checked``: the caller read the placement epoch just now
-        (``placement_epoch``), so cached locations are valid as they are."""
+        (``placement_epoch``), so cached locations are valid as they are.
+
+        A transient fetch failure relocates and fetches again under
+        ``config.retry`` while every key keeps a replica not seen failing;
+        a key another client deleted or re-laid out meanwhile relocates
+        once."""
+        with obs_context.ensure_root(), span("get_batch", keys=len(items)):
+            return await self._get_batch(items, _epoch_checked)
+
+    async def _get_batch(self, items, _epoch_checked: bool) -> dict[str, Any]:
         if isinstance(items, str):
             raise TypeError("get_batch takes a list of keys or a {key: target} dict")
         if not isinstance(items, dict):
@@ -353,29 +492,43 @@ class LocalClient:
             self._observe_epoch(await self._controller.placement_epoch.call_one())
         cached = [key for key in keys if key in self._loc_cache]
         located = await self._locate(keys)
-        dead: set[str] = set()
-        try:
-            return await self._fetch(wants, located, dead)
-        except ActorDiedError:
-            # A replica's volume died: relocate and read the others.
-            for key in keys:
-                self._loc_cache.pop(key, None)
-            located = await self._locate(keys)
-            live = {
-                key: {vid: info for vid, info in infos.items() if vid not in dead}
-                for key, infos in located.items()
-            }
-            if not all(live.values()):
-                raise
-            return await self._fetch(wants, live, dead)
-        except (KeyError, ValueError):
-            # Another client deleted or re-laid out a key between the epoch
-            # check and the fetch: relocate once.
-            if not cached:
-                raise
-            for key in cached:
-                self._loc_cache.pop(key, None)
-            return await self._fetch(wants, await self._locate(keys), dead)
+        dead: set[str] = set()  # volumes found dead by this get
+        policy = self._config.retry
+        deadline = policy.start()
+        attempt = 0
+        stale_retried = False
+        while True:
+            try:
+                out = await self._fetch(wants, located, dead)
+                if attempt > 0:
+                    _FAILOVERS.inc(op="get")
+                return out
+            except RETRYABLE_ERRORS as exc:
+                for key in keys:
+                    self._loc_cache.pop(key, None)
+                if not policy.should_retry(attempt, deadline):
+                    raise
+                _FETCH_RETRIES.inc()
+                logger.warning("fetch attempt %d failed (%r); failing over", attempt + 1, exc)
+                await asyncio.sleep(policy.backoff(attempt))
+                attempt += 1
+                # Relocate, and read the replicas not found dead.
+                located = {
+                    key: {vid: info for vid, info in infos.items() if vid not in dead}
+                    for key, infos in (await self._locate(keys)).items()
+                }
+                if not all(located.values()):
+                    raise
+            except (KeyError, ValueError):
+                # Another client deleted or re-laid out a key between the
+                # epoch check and the fetch: relocate once.
+                if stale_retried or not cached:
+                    raise
+                stale_retried = True
+                _FETCH_RETRIES.inc()
+                for key in cached:
+                    self._loc_cache.pop(key, None)
+                located = await self._locate(keys)
 
     async def _locate(self, keys: list[str]) -> dict[str, dict[str, StorageInfo]]:
         """Where each key lives: from the cache, else one locate RPC for
@@ -481,8 +634,13 @@ class LocalClient:
         async def fetch_volume(vid: str, requests: list[Request]) -> list[Any]:
             volume = self._volume_refs[vid]
             buffer = create_transport_buffer(volume, self._config)
+            # The coordinates ride the span: a trace shows which shards each
+            # volume served.
+            coords = [r.tensor_slice.coordinates for r in requests if r.tensor_slice is not None]
             try:
-                return await buffer.get_from_storage_volume(volume, requests)
+                with span("fetch_volume", volume=vid, transport=buffer.transport_name,
+                          keys=len(requests), coords=coords or None):
+                    return await buffer.get_from_storage_volume(volume, requests)
             except ActorDiedError:
                 dead.add(vid)
                 raise

@@ -1,15 +1,18 @@
 """Store configuration, seeded from ``TORCHSTORE_TORCH_*`` variables.
 
-Port of the fields of ``torchstore_tpu/config.py`` that the weight-sync path
-and the shared-memory segment pool read. The prefix is ``TORCHSTORE_TORCH_``
-and not ``TORCHSTORE_TPU_TORCH_``: the reference's actor runtime copies every
-``TORCHSTORE_TPU_*`` variable into its children, so the two packages keep
-their settings apart.
+Port of ``torchstore_tpu/config.py``: the fields the port reads, the
+``RetryPolicy`` every retrying layer derives its schedule from, and
+``ENV_REGISTRY``, one ``EnvVar`` per variable the port reads. The prefix is
+``TORCHSTORE_TORCH_`` and not ``TORCHSTORE_TPU_TORCH_``: the reference's
+actor runtime copies every ``TORCHSTORE_TPU_*`` variable into its children,
+so the two packages keep their settings apart.
 """
 
 from __future__ import annotations
 
 import os
+import random
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -30,6 +33,101 @@ ENV_STREAM_POLL_S = ENV_PREFIX + "STREAM_POLL_S"
 ENV_STREAM_RETRIES = ENV_PREFIX + "STREAM_RETRIES"
 ENV_ICI_ENABLED = ENV_PREFIX + "ICI_ENABLED"
 ENV_DIRECT_SETTLE_TIMEOUT = ENV_PREFIX + "DIRECT_SETTLE_TIMEOUT"
+ENV_AUTH_SECRET = ENV_PREFIX + "AUTH_SECRET"
+ENV_HANDSHAKE_TIMEOUT = ENV_PREFIX + "HANDSHAKE_TIMEOUT"
+ENV_MP_CONTEXT = ENV_PREFIX + "MP_CONTEXT"
+ENV_HOSTNAME = ENV_PREFIX + "HOSTNAME"
+ENV_RETRY_BASE_S = ENV_PREFIX + "RETRY_BASE_S"
+ENV_RETRY_MAX_S = ENV_PREFIX + "RETRY_MAX_S"
+ENV_RETRY_MULTIPLIER = ENV_PREFIX + "RETRY_MULTIPLIER"
+ENV_RETRY_JITTER = ENV_PREFIX + "RETRY_JITTER"
+ENV_RETRY_DEADLINE_S = ENV_PREFIX + "RETRY_DEADLINE_S"
+
+
+@dataclass(frozen=True)
+class EnvVar:
+    """One operator setting. ``default=None``: unset, or computed (the doc
+    says how)."""
+
+    name: str
+    type: str  # "bool" | "int" | "float" | "str" | "path"
+    default: object
+    doc: str
+
+
+# Every TORCHSTORE_TORCH_* variable the port reads, with the reference's
+# name under the prefix swap.
+ENV_REGISTRY: tuple[EnvVar, ...] = (
+    # --- transports
+    EnvVar(ENV_SHM_ENABLED, "bool", True,
+           "Same-host puts, gets and direct staging go through /dev/shm segments."),
+    EnvVar(ENV_ICI_ENABLED, "bool", True,
+           "A direct publish whose leaves all live on cards takes the device rung."),
+    EnvVar(ENV_ZERO_COPY_GET, "bool", True,
+           "A same-host get without a destination returns a copy-on-write view."),
+    EnvVar(ENV_SHM_POOL_MAX_BYTES, "int", None,
+           "Cap on the volume's pool of recycled segments, bytes (default: a "
+           "quarter of /dev/shm's free space, 4-64 GB)."),
+    EnvVar(ENV_LANDING_THREADS, "int", 0,
+           "Threads of the host-copy pool (0: one per core, at most 4)."),
+    EnvVar(ENV_ARENA_MAX_BYTES, "int", 256 << 10,
+           "Tensors of a put batch at or under this size share one segment."),
+    # --- state-dict layer
+    EnvVar(ENV_TRANSFER_QUANT, "str", "none",
+           "Default wire quantization of state-dict publishes."),
+    EnvVar(ENV_TRANSFER_QUANT_BLOCK, "int", 256, "Elements per block of the blockwise modes."),
+    EnvVar(ENV_DELTA_KEYFRAME, "int", 8, "The delta tier ships a keyframe every N versions."),
+    EnvVar(ENV_DELTA_SKIP_EPS, "float", 0.0, "Absolute slack on the delta tier's skip threshold."),
+    EnvVar(ENV_PLAN_CACHE, "bool", True, "Iteration-stable transfer plans for state-dict syncs."),
+    EnvVar(ENV_STREAM_POLL_S, "float", 10.0, "Seconds of one long-poll round of a streamed acquire."),
+    EnvVar(ENV_STREAM_RETRIES, "int", 2, "Restarts of a streamed acquire before it fails."),
+    # --- security and timeouts
+    EnvVar(ENV_AUTH_SECRET, "str", "",
+           "Shared secret of the HMAC challenge on every listener (empty: off)."),
+    EnvVar(ENV_RPC_TIMEOUT, "float", 300.0, "Seconds a control RPC may take (<= 0: no deadline)."),
+    EnvVar(ENV_HANDSHAKE_TIMEOUT, "float", 60.0,
+           "Seconds a transport handshake or a direct-sync dial may take."),
+    EnvVar(ENV_DIRECT_SETTLE_TIMEOUT, "float", 30.0,
+           "Seconds a direct pull waits for a source's staging to settle."),
+    EnvVar(ENV_LOG_LEVEL, "str", "WARNING", "Log level of the torchstore_tpu_torch loggers."),
+    # --- observability
+    EnvVar(ENV_PREFIX + "TRACE", "path", None,
+           "Chrome-trace file of every span (pid-suffixed per process)."),
+    EnvVar(ENV_PREFIX + "TRACE_RUN", "str", None,
+           "Run id shared by a process tree (set by the first tracing process)."),
+    EnvVar(ENV_PREFIX + "METRICS_DUMP", "path", None,
+           "Periodic metrics dump of every process (.prom for Prometheus text)."),
+    EnvVar(ENV_PREFIX + "METRICS_INTERVAL_S", "float", 60, "Seconds between metrics dumps."),
+    EnvVar(ENV_PREFIX + "FLIGHT_RECORDER", "bool", True, "Record the flight-recorder ring."),
+    EnvVar(ENV_PREFIX + "FLIGHT_EVENTS", "int", 4096, "Events the flight-recorder ring holds."),
+    EnvVar(ENV_PREFIX + "FLIGHT_DIR", "path", None,
+           "Directory of post-mortem dumps (default: <tmpdir>/torchstore_torch_flight)."),
+    EnvVar(ENV_PREFIX + "FLIGHT_MIN_INTERVAL_S", "float", 30,
+           "Least seconds between two dumps of one trigger kind."),
+    # --- runtime
+    EnvVar(ENV_MP_CONTEXT, "str", "forkserver",
+           "Start method of actor processes: forkserver (preloads the runtime) or spawn."),
+    EnvVar(ENV_HOSTNAME, "str", None, "Host identity override (tests emulate hosts with it)."),
+    # --- faults and retries
+    EnvVar(ENV_PREFIX + "FAULTPOINTS", "str", None,
+           "Fault points armed at start: name=action[:count=N][:prob=P][:delay_ms=D];..."),
+    EnvVar(ENV_RETRY_BASE_S, "float", 0.05, "RetryPolicy: first backoff, seconds."),
+    EnvVar(ENV_RETRY_MAX_S, "float", 2.0, "RetryPolicy: largest backoff, seconds."),
+    EnvVar(ENV_RETRY_MULTIPLIER, "float", 2.0, "RetryPolicy: backoff growth per attempt."),
+    EnvVar(ENV_RETRY_JITTER, "float", 0.1, "RetryPolicy: randomized fraction of each backoff."),
+    EnvVar(ENV_RETRY_DEADLINE_S, "float", 30.0,
+           "RetryPolicy: total retry budget of one logical operation, seconds."),
+)
+
+# Families of names: one variable per store (the published handles).
+ENV_PREFIXES: tuple[str, ...] = (ENV_PREFIX + "STORE_",)
+
+
+def env_registry_entry(name: str) -> Optional[EnvVar]:
+    for entry in ENV_REGISTRY:
+        if entry.name == name:
+            return entry
+    return None
 
 _FALSE = ("0", "false", "no", "off")
 
@@ -54,6 +152,70 @@ def _env_bool(name: str, default: bool) -> bool:
     if raw in (None, ""):
         return default
     return raw.strip().lower() not in _FALSE
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """The one retry and backoff vocabulary of the store: the client's get
+    failover, the single-volume put's transport demotion and the replicated
+    put's all-failed retry take their schedules from it.
+
+    The delay before retry ``i`` (0-based) is ``min(max_s, base_s *
+    multiplier**i)``, a ``jitter`` fraction of it randomized, unless
+    ``delays`` pins a schedule (which is then the attempt budget).
+    ``deadline_s`` bounds the time one logical operation spends retrying.
+    Frozen and picklable: it rides ``StoreConfig`` through RPCs."""
+
+    base_s: float = 0.05
+    max_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.1
+    deadline_s: float = 30.0
+    delays: Optional[tuple[float, ...]] = None
+
+    @classmethod
+    def from_env(cls) -> "RetryPolicy":
+        return cls(
+            base_s=_env_float(ENV_RETRY_BASE_S, 0.05),
+            max_s=_env_float(ENV_RETRY_MAX_S, 2.0),
+            multiplier=_env_float(ENV_RETRY_MULTIPLIER, 2.0),
+            jitter=_env_float(ENV_RETRY_JITTER, 0.1),
+            deadline_s=_env_float(ENV_RETRY_DEADLINE_S, 30.0),
+        )
+
+    @classmethod
+    def from_delays(cls, delays, deadline_s: Optional[float] = None) -> "RetryPolicy":
+        delays = tuple(float(d) for d in delays)
+        if not delays:
+            raise ValueError("explicit delay schedule must not be empty")
+        return cls(deadline_s=sum(delays) * 2 if deadline_s is None else deadline_s,
+                   delays=delays)
+
+    @property
+    def max_attempts(self) -> Optional[int]:
+        """Bound on retries (not first attempts); None: the deadline bounds."""
+        return len(self.delays) if self.delays is not None else None
+
+    def backoff(self, attempt: int) -> float:
+        """The jittered delay before retry ``attempt`` (0-based)."""
+        if self.delays is not None:
+            delay = self.delays[min(attempt, len(self.delays) - 1)]
+        else:
+            delay = min(self.max_s, self.base_s * self.multiplier**attempt)
+        if self.jitter:
+            delay *= 1.0 + self.jitter * (2.0 * random.random() - 1.0)
+        return max(0.0, delay)
+
+    def start(self) -> float:
+        """The monotonic deadline of one logical operation's retries."""
+        return time.monotonic() + self.deadline_s
+
+    def should_retry(self, attempt: int, deadline: float) -> bool:
+        """Whether retry ``attempt`` (0-based) may run: within the attempt
+        cap of a pinned schedule and the time budget."""
+        if self.delays is not None and attempt >= len(self.delays):
+            return False
+        return time.monotonic() < deadline
 
 
 def _default_shm_pool_cap() -> int:
@@ -112,7 +274,14 @@ class StoreConfig:
     stages through the host. ``direct_settle_timeout``: seconds a direct
     pull waits for a source whose staging is being overwritten (the
     generation odd) before it gives up; a model-scale refresh or another
-    dest's host-fallback staging legitimately holds it odd for seconds."""
+    dest's host-fallback staging legitimately holds it odd for seconds.
+
+    ``auth_secret``: the shared secret of the HMAC challenge every listener
+    (actor servers, the direct-sync source) puts to a new connection before
+    it parses a frame; empty turns auth off. One per process.
+    ``handshake_timeout``: seconds a transport handshake RPC or a
+    direct-sync dial may take. ``retry``: the ``RetryPolicy`` of the
+    client's retries and failovers."""
 
     rpc_timeout: float = field(default_factory=lambda: _env_float(ENV_RPC_TIMEOUT, 300.0))
     shm_enabled: bool = field(default_factory=lambda: _env_bool(ENV_SHM_ENABLED, True))
@@ -138,6 +307,11 @@ class StoreConfig:
     direct_settle_timeout: float = field(
         default_factory=lambda: _env_float(ENV_DIRECT_SETTLE_TIMEOUT, 30.0)
     )
+    auth_secret: str = field(default_factory=lambda: os.environ.get(ENV_AUTH_SECRET, ""))
+    handshake_timeout: float = field(
+        default_factory=lambda: _env_float(ENV_HANDSHAKE_TIMEOUT, 60.0)
+    )
+    retry: RetryPolicy = field(default_factory=RetryPolicy.from_env)
 
 
 _default_config: Optional[StoreConfig] = None

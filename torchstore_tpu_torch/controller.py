@@ -9,7 +9,9 @@ tracking for sharded keys, and the stream records of layer-streamed
 publishes (``stream_begin``, ``stream_seal``, ``stream_mark_unchanged``,
 ``stream_state``, ``stream_ack``, ``wait_for_stream``, and the per-key
 watermarks ``notify_put_batch(watermark=)`` applies in the same indexing
-step as the metadata). The relay, tiering, control, autoscale and mirror
+step as the metadata). ``inject_fault`` / ``clear_faults`` arm and disarm
+fault points in the controller's process, and ``stats()`` carries its
+metrics registry. The relay, tiering, control, autoscale and mirror
 engines of the reference are not part of this port yet. The controller
 never sees tensor bytes: only ``Request.meta_only()`` copies.
 """
@@ -20,7 +22,10 @@ import asyncio
 import time
 from typing import Any, Optional
 
+from torchstore_tpu_torch import faults
 from torchstore_tpu_torch.logging import get_logger
+from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability import recorder as obs_recorder
 from torchstore_tpu_torch.metadata.index_core import IndexCore, StorageInfo
 from torchstore_tpu_torch.runtime import Actor, ActorRef, endpoint
 from torchstore_tpu_torch.transport.types import Request
@@ -45,6 +50,7 @@ class Controller(Actor):
         # Stream records of layer-streamed publishes, by state-dict key; dict
         # order is touch recency (see _stream_rec).
         self._streams: dict[str, dict] = {}
+        obs_recorder.recorder().arm_exit_dump()
 
     def _bump_epoch(self) -> int:
         self._placement_epoch += 1
@@ -84,6 +90,7 @@ class Controller(Actor):
         """Where each key lives; a sharded key not yet stored at every mesh
         coordinate raises ``PartiallyCommittedError`` unless
         ``require_committed`` is off."""
+        await faults.afire("controller.locate")
         return self.core.locate(keys, missing_ok, require_committed)
 
     @endpoint
@@ -120,15 +127,25 @@ class Controller(Actor):
                 "notify_put_batch(unchanged=...) requires watermark=: "
                 "unchanged-key aliases are a streamed-publish protocol"
             )
+        await faults.afire("controller.notify")
         volume_ids = [volume_id] if isinstance(volume_id, str) else list(volume_id)
+        keys = {m.key for m in metas}
         async with self.core.cond():
             if unchanged:
                 self._check_unchanged(unchanged)  # before anything is indexed
             if self.core.apply_put_batch(metas, volume_ids, detach_volume_ids, write_gens):
                 self._bump_epoch()
-            if watermark is not None:
-                self._apply_watermark(watermark[0], int(watermark[1]), metas, unchanged)
-            self.core.bump_locked({m.key for m in metas})
+            if watermark is None:
+                self.core.bump_locked(keys)
+                return self._placement_epoch
+        # The watermark step runs after the metadata committed: a delay here
+        # holds committed bytes invisible to streaming readers, a raise fails
+        # the notify before any reader trusted the partial version. Disarmed,
+        # nothing yields between the two holds of the condition.
+        await faults.afire("channel.watermark")
+        async with self.core.cond():
+            self._apply_watermark(watermark[0], int(watermark[1]), metas, unchanged)
+            self.core.bump_locked(keys)
         return self._placement_epoch
 
     def _apply_watermark(
@@ -405,7 +422,8 @@ class Controller(Actor):
         """The index summary (op counters, keys, indexed bytes) and the
         volume count; with ``include_volumes`` each volume's ``stats`` too
         (an ``error`` string for one that does not answer)."""
-        out = {**self.core.summary(), "num_volumes": len(self.volume_refs)}
+        out = {**self.core.summary(), "num_volumes": len(self.volume_refs),
+               "metrics": obs_metrics.metrics_snapshot()}
         if include_volumes:
 
             async def one(vid: str, ref: ActorRef):
@@ -417,6 +435,28 @@ class Controller(Actor):
             results = await asyncio.gather(*(one(v, r) for v, r in self.volume_refs.items()))
             out["volumes"] = dict(results)
         return out
+
+    # ---- fault injection --------------------------------------------------
+
+    @endpoint
+    async def inject_fault(
+        self,
+        name: str,
+        action: str,
+        count: Optional[int] = None,
+        prob: Optional[float] = None,
+        delay_ms: Optional[float] = None,
+    ) -> dict:
+        """Arm a fault point inside the controller's process (``faults.py``)."""
+        return faults.arm(name, action, count=count, prob=prob, delay_ms=delay_ms)
+
+    @endpoint
+    async def clear_faults(self, name: Optional[str] = None) -> int:
+        return faults.disarm(name)
+
+    @endpoint
+    async def list_faults(self) -> list:
+        return faults.armed()
 
     @endpoint
     async def teardown(self) -> None:

@@ -28,7 +28,9 @@ Port of ``torchstore_tpu/direct_weight_sync.py``. Two rungs:
   memory), page-locked with ``cudaHostRegister`` when the leaves live on a
   card; CUDA floating leaves are first cast on the card by the grouped
   kernel, so the device-to-host copies move the transfer dtype's bytes. The
-  peer server serves ranged reads of the buffers over TCP. The dest builds
+  peer server serves ranged reads of the buffers over TCP (each connection
+  first passes the auth challenge of ``runtime/auth.py`` when the store has
+  a secret). The dest builds
   a transfer plan once (one region per distinct intersection of a target's
   slice with a source shard; cached, and buildable ahead by ``preplan``),
   reads each buffer once (shared-memory attach on the same host,
@@ -62,11 +64,17 @@ import torch
 from torchstore_tpu_torch import sharding
 from torchstore_tpu_torch.client import Shard
 from torchstore_tpu_torch.config import StoreConfig, default_config
-from torchstore_tpu_torch.logging import Counter, LatencyTracker, get_logger
+from torchstore_tpu_torch.logging import LatencyTracker, get_logger
+from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.ops import staging
 from torchstore_tpu_torch.ops.staging import cast_reference
 from torchstore_tpu_torch.provision.pool import local_pool
 from torchstore_tpu_torch.runtime.actors import BIND_HOST
+from torchstore_tpu_torch.runtime.auth import (
+    client_authenticate,
+    close_unauthenticated,
+    server_authenticate,
+)
 from torchstore_tpu_torch.runtime.serialization import tensor_bytes
 from torchstore_tpu_torch.state_dict_utils import (
     _leaf_signature,
@@ -89,14 +97,15 @@ from torchstore_tpu_torch.utils import (
 logger = get_logger("torchstore_tpu_torch.direct")
 
 # The device rung's three routes, counted apart, and the pulls a refresh tore.
-DEVICE_LOCAL_PULLS = Counter("direct.device_local_pulls",
+DEVICE_LOCAL_PULLS = obs_metrics.counter("direct.device_local_pulls",
                              "Device-rung pulls served in the source's own process")
-DEVICE_IPC_PULLS = Counter("direct.device_ipc_pulls", "Device-rung pulls over CUDA IPC")
-DEVICE_FALLBACKS = Counter("direct.device_fallbacks",
+DEVICE_IPC_PULLS = obs_metrics.counter("direct.device_ipc_pulls", "Device-rung pulls over CUDA IPC")
+DEVICE_FALLBACKS = obs_metrics.counter("direct.device_fallbacks",
                            "Device-rung pulls served from the source's host staging")
-PULL_RETRIES = Counter("direct.pull_retries", "Direct pulls retried after a refresh tore them")
+PULL_RETRIES = obs_metrics.counter("direct.pull_retries",
+                                   "Direct pulls retried after a refresh tore them")
 # A first pull that reuses a plan built by ``preplan`` (``api.prewarm``).
-PLAN_PREWARM_HITS = Counter("ts_prewarm_plan_cache_hits_total",
+PLAN_PREWARM_HITS = obs_metrics.counter("ts_prewarm_plan_cache_hits_total",
                             "Direct-sync pulls that hit a prewarm-built transfer plan")
 
 
@@ -196,6 +205,11 @@ class _PeerReadServer:
             return None
 
     async def _handle(self, reader, writer) -> None:
+        # The peer proves it knows the store's secret before any staging
+        # byte is served.
+        if not await server_authenticate(reader, writer):
+            await close_unauthenticated(writer)
+            return
         self._writers.add(writer)
         try:
             while True:
@@ -1003,8 +1017,14 @@ class DirectWeightSyncDest:
             pool = self._conns.setdefault(key, {"conns": [], "rr": 0})
             if len(pool["conns"]) < _POOL_SIZE:
                 reader, writer = await asyncio.wait_for(
-                    asyncio.open_connection(host, port), timeout=30
+                    asyncio.open_connection(host, port),
+                    timeout=default_config().handshake_timeout,
                 )
+                try:
+                    await client_authenticate(reader, writer)
+                except BaseException:
+                    writer.close()
+                    raise
                 conn = (reader, writer, asyncio.Lock())
                 pool["conns"].append(conn)
             else:
@@ -1161,6 +1181,7 @@ class DirectWeightSyncDest:
                 _synchronize(device)
             tracker.track_step("land", nbytes)
             gens1 = list(await asyncio.gather(*(self._read_gen(h, p) for h, p in endpoints)))
+            tracker.track_step("generation")
             if gens1 == gens0 and len(set(gens0)) <= 1:
                 for route in set(routes):
                     (DEVICE_LOCAL_PULLS if route == "local" else DEVICE_IPC_PULLS).inc()

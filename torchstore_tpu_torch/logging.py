@@ -3,20 +3,23 @@
 Port of ``torchstore_tpu/logging.py``: the level comes from
 ``TORCHSTORE_TORCH_LOG_LEVEL`` (or ``StoreConfig.log_level``), and
 ``LatencyTracker`` records named steps plus the end-to-end time, with GB/s
-where a byte count is given. ``Counter`` is a plain in-process counter and
-``Gauge`` a plain last value, by label set, under the reference's metric
-names.
+where a byte count is given. With ``TORCHSTORE_TORCH_TRACE`` set each step
+also lands in the trace, as ``{name}/{step}``, beside the spans of
+``observability.tracing``. Counters and gauges live in
+``observability.metrics``.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 from typing import Optional
 
 from torchstore_tpu_torch.config import ENV_LOG_LEVEL
+from torchstore_tpu_torch.observability import tracing
+
+_trace = tracing.collector()
 
 ROOT = "torchstore_tpu_torch"
 
@@ -34,44 +37,6 @@ def set_log_level(level_name: str) -> None:
     logging.getLogger(ROOT).setLevel(
         getattr(logging, level_name.upper(), logging.WARNING)
     )
-
-
-class Counter:
-    """A monotonic count per label set: ``inc(n, op="get")``,
-    ``value(op="get")`` (one label set), ``total()`` (every label set)."""
-
-    def __init__(self, name: str, help_text: str = "") -> None:
-        self.name = name
-        self.help = help_text
-        self._values: dict[tuple, float] = {}
-        self._lock = threading.Lock()
-
-    def inc(self, amount: float = 1, **labels: str) -> None:
-        key = tuple(sorted(labels.items()))
-        with self._lock:
-            self._values[key] = self._values.get(key, 0) + amount
-
-    def value(self, **labels: str) -> float:
-        return self._values.get(tuple(sorted(labels.items())), 0)
-
-    def total(self) -> float:
-        return sum(self._values.values())
-
-
-class Gauge:
-    """A last-set value per label set: ``set(x, channel="policy")``,
-    ``value(channel="policy")``."""
-
-    def __init__(self, name: str, help_text: str = "") -> None:
-        self.name = name
-        self.help = help_text
-        self._values: dict[tuple, float] = {}
-
-    def set(self, value: float, **labels: str) -> None:
-        self._values[tuple(sorted(labels.items()))] = value
-
-    def value(self, **labels: str) -> float:
-        return self._values.get(tuple(sorted(labels.items())), 0)
 
 
 def _format_throughput(nbytes: int, seconds: float) -> str:
@@ -94,6 +59,8 @@ class LatencyTracker:
     def track_step(self, step: str, nbytes: Optional[int] = None) -> float:
         now = time.perf_counter()
         elapsed = now - self._last
+        if _trace.enabled:
+            _trace.add(self.name, step, self._last, elapsed, nbytes)
         self._last = now
         self.steps.append((step, elapsed, nbytes))
         return elapsed

@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Optional
 
+from torchstore_tpu_torch.storage_utils.trie import Trie
 from torchstore_tpu_torch.transport.types import Request, TensorMeta, TensorSlice
 
 
@@ -79,7 +80,7 @@ def _info_layout(info: StorageInfo) -> tuple:
 
 class IndexCore:
     def __init__(self) -> None:
-        self.index: dict[str, dict[str, StorageInfo]] = {}
+        self.index: Trie = Trie()  # key -> {volume_id: StorageInfo}
         self.counters = {"puts": 0, "put_bytes": 0, "locates": 0, "deletes": 0}
         # Bumped on every indexed put or delete of a key; the condition is
         # notified with every bump.
@@ -207,8 +208,7 @@ class IndexCore:
         trie matches them."""
         if prefix is None:
             return sorted(self.index)
-        pre = prefix.split("/")
-        return sorted(k for k in self.index if k.split("/")[: len(pre)] == pre)
+        return sorted(self.index.keys().filter_by_prefix(prefix))
 
     def apply_put_batch(
         self,

@@ -4,6 +4,7 @@ from torchstore_tpu_torch.runtime.actors import (
     Actor,
     ActorDiedError,
     ActorMesh,
+    ActorMeshRef,
     ActorRef,
     ActorTimeoutError,
     RemoteActorError,
@@ -17,6 +18,7 @@ __all__ = [
     "Actor",
     "ActorDiedError",
     "ActorMesh",
+    "ActorMeshRef",
     "ActorRef",
     "ActorTimeoutError",
     "RemoteActorError",

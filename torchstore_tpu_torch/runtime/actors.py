@@ -1,11 +1,21 @@
 """Process-based actor runtime.
 
 Port of ``torchstore_tpu/runtime/actors.py``: ``spawn_actors`` starts N OS
-processes (``spawn`` start method: fresh interpreters, no inherited CUDA or
-thread state), each hosting one ``Actor`` whose ``@endpoint`` methods are
-served over an asyncio TCP server. ``ActorRef``/``ActorMesh`` are picklable
-handles whose ``.method.call_one()`` performs a multiplexed RPC with the
-out-of-band tensor framing of ``serialization.py``.
+processes, each hosting one ``Actor`` whose ``@endpoint`` methods are served
+over an asyncio TCP server. ``ActorRef`` / ``ActorMeshRef`` are picklable
+handles: ``ref.method.call_one()`` performs a multiplexed RPC with the
+out-of-band tensor framing of ``serialization.py``, ``mesh.method.call()``
+fans out to every rank and ``mesh[i]`` indexes it.
+
+Children start from a forkserver that has imported this package once (the
+torch import is most of a fresh interpreter's start-up); the helper never
+touches CUDA, so a child may use the card. ``TORCHSTORE_TORCH_MP_CONTEXT=spawn``
+starts fresh interpreters instead. An actor registered in process
+(``register_inproc``, a colocated volume) is called directly, without
+serialization. Every request frame carries the caller's trace context,
+re-activated around the endpoint under an ``rpc/<method>`` span, and every
+accepted connection passes the auth challenge (``auth.py``) before a frame
+is parsed.
 """
 
 from __future__ import annotations
@@ -18,8 +28,15 @@ import socket
 import traceback
 from typing import Any, Callable, Optional
 
-from torchstore_tpu_torch.config import ENV_PREFIX
+from torchstore_tpu_torch.config import ENV_MP_CONTEXT, ENV_PREFIX
 from torchstore_tpu_torch.logging import get_logger
+from torchstore_tpu_torch.observability import context as trace_context
+from torchstore_tpu_torch.observability.tracing import span
+from torchstore_tpu_torch.runtime.auth import (
+    client_authenticate,
+    close_unauthenticated,
+    server_authenticate,
+)
 from torchstore_tpu_torch.runtime.serialization import (
     KIND_CONTROL,
     KIND_ERROR,
@@ -117,6 +134,11 @@ class _Connection:
         req_id = self.next_id
         self.next_id += 1
         body = dict(body, id=req_id)
+        # The caller's trace context rides the frame, so the server's spans
+        # join the caller's trace (one contextvar read when none is active).
+        ctx = trace_context.current()
+        if ctx is not None:
+            body["trace"] = ctx
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self.pending[req_id] = fut
         try:
@@ -162,8 +184,25 @@ def _rebuild_remote_error(msg: dict) -> Exception:
     return remote
 
 
+# Actors hosted in this process, keyed as their published refs (host, port,
+# name): a call on such a ref invokes the method directly, with no
+# serialization (a colocated volume); other processes reach the same actor
+# over its server. Only the hosting process registers, and forked children
+# never inherit a hosting role.
+_inproc_actors: dict[tuple[str, int, str], Actor] = {}
+
+
+def register_inproc(host: str, port: int, name: str, actor: Actor) -> None:
+    _inproc_actors[(host, port, name)] = actor
+
+
+def unregister_inproc(host: str, port: int, name: str) -> None:
+    _inproc_actors.pop((host, port, name), None)
+
+
 # Connections per (event loop, address): tests run many asyncio.run loops,
-# and a connection belongs to the loop that opened it.
+# and a connection belongs to the loop that opened it. The forkserver helper
+# never opens one, so a child inherits an empty pool.
 _conn_pools: dict[tuple[int, str, int], tuple[asyncio.AbstractEventLoop, _Connection]] = {}
 _conn_locks: dict[tuple[int, str, int], tuple[asyncio.AbstractEventLoop, asyncio.Lock]] = {}
 
@@ -199,6 +238,11 @@ async def get_connection(host: str, port: int) -> _Connection:
             return entry[1]
         reader, writer = await asyncio.open_connection(host, port, limit=2**20)
         _set_nodelay(writer)
+        try:
+            await client_authenticate(reader, writer)
+        except BaseException:
+            writer.close()
+            raise
         conn = _Connection(reader, writer)
         _conn_pools[key] = (loop, conn)
         return conn
@@ -234,6 +278,13 @@ class ActorEndpointRef:
         return default_config().rpc_timeout
 
     async def call_one(self, *args, **kwargs) -> Any:
+        inproc = _inproc_actors.get((self._ref.host, self._ref.port, self._ref.name))
+        if inproc is not None:
+            # Same process: a direct call. Arguments pass by reference, so a
+            # transport that keeps or hands out data copies it
+            # (``inproc_copy``).
+            result = getattr(inproc, self._method)(*args, **kwargs)
+            return await result if asyncio.iscoroutine(result) else result
         try:
             conn = await get_connection(self._ref.host, self._ref.port)
         except OSError as exc:
@@ -251,6 +302,10 @@ class ActorEndpointRef:
             },
             timeout=self.effective_timeout(),
         )
+
+    async def call(self, *args, **kwargs) -> Any:
+        """On one ref, ``call`` is ``call_one``."""
+        return await self.call_one(*args, **kwargs)
 
 
 class ActorRef:
@@ -276,13 +331,55 @@ class ActorRef:
         conn = await get_connection(self.host, self.port)
         return await conn.request(KIND_CONTROL, {"op": op, "actor": self.name})
 
+    async def ping(self) -> bool:
+        return await self.control("ping") == "pong"
 
-class ActorMesh:
-    """Rank-ordered actor refs; in the spawning process it also holds the
-    OS process handles for ``stop``."""
+
+class MeshEndpointRef:
+    def __init__(self, mesh: "ActorMeshRef", method: str):
+        self._mesh = mesh
+        self._method = method
+
+    async def call(self, *args, **kwargs) -> list[Any]:
+        """Fan out to every actor of the mesh; the results in rank order."""
+        return list(await asyncio.gather(
+            *(getattr(ref, self._method).call_one(*args, **kwargs) for ref in self._mesh.refs)
+        ))
+
+    async def call_one(self, *args, **kwargs) -> Any:
+        if len(self._mesh.refs) != 1:
+            raise ValueError(
+                f"call_one on a mesh of size {len(self._mesh.refs)}; index the mesh first"
+            )
+        return await getattr(self._mesh.refs[0], self._method).call_one(*args, **kwargs)
+
+
+class ActorMeshRef:
+    """Picklable handle to a rank-ordered mesh of actors."""
+
+    def __init__(self, refs: list[ActorRef]):
+        self.refs = refs
+
+    def __getattr__(self, method: str) -> MeshEndpointRef:
+        if method.startswith("_") or method == "refs":
+            raise AttributeError(method)
+        return MeshEndpointRef(self, method)
+
+    def __getitem__(self, idx) -> "ActorMeshRef":
+        if isinstance(idx, int):
+            return ActorMeshRef([self.refs[idx]])
+        return ActorMeshRef(list(self.refs[idx]))
+
+    def __len__(self) -> int:
+        return len(self.refs)
+
+
+class ActorMesh(ActorMeshRef):
+    """The spawner's mesh: it also holds the OS process handles for
+    ``stop``."""
 
     def __init__(self, refs: list[ActorRef], processes: list) -> None:
-        self.refs = refs
+        super().__init__(refs)
         self._processes = processes
 
     def __getstate__(self):
@@ -337,6 +434,11 @@ class ActorServer:
     async def _handle_client(
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
+        # Nothing is parsed (so nothing unpickled) before the peer proves it
+        # knows the secret.
+        if not await server_authenticate(reader, writer):
+            await close_unauthenticated(writer)
+            return
         _set_nodelay(writer)
         self._client_writers.add(writer)
         write_lock = asyncio.Lock()
@@ -393,11 +495,17 @@ class ActorServer:
     async def _handle_control(self, msg: dict) -> Any:
         op = msg["op"]
         if op == "ping":
+            # Armed in a process, "actor.ping" makes its pings raise or stall.
+            from torchstore_tpu_torch import faults
+
+            await faults.afire("actor.ping")
             return "pong"
         if op == "stop":
             # Respond first; the serve loop exits after this dispatch.
             asyncio.get_running_loop().call_soon(self.stop_event.set)
             return "stopping"
+        if op == "list":
+            return sorted(self.actors)
         raise RemoteActorError(f"unknown control op {op!r}")
 
     async def _handle_request(self, msg: dict) -> Any:
@@ -409,9 +517,14 @@ class ActorServer:
         method = getattr(type(actor), msg["method"], None)
         if method is None or not getattr(method, _ENDPOINT_ATTR, False):
             raise RemoteActorError(f"{type(actor).__name__}.{msg['method']} is not an @endpoint")
-        result = method(actor, *msg["args"], **msg["kwargs"])
-        if asyncio.iscoroutine(result):
-            result = await result
+        # The caller's trace context covers the whole dispatch: the rpc span
+        # and everything the endpoint does (transfers, nested RPCs) hang off
+        # the caller's span.
+        with trace_context.activate(msg.get("trace")):
+            with span(f"rpc/{msg['method']}", actor=msg["actor"]):
+                result = method(actor, *msg["args"], **msg["kwargs"])
+                if asyncio.iscoroutine(result):
+                    result = await result
         return result
 
     async def serve_until_stopped(self) -> None:
@@ -444,14 +557,45 @@ class ActorServer:
 
 
 def _child_main(pipe, actor_cls, name: str, args: tuple, kwargs: dict, env: dict) -> None:
+    # ``env`` is the child's whole TORCHSTORE_TORCH_* environment: a forkserver
+    # child inherits the helper's env from when it started, so what the
+    # spawner did not pass goes.
     for key in list(os.environ):
         if key.startswith(ENV_PREFIX) and key not in env:
             del os.environ[key]
     os.environ.update(env)
+    _reinit_after_fork()
     try:
         asyncio.run(_child_async(pipe, actor_cls, name, args, kwargs))
     except KeyboardInterrupt:
         pass
+    finally:
+        # A multiprocessing child leaves through os._exit, which skips
+        # atexit: flush the trace and the metrics dump here.
+        try:
+            from torchstore_tpu_torch.observability import metrics as obs_metrics
+            from torchstore_tpu_torch.observability.tracing import flush_trace
+
+            flush_trace()
+            obs_metrics.dump_metrics()
+        except Exception:  # noqa: BLE001 - exiting regardless
+            pass
+
+
+def _reinit_after_fork() -> None:
+    """Re-arm what a forked child inherits from the helper against its own
+    corrected env: the config, observability (trace path, dumper thread,
+    recorder), fault points, the landing pool (its threads died in the
+    fork) and the side streams."""
+    from torchstore_tpu_torch import config as config_mod
+    from torchstore_tpu_torch import faults, observability
+    from torchstore_tpu_torch.transport import landing, pinning
+
+    config_mod._default_config = None
+    observability.reinit_after_fork()
+    faults.reinit_after_fork()
+    landing.reinit_after_fork()
+    pinning.reinit_after_fork()
 
 
 async def _child_async(pipe, actor_cls, name: str, args: tuple, kwargs: dict) -> None:
@@ -481,8 +625,12 @@ async def spawn_actors(
     child gets ``RANK``/``LOCAL_RANK``/``WORLD_SIZE``/``LOCAL_WORLD_SIZE``
     so strategies can derive volume ids, plus this process's
     ``TORCHSTORE_TORCH_*`` settings."""
-    ctx = mp.get_context("spawn")
+    ctx = _mp_context()
     loop = asyncio.get_running_loop()
+    # The process tree shares one trace run id, set before the env is read.
+    from torchstore_tpu_torch.observability.tracing import ensure_run_id
+
+    ensure_run_id()
     inherited = {k: v for k, v in os.environ.items() if k.startswith(ENV_PREFIX)}
     procs = []
     pipes = []
@@ -532,6 +680,39 @@ async def spawn_actors(
         for pipe in pipes:
             pipe.close()
     return ActorMesh(refs, procs)
+
+
+_ctx: Optional[mp.context.BaseContext] = None
+_ctx_method: Optional[str] = None
+
+
+def _mp_context() -> mp.context.BaseContext:
+    """``forkserver`` (the default) preloads this package in a helper that
+    never touches CUDA, so each child skips the torch import and may use the
+    card; ``spawn`` (``TORCHSTORE_TORCH_MP_CONTEXT=spawn``) starts fresh
+    interpreters."""
+    global _ctx, _ctx_method
+    method = os.environ.get(ENV_MP_CONTEXT, "forkserver")
+    if _ctx is not None and method == _ctx_method:
+        return _ctx
+    ctx = mp.get_context(method)
+    if method == "forkserver":
+        ctx.set_forkserver_preload(["torchstore_tpu_torch.runtime"])
+        # Start the helper now with the trace and metrics env stripped: it
+        # imports the package, which would otherwise open a trace file and a
+        # dumper of its own (and could claim the configured paths). Children
+        # re-arm from their own env.
+        from torchstore_tpu_torch.observability import ENV_METRICS_DUMP, ENV_TRACE
+
+        saved = {k: os.environ.pop(k) for k in (ENV_METRICS_DUMP, ENV_TRACE) if k in os.environ}
+        try:
+            from multiprocessing import forkserver
+
+            forkserver.ensure_running()
+        finally:
+            os.environ.update(saved)
+    _ctx, _ctx_method = ctx, method
+    return ctx
 
 
 def _pipe_recv(pipe, proc, timeout: float):

@@ -48,9 +48,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from torchstore_tpu_torch import sharding
+from torchstore_tpu_torch import faults, sharding
 from torchstore_tpu_torch.client import _PLAN_HITS, _PLAN_INVALIDATIONS, _PLAN_MISSES, Shard
-from torchstore_tpu_torch.logging import Counter, LatencyTracker, get_logger
+from torchstore_tpu_torch.logging import LatencyTracker, get_logger
+from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.ops import staging
 from torchstore_tpu_torch.ops.staging import cast_reference
 from torchstore_tpu_torch.transport import landing
@@ -305,29 +306,29 @@ _FLAG_KEYFRAME = 2
 # of up to 8 dimensions.
 _HEAD_READ = landing.QUANT_HEADER_BYTES + 64
 
-_QUANT_BYTES_IN = Counter(
+_QUANT_BYTES_IN = obs_metrics.counter(
     "ts_quant_bytes_in_total",
     "Full-precision bytes entering the transfer-quantization tier, by fmt",
 )
-_QUANT_BYTES_WIRE = Counter(
+_QUANT_BYTES_WIRE = obs_metrics.counter(
     "ts_quant_bytes_wire_total",
     "Fused quant-blob bytes actually shipped (payload + scales), by fmt",
 )
-_DELTA_SKIPPED = Counter(
+_DELTA_SKIPPED = obs_metrics.counter(
     "ts_delta_skipped_blocks_total", "Near-zero residual blocks a delta publish skipped"
 )
-_DELTA_KEYFRAMES = Counter(
+_DELTA_KEYFRAMES = obs_metrics.counter(
     "ts_delta_keyframes_total", "Full keyframes published by the delta tier"
 )
-_DELTA_UNCHANGED = Counter(
+_DELTA_UNCHANGED = obs_metrics.counter(
     "ts_delta_unchanged_keys_total",
     "Delta publishes of a fully unchanged key (alias, zero bytes shipped)",
 )
-_DELTA_UNCHANGED_SERVED = Counter(
+_DELTA_UNCHANGED_SERVED = obs_metrics.counter(
     "ts_delta_unchanged_served_total",
     "Unchanged-key reads served from the reader's accumulated state, zero re-transfer",
 )
-_MARKER_FETCHES = Counter(
+_MARKER_FETCHES = obs_metrics.counter(
     "ts_state_dict_marker_fetches_total",
     "Commit markers get_state_dict fetched (a plan-cached get fetches none)",
 )
@@ -865,6 +866,9 @@ class DeltaEncoder:
         sig = (tuple(xb.shape), shape, dtype)
         entry = self.entries.get(key)
         if entry is not None:
+            # A fault here (a lost or corrupt baseline) surfaces loudly, never
+            # as a delta over stale bytes.
+            await faults.afire("channel.delta_baseline")
             if entry["sig"] != sig:
                 entry = None  # restructure: the baseline means nothing
             elif entry["base_version"] >= version:
@@ -981,6 +985,9 @@ class DeltaDecoder:
                         f"delta chain for {flat_key!r} resolved to v{st['version']}, "
                         f"expected v{base}"
                     )
+            # A fault here proves a lost baseline fails loudly rather than
+            # accumulating onto stale state.
+            await faults.afire("channel.delta_baseline")
             if st["blocks"].device != dev:
                 st["blocks"] = st["blocks"].to(dev)
             st["blocks"][info["mask"]] += _dequant_codes(info["codes"], info["scales"][:, None])

@@ -6,8 +6,10 @@ over an in-memory dict. A key holds a whole tensor, an object, or the
 shards of a sharded tensor (one per mesh coordinate, ``ShardedEntry``). A
 get may ask for a sub-box of a whole tensor or of one stored shard; the
 transport then returns only that box. Every put gives its keys a new write
-generation. Tiering, the one-sided planes and the health and repair
-endpoints are later work.
+generation. ``inject_fault`` / ``clear_faults`` arm and disarm fault
+points inside the volume's process (``faults.py``), and ``stats()`` carries
+the process's metrics registry. Tiering, the one-sided planes and the
+health and repair endpoints are later work.
 """
 
 from __future__ import annotations
@@ -18,11 +20,19 @@ from typing import Any, Optional
 
 import torch
 
+from torchstore_tpu_torch import faults
+from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability import recorder as obs_recorder
 from torchstore_tpu_torch.runtime import Actor, endpoint
 from torchstore_tpu_torch.transport import shared_memory
 from torchstore_tpu_torch.transport.buffers import Served, TransportBuffer, TransportContext
 from torchstore_tpu_torch.transport.types import Request, TensorMeta, TensorSlice
 from torchstore_tpu_torch.utils import Box, get_hostname, maybe_await
+
+
+_ENTRIES = obs_metrics.gauge("ts_volume_entries", "Entries (keys) resident in this volume")
+_PUT_OPS = obs_metrics.counter("ts_volume_put_ops_total", "Put RPCs served by this volume")
+_GET_OPS = obs_metrics.counter("ts_volume_get_ops_total", "Get RPCs served by this volume")
 
 
 class ShardedEntry(dict):
@@ -39,6 +49,8 @@ class StorageVolume(Actor):
         if shared_memory.is_available():
             # Crashed processes leave segments behind; sweep before serving.
             shared_memory.reap_orphaned_segments()
+        # An unclean exit (faults or errors recorded) leaves its last events.
+        obs_recorder.recorder().arm_exit_dump()
 
     @endpoint
     async def get_id(self) -> dict:
@@ -49,6 +61,7 @@ class StorageVolume(Actor):
 
     @endpoint
     async def handshake(self, buffer: TransportBuffer, metas: list[Request], op: str) -> Any:
+        await faults.afire("volume.handshake")
         existing = self._existing(metas) if op == "put" else {}
         return await maybe_await(buffer.recv_handshake(self.ctx, metas, existing, op))
 
@@ -56,6 +69,8 @@ class StorageVolume(Actor):
     async def put(self, buffer: TransportBuffer, metas: list[Request]) -> dict:
         """Land ``metas``; returns ``{"reply": the transport's put reply,
         "write_gens": {key: new write generation}}``."""
+        await faults.afire("volume.put")
+        _PUT_OPS.inc()
         for meta in metas:
             self._supersede(meta)
         values = await maybe_await(buffer.handle_put_request(self.ctx, metas, self._existing(metas)))
@@ -65,6 +80,8 @@ class StorageVolume(Actor):
                 self.store[meta.key] = values[idx]
             else:
                 self.store.setdefault(meta.key, ShardedEntry())[ts.coordinates] = (ts, values[idx])
+        _ENTRIES.set(len(self.store))
+        obs_recorder.record("volume_op", "put", keys=len(metas))
         return {"reply": buffer.put_reply(), "write_gens": self._bump_write_gens(metas)}
 
     def _bump_write_gens(self, metas: list[Request]) -> dict[str, int]:
@@ -105,6 +122,8 @@ class StorageVolume(Actor):
 
     @endpoint
     async def get(self, buffer: TransportBuffer, metas: list[Request]) -> TransportBuffer:
+        await faults.afire("volume.get")
+        _GET_OPS.inc()
         entries = [self._serve(meta) for meta in metas]
         await maybe_await(buffer.handle_get_request(self.ctx, metas, entries))
         return buffer
@@ -185,7 +204,30 @@ class StorageVolume(Actor):
         cache = self.ctx.peek(shared_memory.ShmServerCache)
         if cache is not None:
             out["shm"] = cache.stats()
+        out["metrics"] = obs_metrics.metrics_snapshot()
         return out
+
+    # ---- fault injection ---------------------------------------------------
+
+    @endpoint
+    async def inject_fault(
+        self,
+        name: str,
+        action: str,
+        count: Optional[int] = None,
+        prob: Optional[float] = None,
+        delay_ms: Optional[float] = None,
+    ) -> dict:
+        """Arm a fault point inside this volume's process (``faults.py``)."""
+        return faults.arm(name, action, count=count, prob=prob, delay_ms=delay_ms)
+
+    @endpoint
+    async def clear_faults(self, name: Optional[str] = None) -> int:
+        return faults.disarm(name)
+
+    @endpoint
+    async def list_faults(self) -> list:
+        return faults.armed()
 
     @endpoint
     async def reset(self) -> None:

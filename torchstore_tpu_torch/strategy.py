@@ -33,6 +33,14 @@ class StorageVolumeRef:
     def is_same_host(self) -> bool:
         return self.hostname == get_hostname()
 
+    def is_inproc(self) -> bool:
+        """True when the volume lives in this process (colocated): its
+        endpoints are direct calls, so transports copy what they store and
+        serve."""
+        from torchstore_tpu_torch.runtime.actors import _inproc_actors
+
+        return (self.actor.host, self.actor.port, self.actor.name) in _inproc_actors
+
 
 class StoreStrategy(ABC):
     """``default_transport_type`` forces one transport for every volume.

@@ -37,27 +37,34 @@ import os
 import time
 from typing import Any, Callable, Optional
 
+from torchstore_tpu_torch import faults
 from torchstore_tpu_torch import state_dict_utils as sdu
-from torchstore_tpu_torch.logging import Counter, Gauge, get_logger
+from torchstore_tpu_torch.logging import get_logger
+from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability.tracing import span
 from torchstore_tpu_torch.utils import get_hostname, maybe_await
 
 logger = get_logger("torchstore_tpu_torch.stream_sync")
 
-_LAYER_BATCHES = Counter(
+_LAYER_BATCHES = obs_metrics.counter(
     "ts_stream_layer_batches_total", "Streamed layer batches published (watermarked put batches)"
 )
-_SEALS = Counter("ts_stream_seals_total", "Streamed publishes sealed")
-_ACQUIRES = Counter("ts_stream_acquires_total", "Streamed acquires completed consistently")
-_FALLBACKS = Counter(
+_SEALS = obs_metrics.counter("ts_stream_seals_total", "Streamed publishes sealed")
+_ACQUIRES = obs_metrics.counter(
+    "ts_stream_acquires_total", "Streamed acquires completed consistently"
+)
+_FALLBACKS = obs_metrics.counter(
     "ts_stream_fallbacks_total", "Streamed acquires that fell back or restarted, by reason"
 )
 # Store keys watermarked at the target version but not yet served by this
 # process's streamed acquire: moves during a stream, settles at 0.
-_LAG = Gauge("ts_stream_lag_keys", "Watermarked-but-unserved keys in this process's streamed acquire")
-_OVERLAP = Gauge(
+_LAG = obs_metrics.gauge(
+    "ts_stream_lag_keys", "Watermarked-but-unserved keys in this process's streamed acquire"
+)
+_OVERLAP = obs_metrics.gauge(
     "ts_stream_overlap_ratio", "Fraction of the publish window the last streamed acquire ran inside"
 )
-_FIRST_LAYER = Gauge(
+_FIRST_LAYER = obs_metrics.gauge(
     "ts_stream_first_layer_seconds", "Stream begin to this subscriber's first served layer"
 )
 
@@ -213,6 +220,7 @@ class StreamedPut:
         """Publish one fragment (a nested or flat dict of leaves) and
         watermark each of its keys at this stream's version; returns the
         number of flat keys."""
+        await faults.afire("channel.publish_layer")
         if self._sealed:
             raise RuntimeError(f"stream for {self.key!r} is already sealed")
         version = await self.begin()
@@ -238,16 +246,18 @@ class StreamedPut:
         aliases: dict[str, tuple] = {}
         if self._quant is not None:
             flat, aliases = await self._encode_quant(flat)
-        if flat:
-            await self._client.put_batch(
-                {sdu._store_key(self.key, k): v for k, v in flat.items()},
-                watermark=(self.key, version),
-                unchanged=aliases or None,
-            )
-        elif aliases:
-            # Every key of the fragment is unchanged: no bytes land, the
-            # aliases alone watermark the keys.
-            await self._client.stream_mark_unchanged(self.key, version, aliases)
+        with span("stream.publish_layer", key=self.key, version=version,
+                  keys=len(flat) + len(aliases)):
+            if flat:
+                await self._client.put_batch(
+                    {sdu._store_key(self.key, k): v for k, v in flat.items()},
+                    watermark=(self.key, version),
+                    unchanged=aliases or None,
+                )
+            elif aliases:
+                # Every key of the fragment is unchanged: no bytes land, the
+                # aliases alone watermark the keys.
+                await self._client.stream_mark_unchanged(self.key, version, aliases)
         _LAYER_BATCHES.inc()
         return len(flat) + len(aliases)
 
@@ -305,7 +315,8 @@ class StreamedPut:
                                        "version": int(self._delta_ctx["version"]),
                                        "aliases": dict(self._aliases)}
             marker["quant"] = quant_meta
-        await self._client.put(sdu._store_key(self.key, sdu.MAPPING_KEY), marker)
+        with span("stream.seal", key=self.key, version=self.version, keys=len(self._leaf_sigs)):
+            await self._client.put(sdu._store_key(self.key, sdu.MAPPING_KEY), marker)
         await self._client.stream_seal(self.key, self.version)
         self._sealed = True
         _SEALS.inc()
@@ -514,53 +525,54 @@ async def _acquire_stream(
             if on_layer is not None:
                 await maybe_await(on_layer(fk, value))
 
-    while not sealed:
-        remaining = None if deadline is None else deadline - time.monotonic()
-        if remaining is not None and remaining <= 0:
-            raise TimeoutError(
-                f"streamed acquire of {key!r} v{target} timed out with "
-                f"{len(served_sks)} layer(s) served"
-            )
-        chunk = poll if remaining is None else min(poll, remaining)
-        try:
-            res = await client.wait_for_stream(key, target, known, timeout=chunk)
-        except TimeoutError:
-            continue  # re-poll: refreshes the deadline accounting
-        if res.get("missing"):
-            raise _Restart("stream_gone")
-        if res["superseded"]:
-            raise _Restart("superseded")
-        adopt_quant(res.get("quant"))
-        alias_of.update(res.get("aliases") or {})
-        ready = res["ready"]
-        known = len(ready)
-        if inconsistent_keys(res, ready, target):
-            # A key watermarked newer than the target: serving it would mix
-            # generations.
-            raise _Restart("mixed_generation")
-        sealed = bool(res["sealed"])
-        fresh = [sk for sk in ready if sk not in served_set]
-        if ordered_sks is not None:
-            # In order: the contiguous ready prefix of the caller's order;
-            # the rest (keys outside the order, or held behind an entry the
-            # publisher never pushed) is served at the seal, still in order.
-            ready_set = set(ready)
-            wave: list[str] = []
-            for sk in ordered_sks:
-                if sk in served_set:
-                    continue
-                if sk not in ready_set:
-                    break
-                wave.append(sk)
-            if sealed:
-                pos = {sk: i for i, sk in enumerate(ordered_sks)}
-                in_wave = set(wave)
-                wave += sorted((sk for sk in fresh if sk not in in_wave),
-                               key=lambda sk: (pos.get(sk, len(pos)), sk))
-            await serve(wave)
-        else:
-            await serve(fresh)
-        _LAG.set(known - len(served_sks))
+    with span("stream.acquire", key=key, version=target):
+        while not sealed:
+            remaining = None if deadline is None else deadline - time.monotonic()
+            if remaining is not None and remaining <= 0:
+                raise TimeoutError(
+                    f"streamed acquire of {key!r} v{target} timed out with "
+                    f"{len(served_sks)} layer(s) served"
+                )
+            chunk = poll if remaining is None else min(poll, remaining)
+            try:
+                res = await client.wait_for_stream(key, target, known, timeout=chunk)
+            except TimeoutError:
+                continue  # re-poll: refreshes the deadline accounting
+            if res.get("missing"):
+                raise _Restart("stream_gone")
+            if res["superseded"]:
+                raise _Restart("superseded")
+            adopt_quant(res.get("quant"))
+            alias_of.update(res.get("aliases") or {})
+            ready = res["ready"]
+            known = len(ready)
+            if inconsistent_keys(res, ready, target):
+                # A key watermarked newer than the target: serving it would mix
+                # generations.
+                raise _Restart("mixed_generation")
+            sealed = bool(res["sealed"])
+            fresh = [sk for sk in ready if sk not in served_set]
+            if ordered_sks is not None:
+                # In order: the contiguous ready prefix of the caller's order;
+                # the rest (keys outside the order, or held behind an entry the
+                # publisher never pushed) is served at the seal, still in order.
+                ready_set = set(ready)
+                wave: list[str] = []
+                for sk in ordered_sks:
+                    if sk in served_set:
+                        continue
+                    if sk not in ready_set:
+                        break
+                    wave.append(sk)
+                if sealed:
+                    pos = {sk: i for i, sk in enumerate(ordered_sks)}
+                    in_wave = set(wave)
+                    wave += sorted((sk for sk in fresh if sk not in in_wave),
+                                   key=lambda sk: (pos.get(sk, len(pos)), sk))
+                await serve(wave)
+            else:
+                await serve(fresh)
+            _LAG.set(known - len(served_sks))
 
     # The seal: structure, then the consistency re-check.
     marker_sk = sdu._store_key(key, sdu.MAPPING_KEY)

@@ -25,17 +25,31 @@ client-only state in ``__getstate__``.
 
 from __future__ import annotations
 
+import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Optional
 
 import torch
 
+from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability import recorder as obs_recorder
+from torchstore_tpu_torch.observability.tracing import span
 from torchstore_tpu_torch.transport.types import Request
 from torchstore_tpu_torch.utils import maybe_await
 
 if TYPE_CHECKING:
     from torchstore_tpu_torch.strategy import StorageVolumeRef
+
+# Per-transport instruments of the client side, by rung and op.
+_OPS = obs_metrics.counter("ts_transport_ops_total", "Data-plane transfers by transport and op")
+_BYTES = obs_metrics.counter(
+    "ts_transport_bytes_total", "Logical payload bytes handed to / received from each transport"
+)
+_ERRORS = obs_metrics.counter("ts_transport_errors_total", "Failed transfers by transport and op")
+_OP_SECONDS = obs_metrics.histogram(
+    "ts_transport_op_seconds", "Wall time of one transfer by transport and op"
+)
 
 # Data-plane RPCs carry (or wait on) tensor bytes: their deadline grows with
 # the payload, at a conservative floor rate.
@@ -123,43 +137,77 @@ class TransportBuffer(ABC):
             if not req.is_object and req.tensor_val is None:
                 raise ValueError(f"put of key {req.key!r} carries no tensor data")
         nbytes = sum(r.nbytes for r in requests)
+        t0 = time.perf_counter()
         try:
-            if self.requires_handshake and "put" in self.handshake_ops:
-                await self._perform_handshake(volume, requests, op="put")
-            await self._pre_put_hook(volume, requests)
-            metas = [r.meta_only() for r in requests]
-            put = volume.actor.put
-            reply = await put.with_timeout(
-                transfer_timeout(put.effective_timeout(), nbytes)
-            ).call_one(self, metas)
-            self.write_gens = reply["write_gens"]
-            self._handle_put_reply(volume, reply["reply"], requests)
+            with span("transport.put", transport=self.transport_name, volume=volume.volume_id,
+                      keys=len(requests), nbytes=nbytes):
+                if self.requires_handshake and "put" in self.handshake_ops:
+                    await self._perform_handshake(volume, requests, op="put")
+                await self._pre_put_hook(volume, requests)
+                metas = [r.meta_only() for r in requests]
+                put = volume.actor.put
+                reply = await put.with_timeout(
+                    transfer_timeout(put.effective_timeout(), nbytes)
+                ).call_one(self, metas)
+                self.write_gens = reply["write_gens"]
+                self._handle_put_reply(volume, reply["reply"], requests)
+            self._count("put", nbytes, t0, volume, len(requests))
+        except BaseException as exc:
+            self._count_error("put", volume, exc)
+            raise
         finally:
             self.drop()
 
     async def get_from_storage_volume(
         self, volume: "StorageVolumeRef", requests: list[Request]
     ) -> list[Any]:
+        t0 = time.perf_counter()
         try:
-            await self._pre_get_hook(volume, requests)
-            metas = [r.meta_only() for r in requests]
-            nbytes = sum(m.tensor_meta.nbytes for m in metas if m.tensor_meta is not None)
-            get = volume.actor.get
-            remote = await get.with_timeout(
-                transfer_timeout(get.effective_timeout(), nbytes)
-            ).call_one(self, metas)
-            return await maybe_await(
-                self._handle_storage_volume_response(volume, remote, requests)
-            )
+            with span("transport.get", transport=self.transport_name, volume=volume.volume_id,
+                      keys=len(requests)) as sp:
+                await self._pre_get_hook(volume, requests)
+                metas = [r.meta_only() for r in requests]
+                nbytes = sum(m.tensor_meta.nbytes for m in metas if m.tensor_meta is not None)
+                sp.set(nbytes=nbytes)
+                get = volume.actor.get
+                remote = await get.with_timeout(
+                    transfer_timeout(get.effective_timeout(), nbytes)
+                ).call_one(self, metas)
+                results = await maybe_await(
+                    self._handle_storage_volume_response(volume, remote, requests)
+                )
+            self._count("get", nbytes, t0, volume, len(requests))
+            return results
+        except BaseException as exc:
+            self._count_error("get", volume, exc)
+            raise
         finally:
             self.drop()
+
+    def _count(self, op: str, nbytes: int, t0: float, volume, keys: int) -> None:
+        _OPS.inc(transport=self.transport_name, op=op)
+        _BYTES.inc(nbytes, transport=self.transport_name, op=op)
+        _OP_SECONDS.observe(time.perf_counter() - t0, transport=self.transport_name, op=op)
+        obs_recorder.record("transfer", f"{op}/{self.transport_name}",
+                            volume=volume.volume_id, keys=keys, nbytes=nbytes)
+
+    def _count_error(self, op: str, volume, exc: BaseException) -> None:
+        _ERRORS.inc(transport=self.transport_name, op=op)
+        obs_recorder.record("error", f"{op}/{self.transport_name}", volume=volume.volume_id,
+                            error=f"{type(exc).__name__}: {exc}"[:200])
 
     async def _perform_handshake(
         self, volume: "StorageVolumeRef", requests: list[Request], op: str
     ) -> None:
         self._pre_handshake(volume, requests, op)
         metas = [r.meta_only() for r in requests]
-        reply = await volume.actor.handshake.call_one(self, metas, op)
+        from torchstore_tpu_torch.config import default_config
+
+        # A buffer that carries the caller's config (shm) takes its timeout.
+        config = getattr(self, "config", None) or default_config()
+        reply = await volume.actor.handshake.with_timeout(config.handshake_timeout).call_one(
+            self, metas, op
+        )
         await maybe_await(self._post_handshake(volume, requests, reply, op))
 
     def _pre_handshake(self, volume, requests, op) -> None:  # noqa: B027

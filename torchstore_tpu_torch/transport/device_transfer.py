@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from torchstore_tpu_torch.observability.tracing import span
 from torchstore_tpu_torch.utils import get_hostname
 
 # The placement of a staged tensor in host memory (a source whose leaves
@@ -142,13 +143,14 @@ class DeviceTransferEngine:
 
         device_at = _rebuild_signature().index("storage_device")
         out = []
-        for uuid, args in exported:
-            index = card_index(uuid)
-            if index is None:
-                raise ValueError(f"card {uuid} is not visible in this process")
-            args = list(args)
-            args[device_at] = index
-            out.append(rebuild_cuda_tensor(*args))
+        with span("transport.pull_device", transport="ipc", blocks=len(exported), fresh=fresh):
+            for uuid, args in exported:
+                index = card_index(uuid)
+                if index is None:
+                    raise ValueError(f"card {uuid} is not visible in this process")
+                args = list(args)
+                args[device_at] = index
+                out.append(rebuild_cuda_tensor(*args))
         if fresh:
             self.opens += len(out)
         return out

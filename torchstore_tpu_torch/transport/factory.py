@@ -2,13 +2,16 @@
 
 Port of ``torchstore_tpu/transport/factory.py`` without the bulk-TCP and
 device rungs. A transport forced on the volume ref (from the strategy)
-wins over the automatic choice.
+wins over the automatic choice. ``demotion_ladder`` lists the rungs a
+failed put may retry on, best first (shm -> rpc). A volume hosted in this
+process (colocated) gets buffers that copy what they store and serve:
+nothing is serialized on that path.
 """
 
 from __future__ import annotations
 
 from enum import Enum
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Optional, Union
 
 from torchstore_tpu_torch.config import StoreConfig, default_config
 from torchstore_tpu_torch.transport import shared_memory
@@ -29,15 +32,48 @@ def shm_available(volume: "StorageVolumeRef", config: StoreConfig) -> bool:
     return config.shm_enabled and volume.is_same_host() and shared_memory.is_available()
 
 
-def create_transport_buffer(
-    volume: "StorageVolumeRef", config: Optional[StoreConfig] = None
-) -> TransportBuffer:
-    config = config or default_config()
+def _forced(volume: "StorageVolumeRef") -> Optional[TransportType]:
     forced = volume.transport_type
     if forced in (None, TransportType.UNSET, TransportType.UNSET.value):
-        chosen = TransportType.SHM if shm_available(volume, config) else TransportType.RPC
+        return None
+    return TransportType(forced)
+
+
+def demotion_ladder(
+    volume: "StorageVolumeRef", config: Optional[StoreConfig] = None
+) -> list[TransportType]:
+    """The rungs a put retry may walk down, best first, starting at the one
+    ``create_transport_buffer`` picks: a broken shm handshake demotes to
+    rpc instead of surfacing. rpc rides the actor channel itself and is
+    always last. A volume pinned to a rung never retries above it."""
+    config = config or default_config()
+    start = _forced(volume)
+    available = {TransportType.SHM: shm_available(volume, config), TransportType.RPC: True}
+    rungs: list[TransportType] = []
+    for rung in (TransportType.SHM, TransportType.RPC):
+        if start is not None and not rungs:
+            if rung == start:
+                rungs.append(rung)  # the pin itself: the rung that failed
+            continue
+        if available[rung]:
+            rungs.append(rung)
+    return rungs or [TransportType.RPC]
+
+
+def create_transport_buffer(
+    volume: "StorageVolumeRef",
+    config: Optional[StoreConfig] = None,
+    force: Optional[Union[TransportType, str]] = None,
+) -> TransportBuffer:
+    """A buffer of the rung ``force`` names, else the volume's forced rung,
+    else shm when it is available and rpc otherwise."""
+    config = config or default_config()
+    if force is not None:
+        chosen = TransportType(force)
     else:
-        chosen = TransportType(forced)
+        chosen = _forced(volume)
+        if chosen is None:
+            chosen = TransportType.SHM if shm_available(volume, config) else TransportType.RPC
     if chosen == TransportType.SHM:
-        return shared_memory.SharedMemoryTransportBuffer(config)
-    return RPCTransportBuffer()
+        return shared_memory.SharedMemoryTransportBuffer(config, inproc_copy=volume.is_inproc())
+    return RPCTransportBuffer(inproc_copy=volume.is_inproc())

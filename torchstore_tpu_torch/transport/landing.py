@@ -65,6 +65,15 @@ def get_executor(config: Optional[StoreConfig] = None) -> ThreadPoolExecutor:
         return _exec
 
 
+def reinit_after_fork() -> None:
+    """A forked child inherits a pool whose threads did not survive the
+    fork: drop it, so the first landing makes a live one."""
+    global _exec, _exec_threads, _exec_lock
+    _exec = None
+    _exec_threads = 0
+    _exec_lock = threading.Lock()
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 

@@ -48,3 +48,9 @@ def side_stream(device: torch.device) -> "torch.cuda.Stream":
     if stream is None:
         stream = _side_streams[device] = torch.cuda.Stream(device=device)
     return stream
+
+
+def reinit_after_fork() -> None:
+    """A forked child keeps no stream of its parent (a forked process cannot
+    use its parent's CUDA state): each is made again on first use."""
+    _side_streams.clear()

@@ -3,10 +3,14 @@
 Port of ``torchstore_tpu/transport/rpc.py``, the rung that always works.
 CPU tensors travel as out-of-band pickle buffers; a CUDA tensor is staged
 to the host before the frame is written (frames refuse device tensors).
+A colocated volume's endpoints are called without serialization, so with
+``inproc_copy`` the volume copies what it stores and what it serves, as the
+frames would have.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import torch
@@ -18,10 +22,11 @@ from torchstore_tpu_torch.transport.types import Request
 class RPCTransportBuffer(TransportBuffer):
     transport_name = "rpc"
 
-    def __init__(self) -> None:
+    def __init__(self, inproc_copy: bool = False) -> None:
         # index -> payload; filled by the client on put, by the volume on get.
         self.tensors: dict[int, torch.Tensor] = {}
         self.objects: dict[int, Any] = {}
+        self.inproc_copy = inproc_copy
 
     # ---- client ----------------------------------------------------------
 
@@ -53,8 +58,10 @@ class RPCTransportBuffer(TransportBuffer):
     def handle_put_request(
         self, ctx: TransportContext, metas: list[Request], existing: dict[int, Any]
     ) -> dict[int, Any]:
-        out: dict[int, Any] = dict(self.objects)
-        out.update(self.tensors)  # already private copies: they were framed
+        if not self.inproc_copy:  # private copies already: they were framed
+            return {**self.objects, **self.tensors}
+        out: dict[int, Any] = {idx: copy.deepcopy(obj) for idx, obj in self.objects.items()}
+        out.update((idx, t.clone()) for idx, t in self.tensors.items())
         return out
 
     def handle_get_request(
@@ -62,6 +69,8 @@ class RPCTransportBuffer(TransportBuffer):
     ) -> None:
         for idx, (meta, entry) in enumerate(zip(metas, entries)):
             if meta.is_object:
-                self.objects[idx] = entry
+                self.objects[idx] = copy.deepcopy(entry) if self.inproc_copy else entry
+            elif self.inproc_copy:
+                self.tensors[idx] = entry.part().clone()  # never hand out the stored storage
             else:
                 self.tensors[idx] = entry.part()  # the frame carries only the part's bytes

@@ -819,9 +819,13 @@ class SharedMemoryTransportBuffer(TransportBuffer):
     transport_name = "shm"
     requires_handshake = True
 
-    def __init__(self, config: Optional[StoreConfig] = None) -> None:
+    def __init__(self, config: Optional[StoreConfig] = None, inproc_copy: bool = False) -> None:
         # Travels with the buffer: the volume reads its pool cap from it.
         self.config = config
+        # A colocated volume's endpoints are called without serialization:
+        # objects would be stored and served by reference (tensors are safe,
+        # they live in segments), so they are copied.
+        self.inproc_copy = inproc_copy
         self.descriptors: dict[int, ShmDescriptor] = {}
         self.inline: dict[int, torch.Tensor] = {}
         self.objects: dict[int, Any] = {}
@@ -981,6 +985,11 @@ class SharedMemoryTransportBuffer(TransportBuffer):
     def recv_handshake(
         self, ctx: TransportContext, metas: list[Request], existing: dict[int, Any], op: str
     ) -> Any:
+        # A sync fault point: a wedge here blocks the volume's event loop, so
+        # the whole process (pings included) looks stuck.
+        from torchstore_tpu_torch import faults
+
+        faults.fire("shm.handshake")
         if op != "put":
             return None
         cache: ShmServerCache = ctx.get_cache(ShmServerCache)
@@ -1044,7 +1053,9 @@ class SharedMemoryTransportBuffer(TransportBuffer):
         cache: ShmServerCache = ctx.get_cache(ShmServerCache)
         cache.adopt_config(self.config)
         cache.apply_releases(self.released)
-        out: dict[int, Any] = dict(self.objects)
+        out: dict[int, Any] = {
+            idx: _copy_obj(obj) if self.inproc_copy else obj for idx, obj in self.objects.items()
+        }
         cold_sizes: list[int] = []
         cold_inline: list[int] = []
         for idx, tensor in self.inline.items():
@@ -1128,7 +1139,7 @@ class SharedMemoryTransportBuffer(TransportBuffer):
         cache.sweep()
         for idx, (meta, entry) in enumerate(zip(metas, entries)):
             if meta.is_object:
-                self.objects[idx] = entry
+                self.objects[idx] = _copy_obj(entry) if self.inproc_copy else entry
                 continue
             served: Served = entry
             part = served.part()
@@ -1203,6 +1214,12 @@ class SharedMemoryTransportBuffer(TransportBuffer):
         for fn in done:
             fn()
         return results
+
+
+def _copy_obj(obj: Any) -> Any:
+    import copy
+
+    return copy.deepcopy(obj)
 
 
 def _coords(meta: Request) -> Optional[tuple]:

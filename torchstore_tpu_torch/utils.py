@@ -3,8 +3,8 @@
 PyTorch port of ``torchstore_tpu/utils.py``: ``Box`` regions of a global
 index space, their intersection, coverage and bounding box, destination
 views into torch tensors for in-place landings, the assembly of fetched
-parts into one tensor, the host identity, and the fire-and-forget task
-helper. Tensors may live on the CPU or a CUDA device.
+parts into one tensor, the host identity, a free port, and the
+fire-and-forget task helper. Tensors may live on the CPU or a CUDA device.
 """
 
 from __future__ import annotations
@@ -20,7 +20,13 @@ from typing import Optional, Sequence
 
 import torch
 
+from torchstore_tpu_torch.observability import metrics as obs_metrics
+
 ENV_HOSTNAME = "TORCHSTORE_TORCH_HOSTNAME"
+
+_BG_ERRORS = obs_metrics.counter(
+    "ts_background_task_errors_total", "Fire-and-forget tasks that failed, by task name"
+)
 
 
 @dataclass(frozen=True)
@@ -225,12 +231,21 @@ def get_hostname() -> str:
     return os.environ.get(ENV_HOSTNAME) or socket.gethostname()
 
 
+def get_free_port() -> int:
+    """A TCP port on the loopback that was free when asked (another process
+    may take it before the caller binds it)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def spawn_logged(
     coro, *, name: str, tasks: Optional[set] = None, log=None
 ) -> "asyncio.Future":
     """``asyncio.ensure_future`` that keeps the task in ``tasks`` until it
-    is done and logs its exception instead of letting it vanish.
-    Cancellation is not an error."""
+    is done, and logs and counts (``ts_background_task_errors_total``) its
+    exception instead of letting it vanish. Cancellation is not an error."""
     task = asyncio.ensure_future(coro)
     if tasks is not None:
         tasks.add(task)
@@ -242,6 +257,7 @@ def spawn_logged(
             return
         exc = t.exception()
         if exc is not None:
+            _BG_ERRORS.inc(task=name)
             (log or logging.getLogger("torchstore_tpu_torch.tasks")).error(
                 "background task %r failed: %r", name, exc, exc_info=exc
             )

@@ -33,22 +33,28 @@ import time
 from typing import Any, Optional
 
 from torchstore_tpu_torch import state_dict_utils as sdu
-from torchstore_tpu_torch.logging import Counter, Gauge, get_logger
+from torchstore_tpu_torch.logging import get_logger
+from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability.tracing import span
 from torchstore_tpu_torch.state_dict_utils import NoMatchingPush
 
 logger = get_logger("torchstore_tpu_torch.weight_channel")
 
-_PUBLISHES = Counter("ts_weight_channel_publishes_total", "Versions published, per channel")
-_PUBLISHED_VERSION = Gauge("ts_weight_channel_published_version", "Latest version published")
-_ACQUIRED_VERSION = Gauge(
+_PUBLISHES = obs_metrics.counter(
+    "ts_weight_channel_publishes_total", "Versions published, per channel"
+)
+_PUBLISHED_VERSION = obs_metrics.gauge(
+    "ts_weight_channel_published_version", "Latest version published"
+)
+_ACQUIRED_VERSION = obs_metrics.gauge(
     "ts_weight_channel_acquired_version", "Latest version a subscriber pulled"
 )
-_VERSION_LAG = Gauge(
+_VERSION_LAG = obs_metrics.gauge(
     "ts_weight_channel_version_lag",
     "Versions between the channel pointer and what this subscriber last acquired, "
     "measured at wakeup (0 = consuming every publish)",
 )
-_SKIPPED = Counter(
+_SKIPPED = obs_metrics.counter(
     "ts_weight_channel_versions_skipped_total",
     "Published versions a subscriber never pulled (lagged past)",
 )
@@ -248,8 +254,10 @@ class WeightPublisher:
         else:
             data_key = _version_key(self.name, version)
             quant_mode, delta_ctx = self._delta_ctx_for(client, version, transfer_quant, delta)
-        await sdu.put_state_dict(client, data_key, state_dict, transfer_dtype=transfer_dtype,
-                                 transfer_quant=quant_mode, direct=direct, delta_ctx=delta_ctx)
+        with span("weight_channel.publish", channel=self.name, version=version, direct=direct):
+            await sdu.put_state_dict(client, data_key, state_dict,
+                                     transfer_dtype=transfer_dtype, transfer_quant=quant_mode,
+                                     direct=direct, delta_ctx=delta_ctx)
         # The pointer last: subscribers woken by it see a committed dict.
         await self._commit(client, version)
         if not direct:
@@ -325,7 +333,8 @@ class ChannelStream:
         pub = self._pub
         client = pub._resolve_client()
         version = self.version
-        await self._stream.seal()
+        with span("weight_channel.publish", channel=pub.name, version=version, streamed=True):
+            await self._stream.seal()
         # The pointer last: barrier subscribers see a sealed dict.
         await pub._commit(client, version)
         await pub._gc(client, version)
@@ -423,10 +432,12 @@ class WeightSubscriber:
                     continue
                 data_key = f"{self.name}/direct" if direct else _version_key(self.name, version)
                 self._observe_lag(version, epoch)
-                sd = await sdu.get_state_dict(
-                    client, data_key, user_state_dict, direct=direct, strict=strict,
-                    delta_state=None if direct else self._delta_decoder(epoch),
-                )
+                with span("weight_channel.acquire", channel=self.name, version=version,
+                          direct=direct):
+                    sd = await sdu.get_state_dict(
+                        client, data_key, user_state_dict, direct=direct, strict=strict,
+                        delta_state=None if direct else self._delta_decoder(epoch),
+                    )
             except (NoMatchingPush, KeyError):
                 # The pointer or the version went between the wakeup and
                 # the pull (a deleted channel, or a subscriber lagging more
@@ -476,12 +487,15 @@ class WeightSubscriber:
             data_key = _version_key(self.name, version)
             self._observe_lag(version, epoch)
             try:
-                sd = await stream_sync.get_state_dict_streamed(
-                    client, data_key, user_state_dict=user_state_dict, key_order=key_order,
-                    on_layer=on_layer, strict=strict,
-                    timeout=None if deadline is None else max(0.0, deadline - time.monotonic()),
-                    delta_state=self._delta_decoder(epoch),
-                )
+                with span("weight_channel.acquire", channel=self.name, version=version,
+                          streamed=True):
+                    sd = await stream_sync.get_state_dict_streamed(
+                        client, data_key, user_state_dict=user_state_dict,
+                        key_order=key_order, on_layer=on_layer, strict=strict,
+                        timeout=None if deadline is None
+                        else max(0.0, deadline - time.monotonic()),
+                        delta_state=self._delta_decoder(epoch),
+                    )
             except (NoMatchingPush, KeyError):
                 # The announced version went before the pull (GC'd under a
                 # lagging subscriber, or a crashed publisher's partial was
