@@ -169,7 +169,8 @@ Phases, each printing one JSON line:
                   servers, no segment or process left; then 2000 put+get of a
                   4 KiB CPU tensor, p50 / p99 us per op, colocated and against
                   a spawned volume; (c) faults on a spawned volume (2 of 32
-                  layers: the demoted put moves the bytes in RPC frames): a
+                  layers: the demoted put moves the bytes in RPC frames; the
+                  store's bulk rung off, so the ladder is shm -> rpc): a
                   put whose first landing raises lands on the rpc rung, a get
                   whose first fetch raises is retried once, a notify delayed
                   200 ms; gates: bit-equal, put_retries{transport=rpc},
@@ -185,7 +186,54 @@ Phases, each printing one JSON line:
                   traces parented by a client span; printed: span counts and
                   total ms per warm step, and the repull's open / land /
                   generation split;
-16. kernels     - one line listing every ported kernel.
+16. bulk        - a cross-host store on one box over the bulk TCP rung, at
+                  the depth a printed plan of card and host memory allows:
+                  one volume spawned with a TORCHSTORE_TORCH_HOSTNAME of its
+                  own (``initialize(volume_env_fn=...)``), every listener on
+                  127.0.0.2, auth on; put, get, reput, reget, reput2, reget2
+                  of the Llama-3-8B state dict (fp32 on the card) into the
+                  same bf16 targets on the card; per step s, GB/s, rung,
+                  dials (main + stripe), striped payloads and the split of
+                  the card path (receive vs waits for the copies to the
+                  card on gets, waits for the copies from the card vs send
+                  on puts); gates: the ladder picks bulk unforced for the
+                  other host and every step is on it, every target
+                  bit-equal to its source's bf16 cast, K1 launches per put =
+                  the planner's chunks with no fallback, the warm steps dial
+                  nothing, a striped payload each way, native calls in the
+                  volume's process, no card memory left by a get, every
+                  listener on 127.0.0.2, no tst_shm_ segment and no process
+                  left; then a fault leg at 2 layers: the client's first
+                  bulk frame raises (bulk.send_frame), the batch lands on
+                  rpc with ts_client_put_retries_total{transport=rpc} and
+                  failovers{op=put} at 1, and after clearing it a get over
+                  bulk reads it back bit-equal;
+17. landing     - host-to-host landings at main's sizes (the Llama-3-8B
+                  state dict in bf16, pageable host tensors on both ends,
+                  depth from a printed plan of host memory): the landing
+                  pool's Tensor.copy_ row blocks (the native library off)
+                  against one native copy_batch submission of the same row
+                  blocks with the same threads, in the order pool, native,
+                  native, pool; s and GB/s each; gates: every destination
+                  bit-equal to its source after each landing, native calls
+                  only in the native runs;
+18. spmd        - four processes launched with torchrun's variables (RANK,
+                  WORLD_SIZE=4, LOCAL_RANK, LOCAL_WORLD_SIZE=2,
+                  MASTER_ADDR=127.0.0.1, an ephemeral MASTER_PORT), an auth
+                  secret and two emulated hosts (ranks 0-1 the trainer host,
+                  2-3 the generator host), LocalRankStrategy, all on the one
+                  card, at the depth a printed memory plan allows: each
+                  rank times initialize_spmd; the trainer ranks put their
+                  Shard(0) half of the fp32 state dict (bf16 on the wire),
+                  barrier, the generator ranks get their tensor-parallel
+                  bf16 half on the card from the other host's volumes; then
+                  a reput / reget after an in-place step, and the two-phase
+                  shutdown; gates: every target bit-equal, every generator
+                  read on the bulk rung (the trainers' puts on shm, their
+                  own host), K1 launches = the planner's chunks on every
+                  trainer put, no card memory left by a get, every rank
+                  exits 0, no process left;
+19. kernels     - one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints no
@@ -214,7 +262,7 @@ except ImportError:  # alone in a directory: main() finds no package and fails
 ALL_PHASES = (
     "device", "build", "parity", "timing", "main", "reshard", "quant", "channel",
     "flash_parity", "flash_timing", "ring", "model", "rl", "direct_device", "runtime",
-    "kernels",
+    "bulk", "landing", "spmd", "kernels",
 )
 
 # Llama-3-8B geometry (the store's north-star state dict: 291 tensors).
@@ -641,6 +689,12 @@ def main() -> int:
             res = phase_direct_device(torch, staging)
         elif phase == "runtime":
             res = phase_runtime(torch, staging)
+        elif phase == "bulk":
+            res = phase_bulk(torch, staging)
+        elif phase == "landing":
+            res = phase_landing(torch)
+        elif phase == "spmd":
+            res = phase_spmd(torch, staging)
         else:
             res = phase_kernels(results)
         res["seconds"] = time.perf_counter() - t0
@@ -3277,7 +3331,9 @@ async def _fault_leg(torch, staging, layers: int, dev, geometry=None) -> dict:
 
     staging.cast_kernel.launches = 0
     staging.cast_kernel.fallbacks = 0
-    await tst.initialize(store_name="faults")
+    # The demoted put stays on the rpc rung that earlier records measured
+    # (shm -> rpc): the bulk rung's own demotion is the bulk phase's.
+    await tst.initialize(store_name="faults", config=tst.StoreConfig(bulk_tcp_enabled=False))
     pids = [p.pid for p in multiprocessing.active_children()] + [os.getpid()]
     client = tst.client("faults")
     rows, checks = {}, []
@@ -3538,6 +3594,640 @@ def phase_runtime(torch, staging) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# bulk: a cross-host store on one box, over the bulk TCP rung
+# --------------------------------------------------------------------------
+
+BULK_SECRET = "chip-smoke-bulk-secret"
+BULK_BIND = "127.0.0.2"  # every listener of the phase: nothing on 127.0.0.1
+BULK_VOLUME_HOST = "tst-bulk-volume-host"  # the volume's emulated host
+BULK_STEPS = (("put", "get"), ("reput", "reget"), ("reput2", "reget2"))
+BULK_WARM = ("reput", "reget", "reput2", "reget2")
+BULK_RUNGS = ("shm", "bulk", "rpc")
+
+
+def _tcp_listeners(pids) -> set:
+    """(ip, port) of every listening IPv4 TCP socket the processes hold."""
+    inodes = set()
+    for pid in pids:
+        try:
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                try:
+                    link = os.readlink(f"/proc/{pid}/fd/{fd}")
+                except OSError:
+                    continue
+                if link.startswith("socket:["):
+                    inodes.add(link[8:-1])
+        except OSError:
+            continue
+    out = set()
+    with open("/proc/net/tcp") as f:
+        next(f)
+        for line in f:
+            parts = line.split()
+            if parts[3] != "0A" or parts[9] not in inodes:  # 0A: LISTEN
+                continue
+            ip_hex, port_hex = parts[1].split(":")
+            out.add((".".join(str(int(ip_hex[i:i + 2], 16)) for i in (6, 4, 2, 0)),
+                     int(port_hex, 16)))
+    return out
+
+
+def _rung_ops() -> dict:
+    """This process's transfers so far, by (rung, op)."""
+    from torchstore_tpu_torch.observability import metrics
+
+    c = metrics.counter("ts_transport_ops_total")
+    return {f"{r}_{op}": c.value(transport=r, op=op) for r in BULK_RUNGS for op in ("put", "get")}
+
+
+def _rungs_of(moved: dict, op: str) -> list:
+    return sorted(r for r in BULK_RUNGS if moved[f"{r}_{op}"])
+
+
+def _striped_counts() -> dict:
+    from torchstore_tpu_torch.observability import metrics
+
+    c = metrics.counter("ts_bulk_striped_transfers_total")
+    return {"put": c.value(direction="put"), "get": c.value(direction="get")}
+
+
+def _series_total(snapshot: dict, name: str) -> float:
+    return sum(s["value"] for s in snapshot.get(name, {}).get("series", []))
+
+
+def _llama_params(layers: int) -> int:
+    from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
+
+    return sum(math.prod(s) for s in _leaves(llama_shapes(**{**LLAMA3_8B, "layers": layers})))
+
+
+def plan_bulk_layers(torch, dev) -> tuple[int, dict]:
+    """Depth that fits: on the card the fp32 source, its bf16 cast during a
+    put and the bf16 targets (8 bytes a parameter), beside what the card
+    holds already; on the host the volume's entries and the fresh buffers
+    a reput lands in before they replace them (4 bytes a parameter)."""
+    free, total = torch.cuda.mem_get_info(dev)
+    card_budget = 0.9 * free
+    host_budget = 0.8 * mem_available_bytes()
+    layers = LAYERS
+    while layers > 1 and (8 * _llama_params(layers) > card_budget
+                          or 4 * _llama_params(layers) > host_budget):
+        layers -= 1
+    return layers, {"card_budget_bytes": int(card_budget), "card_needed_bytes":
+                    8 * _llama_params(layers), "host_budget_bytes": int(host_budget),
+                    "host_needed_bytes": 4 * _llama_params(layers)}
+
+
+async def _bulk_path(torch, staging, layers: int, dev, geometry=None,
+                     fault_layers: int = FAULT_LAYERS) -> dict:
+    """The Llama-3-8B state dict (fp32 on the card) put, got, reput, regot
+    twice into the same bf16 targets on the card through a volume that
+    reports another host (its own TORCHSTORE_TORCH_HOSTNAME), every
+    listener on 127.0.0.2, auth on: the ladder picks the bulk rung unforced.
+    Then the fault leg: a put whose first bulk frame raises lands on rpc."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch import config as config_mod
+    from torchstore_tpu_torch.config import ENV_AUTH_SECRET, ENV_BIND_HOST, ENV_HOSTNAME
+    from torchstore_tpu_torch.observability import metrics
+    from torchstore_tpu_torch.transport.factory import auto_select, demotion_ladder
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    cuda = dev.type == "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers,
+                           **(geometry or {}))
+    targets = _bf16_zeros_like(torch, src, dev)
+    n_params = sum(t.numel() for t in _leaves(src))
+    wire = 2 * n_params
+    chunks = len(staging.plan_chunks(list(_leaves(src)), bf16))
+
+    def check(label: str, tgt=None, source=None) -> dict:
+        bad = sum(1 for t, s in _pairs(targets if tgt is None else tgt,
+                                       src if source is None else source)
+                  if not torch.equal(t.view(torch.int16), s.to(bf16).view(torch.int16)))
+        return {"check": label, "bit_equal": not bad, "mismatched_tensors": bad}
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    staging.cast_kernel.launches = 0  # count the bulk path's launches only
+    staging.cast_kernel.fallbacks = 0
+    children0 = {p.pid for p in multiprocessing.active_children()}
+    mine0 = _tcp_listeners([os.getpid()])
+    os.environ[ENV_BIND_HOST] = BULK_BIND
+    t0 = time.perf_counter()
+    await tst.initialize(store_name="bulk", config=tst.StoreConfig(auth_secret=BULK_SECRET),
+                         volume_env_fn=lambda rank: {ENV_HOSTNAME: BULK_VOLUME_HOST})
+    out: dict = {"layers": layers, "tensors": sum(1 for _ in _leaves(src)), "params": n_params,
+                 "wire_bytes": wire, "chunks": chunks, "initialize_s": time.perf_counter() - t0}
+    pids = [p.pid for p in multiprocessing.active_children() if p.pid not in children0]
+    client = tst.client("bulk")
+    steps: dict = {}
+    checks = []
+    try:
+        await client._ensure_setup()
+        (volume,) = client._volume_refs.values()
+        out["choice"] = {"auto": auto_select(volume, client.config).value,
+                         "ladder": [r.value for r in demotion_ladder(volume, client.config)],
+                         "forced": volume.transport_type, "volume_host": volume.hostname,
+                         "same_host": volume.is_same_host()}
+        out["listeners"] = sorted(_tcp_listeners(pids)
+                                  | (_tcp_listeners([os.getpid()]) - mine0))
+        for n, (put, get) in enumerate(BULK_STEPS):
+            if n:
+                for t in _leaves(src):
+                    t.add_(1.0)  # the training step, in place
+            for name, coro_fn, cast in ((put, lambda: tst.put_state_dict(
+                    "policy", src, transfer_dtype=bf16, store_name="bulk"), True),
+                    (get, lambda: tst.get_state_dict("policy", targets, store_name="bulk"),
+                     False)):
+                if not cast:
+                    for t in _leaves(targets):
+                        t.zero_()
+                sync()
+                ops0, stripes0, bulk0 = _rung_ops(), _striped_counts(), client.bulk_stats()
+                k1 = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+                mem0 = torch.cuda.memory_allocated(dev) if cuda else 0
+                t0 = time.perf_counter()
+                await coro_fn()
+                sync()
+                seconds = time.perf_counter() - t0
+                moved = _delta(_rung_ops(), ops0)
+                bulk1 = client.bulk_stats()
+                steps[name] = {
+                    "s": seconds, "gb_per_s": wire / seconds / 1e9,
+                    "rung": _rungs_of(moved, "put" if cast else "get"),
+                    "ops": {k: v for k, v in moved.items() if v},
+                    "dials": bulk1["dials"] - bulk0["dials"],
+                    "striped": _delta(_striped_counts(), stripes0),
+                    "split": {k: bulk1[k] - bulk0[k] for k in (
+                        "recv_s", "h2d_wait_s", "card_sync_s", "d2h_wait_s", "send_s",
+                        "recv_bytes", "sent_bytes")},
+                }
+                if cast:
+                    steps[name]["launches"] = staging.cast_kernel.launches - k1[0]
+                    steps[name]["fallbacks"] = staging.cast_kernel.fallbacks - k1[1]
+                else:
+                    steps[name]["card_bytes_left"] = (
+                        torch.cuda.memory_allocated(dev) - mem0 if cuda else 0)
+                    checks.append(check(f"buffered {name}"))
+        # The fault leg: the client's first bulk frame raises, so the put
+        # demotes one rung (rpc); cleared, the get reads it back over bulk.
+        fgen = torch.Generator(device=dev)
+        fgen.manual_seed(1357)
+        fsrc = llama_state_dict(fgen, device=dev, dtype=torch.float32, layers=fault_layers,
+                                **(geometry or {}))
+        ftargets = _bf16_zeros_like(torch, fsrc, dev)
+        retries = metrics.counter("ts_client_put_retries_total")
+        before = {"rpc": retries.value(transport="rpc"), "bulk": retries.value(transport="bulk"),
+                  "failovers": metrics.counter("ts_client_failovers_total").value(op="put"),
+                  **_rung_ops()}
+        await tst.inject_fault("bulk.send_frame", "raise", count=1, scope="client",
+                               store_name="bulk")
+        t0 = time.perf_counter()
+        await tst.put_state_dict("fault", fsrc, transfer_dtype=bf16, store_name="bulk")
+        sync()
+        fault = {"demoted_put_s": time.perf_counter() - t0, "layers": fault_layers,
+                 "retries_rpc": retries.value(transport="rpc") - before["rpc"],
+                 "retries_bulk": retries.value(transport="bulk") - before["bulk"],
+                 "failovers_put": metrics.counter("ts_client_failovers_total").value(op="put")
+                 - before["failovers"]}
+        # The batch lands on rpc; its commit marker, put after, on bulk.
+        fault["put_ops"] = {k: v for k, v in _delta(_rung_ops(), {
+            k: before[k] for k in _rung_ops()}).items() if v}
+        fault["cleared"] = await tst.clear_faults(store_name="bulk")
+        ops0 = _rung_ops()
+        await tst.get_state_dict("fault", ftargets, store_name="bulk")
+        sync()
+        fault["get_rungs"] = _rungs_of(_delta(_rung_ops(), ops0), "get")
+        fault["check"] = check("after the fault", ftargets, fsrc)
+        del fsrc, ftargets
+        vstats = await volume.actor.stats.call_one()
+        out["volume_bulk"] = vstats.get("bulk", {})
+        out["volume_native_calls"] = _series_total(vstats["metrics"], "ts_native_calls_total")
+        out["client_bulk"] = client.bulk_stats()
+    finally:
+        await tst.shutdown("bulk")
+        os.environ.pop(ENV_BIND_HOST, None)
+        os.environ.pop(ENV_AUTH_SECRET, None)  # auth is per process: later phases run without
+        config_mod._default_config = None
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children() if p.pid in pids]
+    leaked = _own_segments(pids + [os.getpid()])
+    launches = sum(s.get("launches", 0) for s in steps.values())
+    warm = {k: steps[k] for k in BULK_WARM}
+    out.update({
+        "steps": steps, "checks": checks, "fault": fault, "launches": launches,
+        "warm_get_split": steps["reget2"]["split"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+        "processes_left": alive, "segments_left": leaked[:5],
+    })
+    stripes = {d: sum(s["striped"][d] for s in steps.values()) for d in ("put", "get")}
+    out["striped"] = stripes
+    out["ok"] = bool(
+        out["choice"]["auto"] == "bulk" and out["choice"]["forced"] is None
+        and not out["choice"]["same_host"]
+        and all(s["rung"] == ["bulk"] for s in steps.values())
+        and all(c["bit_equal"] for c in checks)
+        and all(steps[p]["fallbacks"] == 0 for p, _ in BULK_STEPS)
+        and (not cuda or all(steps[p]["launches"] == chunks for p, _ in BULK_STEPS))
+        and all(s["dials"] == 0 for s in warm.values())
+        and stripes["put"] >= 1 and stripes["get"] >= 1
+        and out["volume_native_calls"] > 0
+        and all(steps[g]["card_bytes_left"] <= 0 for _, g in BULK_STEPS)
+        and {ip for ip, _ in out["listeners"]} == {BULK_BIND}
+        and fault["retries_rpc"] == 1 and fault["failovers_put"] == 1
+        and fault["put_ops"].get("rpc_put") == 1 and fault["get_rungs"] == ["bulk"]
+        and fault["check"]["bit_equal"]
+        and not alive and not leaked
+    )
+    return out
+
+
+def phase_bulk(torch, staging) -> dict:
+    dev = torch.device("cuda", 0)
+    layers, sizing = plan_bulk_layers(torch, dev)
+    if layers < LAYERS:
+        emit({"reduced": {"bulk_layers": layers}, **sizing})
+    emit({"reduced": {"bulk_fault_layers": FAULT_LAYERS, "of": LAYERS,
+                      "why": "the demoted put moves the bytes in RPC frames"}})
+    res = asyncio.run(_bulk_path(torch, staging, layers, dev))
+    res["phase"] = "bulk"
+    res["sizing"] = sizing
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return res
+
+
+# --------------------------------------------------------------------------
+# landing: host-to-host copies, the landing pool against the native batch
+# --------------------------------------------------------------------------
+
+LANDING_ORDER = ("pool", "native", "native", "pool")
+
+
+def phase_landing(torch) -> dict:
+    """The host landing a get into host targets runs, at main's sizes: the
+    pool path of ``landing.land_async`` (TORCHSTORE_TORCH_USE_NATIVE off)
+    against ``native.copy_batch`` over the same row blocks and threads."""
+    from torchstore_tpu_torch import native
+    from torchstore_tpu_torch.config import ENV_USE_NATIVE
+    from torchstore_tpu_torch.observability import metrics
+    from torchstore_tpu_torch.transport import landing
+    from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
+
+    budget = 0.6 * mem_available_bytes()
+    layers = LAYERS
+    while layers > 1 and 4 * _llama_params(layers) > budget:  # bf16 source + destination
+        layers -= 1
+    if layers < LAYERS:
+        emit({"reduced": {"landing_layers": layers}, "host_budget_bytes": int(budget)})
+    dev = torch.device("cuda", 0)
+    shapes = [tuple(s) for s in _leaves(llama_shapes(**{**LLAMA3_8B, "layers": layers}))]
+    gen = torch.Generator(device=dev)
+    srcs = []
+    for i, shape in enumerate(shapes):
+        gen.manual_seed(24680 + i)
+        srcs.append(torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).cpu())
+    dsts = [torch.zeros_like(x) for x in srcs]
+    nbytes = sum(x.numel() * x.element_size() for x in srcs)
+    threads = landing.configured_threads()
+    dst_addrs, src_addrs, lens = [], [], []
+    for d, x in zip(dsts, srcs):
+        n = x.numel() * x.element_size()
+        for off in range(0, n, landing.CHUNK_BYTES):
+            dst_addrs.append(d.data_ptr() + off)
+            src_addrs.append(x.data_ptr() + off)
+            lens.append(min(landing.CHUNK_BYTES, n - off))
+    calls = metrics.counter("ts_native_calls_total")
+    saved = os.environ.get(ENV_USE_NATIVE)
+    rows, ok = [], True
+    try:
+        for mode in LANDING_ORDER:
+            for d in dsts:
+                d.zero_()
+            c0 = calls.total()
+            if mode == "pool":
+                os.environ[ENV_USE_NATIVE] = "0"
+                t0 = time.perf_counter()
+                asyncio.run(landing.land_async(list(zip(dsts, srcs))))
+                s = time.perf_counter() - t0
+                os.environ.pop(ENV_USE_NATIVE)
+            else:
+                t0 = time.perf_counter()
+                native.copy_batch(dst_addrs, src_addrs, lens, threads)
+                s = time.perf_counter() - t0
+            native_calls = calls.total() - c0
+            equal = all(torch.equal(d, x) for d, x in zip(dsts, srcs))
+            ok = ok and equal and native_calls == (0 if mode == "pool" else 1)
+            rows.append({"mode": mode, "s": s, "gb_per_s": nbytes / s / 1e9,
+                         "bit_equal": equal, "native_calls": native_calls})
+    finally:
+        if saved is None:
+            os.environ.pop(ENV_USE_NATIVE, None)
+        else:
+            os.environ[ENV_USE_NATIVE] = saved
+    return {"phase": "landing", "ok": ok, "layers": layers, "tensors": len(shapes),
+            "bytes": nbytes, "row_blocks": len(lens), "threads": threads, "rows": rows,
+            "nvidia_smi": sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"])}
+
+
+# --------------------------------------------------------------------------
+# spmd: four torchrun-style ranks on two emulated hosts
+# --------------------------------------------------------------------------
+
+SPMD_WORLD, SPMD_LOCAL = 4, 2  # ranks 0-1: the trainer host; 2-3: the generator host
+SPMD_SECRET = "chip-smoke-spmd-secret"
+SPMD_STEPS = (("put", "get"), ("reput", "reget"))
+SPMD_TIMEOUT_S = 900
+
+
+def _spmd_leaf(torch, index: int, shape, dev):
+    """Leaf ``index`` of the phase's state dict, fp32, from a seed of its
+    own: every rank makes the same tensor without holding the model."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(97531 + index)
+    return torch.randn(tuple(shape), generator=gen, device=dev, dtype=torch.float32)
+
+
+def _spmd_env(rank: int, port: int) -> dict:
+    host = rank // SPMD_LOCAL
+    return {"RANK": str(rank), "LOCAL_RANK": str(rank % SPMD_LOCAL),
+            "WORLD_SIZE": str(SPMD_WORLD), "LOCAL_WORLD_SIZE": str(SPMD_LOCAL),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "TORCHSTORE_TORCH_AUTH_SECRET": SPMD_SECRET,
+            "TORCHSTORE_TORCH_ADVERTISE_HOST": "127.0.0.1",
+            "TORCHSTORE_TORCH_HOSTNAME": f"tst-spmd-{'trainer' if host == 0 else 'generator'}"}
+
+
+async def _spmd_rank(torch, rank: int, spec: dict) -> dict:
+    """One rank: a trainer rank (0, 1) puts its Shard(0) half of the fp32
+    state dict on the card; a generator rank (2, 3) gets its
+    tensor-parallel bf16 half on the card, from the other host's volumes."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.ops import staging
+    from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
+
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    bf16 = torch.bfloat16
+    geo = {**LLAMA3_8B, **(spec.get("geometry") or {}), "layers": spec["layers"]}
+    leaves = list(_flat(llama_shapes(**geo)))  # (path, kind, shape)
+    trainer = rank < SPMD_LOCAL
+    coord = rank % SPMD_LOCAL
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    await tst.initialize_spmd(store_name="spmd")
+    out: dict = {"rank": rank, "role": "trainer" if trainer else "generator",
+                 "initialize_s": time.perf_counter() - t0, "steps": {}}
+    if trainer:
+        shards = {}
+        for i, (path, _, shape) in enumerate(leaves):
+            sl = _layout(tst, tuple(shape), 0, SPMD_LOCAL)[coord]
+            shards[path] = tst.Shard(_spmd_leaf(torch, i, shape, dev)[sl.box.to_index()].clone(),
+                                     sl)
+        sync()
+        out["chunks"] = len(staging.plan_chunks([s.data for s in shards.values()], bf16))
+        out["wire_bytes"] = 2 * sum(s.data.numel() for s in shards.values())
+        tree = _nest(shards)
+    else:
+        targets = {path: tst.Shard(torch.zeros(sl.local_shape, dtype=bf16, device=dev), sl)
+                   for path, kind, shape in leaves
+                   for sl in [_layout(tst, tuple(shape), TP_DIM[kind], SPMD_LOCAL)[coord]]}
+        out["wire_bytes"] = 2 * sum(s.data.numel() for s in targets.values())
+        tree = _nest(targets)
+    staging.cast_kernel.launches = 0
+    staging.cast_kernel.fallbacks = 0
+    for n, (put, get) in enumerate(SPMD_STEPS):
+        if trainer:
+            pin_wait = 0.0
+            if n:
+                for s in shards.values():
+                    s.data.add_(1.0)  # the training step, in place
+                # The step's gap: the client's page-locking of the segments
+                # it attached ends, as main's steady state waits for it.
+                pin_wait = await tst.client("spmd").wait_pinned()
+            sync()
+            k1 = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+            ops0 = _rung_ops()
+            t0 = time.perf_counter()
+            await tst.put_state_dict("policy", tree, transfer_dtype=bf16, store_name="spmd")
+            sync()
+            s = time.perf_counter() - t0
+            out["steps"][put] = {"s": s, "gb_per_s": out["wire_bytes"] / s / 1e9,
+                                 "wait_pinned_s": pin_wait,
+                                 "launches": staging.cast_kernel.launches - k1[0],
+                                 "fallbacks": staging.cast_kernel.fallbacks - k1[1],
+                                 "rung": _rungs_of(_delta(_rung_ops(), ops0), "put")}
+        await tst.barrier(f"{put}_done", store_name="spmd")
+        if not trainer:
+            for s in targets.values():
+                s.data.zero_()
+            sync()
+            ops0, stripes0 = _rung_ops(), _striped_counts()
+            bulk0 = tst.client("spmd").bulk_stats()
+            mem0 = torch.cuda.memory_allocated(dev) if cuda else 0
+            t0 = time.perf_counter()
+            await tst.get_state_dict("policy", tree, store_name="spmd")
+            sync()
+            s = time.perf_counter() - t0
+            moved = _delta(_rung_ops(), ops0)
+            bulk1 = tst.client("spmd").bulk_stats()
+            bad = 0
+            for i, (path, _, shape) in enumerate(leaves):
+                want = _spmd_leaf(torch, i, shape, dev)[targets[path].tensor_slice.box.to_index()]
+                for _ in range(n):
+                    want.add_(1.0)
+                bad += not torch.equal(targets[path].data.view(torch.int16),
+                                       want.to(bf16).view(torch.int16))
+                del want
+            out["steps"][get] = {
+                "s": s, "gb_per_s": out["wire_bytes"] / s / 1e9,
+                "rung": _rungs_of(moved, "get"), "ops": {k: v for k, v in moved.items() if v},
+                "dials": bulk1["dials"] - bulk0["dials"],
+                "striped": _delta(_striped_counts(), stripes0),
+                "split": {k: bulk1[k] - bulk0[k] for k in ("recv_s", "h2d_wait_s", "card_sync_s",
+                                                           "recv_bytes")},
+                "card_bytes_left": torch.cuda.memory_allocated(dev) - mem0 if cuda else 0,
+                "bit_equal": not bad, "mismatched": bad}
+        await tst.barrier(f"{get}_done", store_name="spmd")
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    children = [p.pid for p in multiprocessing.active_children()]
+    from multiprocessing import forkserver
+
+    server_pid = getattr(forkserver._forkserver, "_forkserver_pid", None)
+    if server_pid:
+        children.append(server_pid)  # it leaves when this rank does
+    t0 = time.perf_counter()
+    await tst.shutdown("spmd")
+    out["shutdown_s"] = time.perf_counter() - t0
+    out["children"] = children
+    return out
+
+
+def _spmd_rank_main(rank: int, env: dict, spec: dict, queue) -> None:
+    """A spawned rank: the launcher's environment, then the rank's work."""
+    import traceback
+
+    os.environ.update(env)
+    try:
+        import torch
+
+        queue.put((rank, asyncio.run(_spmd_rank(torch, rank, spec)), None))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _descendants(pids) -> list:
+    """Every live process below ``pids`` (children, theirs, ...)."""
+    parent_of = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    parent_of[int(name)] = int(f.read().split(")")[-1].split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+    found, frontier = [], set(pids)
+    while frontier:
+        nxt = {pid for pid, ppid in parent_of.items() if ppid in frontier}
+        found.extend(nxt)
+        frontier = nxt
+    return found
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    try:  # a zombie is gone too
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _spmd_path(torch, staging, layers: int, device: str, geometry=None) -> dict:
+    """Launch the four ranks with torchrun's variables (an ephemeral
+    MASTER_PORT), collect each rank's record, and check the world: every
+    target bit-equal, every cross-host read on the bulk rung, K1 launches =
+    the planner's chunks on every trainer put, no process left."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    spec = {"layers": layers, "device": device, "geometry": geometry}
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_spmd_rank_main, args=(r, _spmd_env(r, port), spec, queue))
+             for r in range(SPMD_WORLD)]
+    for p in procs:
+        p.start()
+    ranks: list = [None] * SPMD_WORLD
+    errors = {}
+    try:
+        for _ in range(SPMD_WORLD):
+            rank, res, err = queue.get(timeout=SPMD_TIMEOUT_S)
+            if err is not None:
+                errors[rank] = err[-3000:]
+            ranks[rank] = res
+            if errors:
+                break
+    except Exception as exc:  # noqa: BLE001 - a rank that never answered fails the phase
+        errors["timeout"] = repr(exc)
+    finally:
+        if errors:  # the others wait at a barrier that never fills: stop them all
+            for pid in _descendants([p.pid for p in procs]):
+                try:
+                    os.kill(pid, 9)
+                except OSError:
+                    pass
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    wall = time.perf_counter() - t0
+    exit_codes = [p.exitcode for p in procs]
+    out: dict = {"world": SPMD_WORLD, "hosts": SPMD_WORLD // SPMD_LOCAL, "layers": layers,
+                 "seconds_all": wall, "exit_codes": exit_codes, "errors": errors}
+    if errors or any(r is None for r in ranks):
+        out["ok"] = False
+        return out
+    # A rank's forkserver leaves once it sees its rank gone: allow it a moment.
+    deadline = time.monotonic() + 15.0
+    left = [pid for r in ranks for pid in r["children"]]
+    while left and time.monotonic() < deadline:
+        time.sleep(0.2)
+        left = [pid for pid in left if _pid_alive(pid)]
+    trainers = [r for r in ranks if r["role"] == "trainer"]
+    generators = [r for r in ranks if r["role"] == "generator"]
+    cuda = device.startswith("cuda")
+    out.update({
+        "ranks": ranks,
+        "initialize_s": [r["initialize_s"] for r in ranks],
+        "launches": sum(s["launches"] for r in trainers for s in r["steps"].values()),
+        "processes_left": left,
+    })
+    out["ok"] = bool(
+        all(s["bit_equal"] for r in generators for s in r["steps"].values())
+        and all(s["rung"] == ["bulk"] for r in generators for s in r["steps"].values())
+        and all(s["rung"] == ["shm"] for r in trainers for s in r["steps"].values())
+        and all(s["fallbacks"] == 0 for r in trainers for s in r["steps"].values())
+        and (not cuda or all(s["launches"] == r["chunks"] for r in trainers
+                             for s in r["steps"].values()))
+        and all(s["card_bytes_left"] <= 0 for r in generators for s in r["steps"].values())
+        and all(code == 0 for code in exit_codes)
+        and not left
+    )
+    return out
+
+
+def plan_spmd_layers(torch, dev) -> tuple[int, dict]:
+    """Depth that fits one card shared by the four ranks: the trainers' fp32
+    halves and their bf16 casts, the generators' bf16 halves (8 bytes a
+    parameter over the world), the fp32 leaf each generator makes at a time
+    to check a target, and a context per rank; on the host the trainer
+    volumes' bf16 segments, live and the warm set a reput rotates to (4
+    bytes a parameter)."""
+    from torchstore_tpu_torch.workloads import LLAMA3_8B
+
+    free, _ = torch.cuda.mem_get_info(dev)
+    leaf = 4 * LLAMA3_8B["vocab"] * LLAMA3_8B["hidden"]
+    card_budget = 0.95 * free - SPMD_WORLD * (768 << 20)
+    host_budget = 0.8 * min(shm_free_bytes(), mem_available_bytes())
+    need = lambda n: 8 * _llama_params(n) + 2 * leaf  # noqa: E731
+    layers = LAYERS
+    while layers > 1 and (need(layers) > card_budget
+                          or 4 * _llama_params(layers) > host_budget):
+        layers -= 1
+    return layers, {"card_budget_bytes": int(card_budget),
+                    "card_needed_bytes": need(layers),
+                    "host_budget_bytes": int(host_budget),
+                    "host_needed_bytes": 4 * _llama_params(layers)}
+
+
+def phase_spmd(torch, staging) -> dict:
+    dev = torch.device("cuda", 0)
+    layers, sizing = plan_spmd_layers(torch, dev)
+    if layers < LAYERS:
+        emit({"reduced": {"spmd_layers": layers}, **sizing})
+    res = _spmd_path(torch, staging, layers, "cuda:0")
+    res["phase"] = "spmd"
+    res["sizing"] = sizing
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return res
+
+
 def phase_kernels(results: dict) -> dict:
     """One entry per ported kernel, and per (mode, variant) of the flash
     kernels. The cast's times are the timing phase's measured publish row
@@ -3567,6 +4257,10 @@ def phase_kernels(results: dict) -> dict:
         by_path["direct_device"] = results["direct_device"]["launches"]
     if "runtime" in results:
         by_path["runtime"] = results["runtime"]["launches"]
+    if "bulk" in results:
+        by_path["bulk"] = results["bulk"]["launches"]
+    if "spmd" in results:
+        by_path["spmd"] = results["spmd"]["launches"]
     entries = [{
         "name": "cast",
         "route": "cuda",
@@ -3594,7 +4288,11 @@ def phase_kernels(results: dict) -> dict:
                   f"{results['direct_device']['launches_per_publish']}"
                   if "direct_device" in results else "")
                + ("; on runtime: the colocated leg's 3 puts, the fault leg's 2 and the traced "
-                  "process's 3 puts and 2 device-rung publishes" if "runtime" in results else ""),
+                  "process's 3 puts and 2 device-rung publishes" if "runtime" in results else "")
+               + ("; on bulk: put, reput and reput2 over the bulk rung" if "bulk" in results
+                  else "")
+               + ("; on spmd: the two trainer ranks' put and reput, each of its half"
+                  if "spmd" in results else ""),
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"

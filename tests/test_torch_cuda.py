@@ -736,3 +736,50 @@ def test_colocated_cuda_value_semantics(cuda, transport):
             await ts.shutdown(name)
 
     asyncio.run(go())
+
+
+@pytest.mark.cuda
+def test_bulk_rung_stages_card_payloads(cuda):
+    """A volume on another (emulated) host: card sources go to the socket
+    through page-locked staging (a striped one in chunks, a strided one
+    made contiguous), card destinations fill from it in place; a strided
+    card destination lands through a host buffer. Bit-equal, in place, and
+    no card memory left by the get."""
+    import asyncio
+    import uuid
+
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.observability import metrics
+    from torchstore_tpu_torch.transport import bulk
+
+    async def run():
+        name = f"tst_bulk_cuda_{uuid.uuid4().hex[:6]}"
+        await tst.initialize(store_name=name, volume_env_fn=lambda rank: {
+            "TORCHSTORE_TORCH_HOSTNAME": "tst-cuda-other-host"})
+        try:
+            gen = torch.Generator(device=cuda).manual_seed(3)
+            big = torch.randn(3 * bulk.STAGE_CHUNK // 4 + 5, generator=gen, device=cuda)
+            small = torch.randn(300, 500, generator=gen, device=cuda).to(torch.bfloat16)
+            strided = torch.randn(512, 256, generator=gen, device=cuda).t()
+            ops = metrics.counter("ts_transport_ops_total")
+            before = ops.value(transport="bulk", op="put"), ops.value(transport="bulk", op="get")
+            await tst.put_batch({"big": big, "small": small, "strided": strided}, store_name=name)
+            dests = {"big": torch.zeros_like(big), "small": torch.zeros_like(small),
+                     "strided": torch.zeros(256, 1024, device=cuda)[:, 100:612]}
+            torch.cuda.synchronize(cuda)
+            mem0 = torch.cuda.memory_allocated(cuda)
+            got = await tst.get_batch(dests, store_name=name)
+            torch.cuda.synchronize(cuda)
+            left = torch.cuda.memory_allocated(cuda) - mem0
+            moved = (ops.value(transport="bulk", op="put") - before[0],
+                     ops.value(transport="bulk", op="get") - before[1])
+            return got, dests, (big, small, strided), left, moved
+        finally:
+            await tst.shutdown(name)
+
+    got, dests, (big, small, strided), left, moved = asyncio.run(run())
+    assert all(got[k] is dests[k] for k in dests)
+    assert torch.equal(dests["big"], big)
+    assert torch.equal(dests["small"].view(torch.int16), small.view(torch.int16))
+    assert torch.equal(dests["strided"], strided)
+    assert moved == (1, 1) and left <= 0

@@ -252,15 +252,17 @@ def test_demotion_ladder():
                                hostname=hostname, transport_type=transport)
         return [r.value for r in demotion_ladder(ref, StoreConfig(**cfg))]
 
-    assert ladder() == ["shm", "rpc"]
-    assert ladder("shm") == ["shm", "rpc"]
+    assert ladder() == ["shm", "bulk", "rpc"]
+    assert ladder("shm") == ["shm", "bulk", "rpc"]
+    assert ladder("bulk") == ["bulk", "rpc"]
     assert ladder("rpc") == ["rpc"]
-    assert ladder(hostname="elsewhere") == ["rpc"]
-    assert ladder(shm_enabled=False) == ["rpc"]
+    assert ladder(hostname="elsewhere") == ["bulk", "rpc"]
+    assert ladder(shm_enabled=False) == ["bulk", "rpc"]
+    assert ladder(shm_enabled=False, bulk_tcp_enabled=False) == ["rpc"]
     assert TransportType("rpc") is TransportType.RPC
 
 
-@pytest.mark.parametrize("transport,rung", [(None, "rpc"), ("rpc", "rpc")],
+@pytest.mark.parametrize("transport,rung", [(None, "bulk"), ("rpc", "rpc")],
                          ids=["shm_demoted", "rpc_pinned"])
 async def test_single_volume_put_retries_down_the_ladder(transport, rung):
     name = f"tst_ladder_{uuid.uuid4().hex[:6]}"

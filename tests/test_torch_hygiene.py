@@ -62,6 +62,9 @@ def test_import_leaves_no_jax_or_reference_module():
         "import torchstore_tpu_torch.faults, torchstore_tpu_torch.observability\n"
         "import torchstore_tpu_torch.observability.recorder, torchstore_tpu_torch.runtime.auth\n"
         "import torchstore_tpu_torch.storage_utils.trie\n"
+        "import torchstore_tpu_torch.native, torchstore_tpu_torch.spmd\n"
+        "import torchstore_tpu_torch.transport.bulk\n"
+        "import torchstore_tpu_torch.runtime.rendezvous\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN_ROOTS)!r})\n"
         "print(json.dumps(bad))\n"

@@ -2,13 +2,16 @@
 ``spawn(job, args)`` starts 4 ranks over gloo on an ephemeral port, each
 runs ``JOBS[job](rank, args)``, and the per-rank results come back as numpy
 arrays. ``IpcDest`` is a direct-sync dest in a process of its own, which
-pulls a source's card-side staging over CUDA IPC on request. This module
+pulls a source's card-side staging over CUDA IPC on request.
+``spmd_lifecycle`` launches a torchrun-style world of ranks that bring a
+store up with ``initialize_spmd`` and exchange shards. This module
 imports torch and numpy only, so the spawned processes load no JAX; the
 test files hold the results against the JAX package. It holds no tests
 itself."""
 
 from __future__ import annotations
 
+import asyncio
 import datetime
 import multiprocessing
 import socket
@@ -250,3 +253,94 @@ class IpcDest:
         if self.proc.is_alive():
             self.proc.kill()
             self.proc.join(timeout=10)
+
+
+# --------------------------------------------------------------------------
+# an SPMD world: torchrun-style env, initialize_spmd, put, barrier, get
+# --------------------------------------------------------------------------
+
+SPMD_STORE = "tst_spmdtest"
+
+
+def spmd_env(rank: int, world: int, local_world: int, port: int, secret=None,
+             hostnames: bool = False) -> dict:
+    """The launcher env of one rank (torchrun's names). With several hosts
+    the volumes bind every address and advertise loopback; ``hostnames``
+    gives each emulated host its own name, so reads across hosts take the
+    bulk rung."""
+    env = {"RANK": str(rank), "LOCAL_RANK": str(rank % local_world), "WORLD_SIZE": str(world),
+           "LOCAL_WORLD_SIZE": str(local_world), "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    if local_world != world:
+        env["TORCHSTORE_TORCH_ADVERTISE_HOST"] = "127.0.0.1"
+        if hostnames:
+            env["TORCHSTORE_TORCH_HOSTNAME"] = f"tst-spmd-host{rank // local_world}"
+    if secret:
+        env["TORCHSTORE_TORCH_AUTH_SECRET"] = secret
+    return env
+
+
+async def _spmd_scenario(rank: int, world: int) -> dict:
+    import torchstore_tpu_torch as ts
+    from torchstore_tpu_torch.observability import metrics
+
+    await ts.initialize_spmd(store_name=SPMD_STORE)
+    g = torch.arange(float(world * 4), dtype=torch.float32).reshape(world, 4)
+    sl = ts.TensorSlice(offsets=(rank, 0), local_shape=(1, 4), global_shape=(world, 4),
+                        coordinates=(rank,), mesh_shape=(world,))
+    await ts.put("g", ts.Shard(g[rank:rank + 1].clone(), sl), store_name=SPMD_STORE)
+    await ts.put(f"r{rank}", torch.full((2,), float(rank), dtype=torch.float64),
+                 store_name=SPMD_STORE)
+    await ts.barrier("puts_done", store_name=SPMD_STORE)
+    bulk_gets = metrics.counter("ts_transport_ops_total")
+    before = bulk_gets.value(transport="bulk", op="get")
+    other = (rank + 1) % world
+    peer = await ts.get(f"r{other}", store_name=SPMD_STORE)
+    full = await ts.get("g", store_name=SPMD_STORE)
+    out = {"peer": peer.numpy().tolist(), "full": full.numpy().tolist(),
+           "bulk_gets": bulk_gets.value(transport="bulk", op="get") - before}
+    await ts.barrier("reads_done", store_name=SPMD_STORE)
+    await ts.shutdown(SPMD_STORE)
+    await asyncio.sleep(0.2)
+    out["children_left"] = [p.pid for p in multiprocessing.active_children()]
+    return out
+
+
+def _spmd_rank_main(rank: int, world: int, env: dict, queue) -> None:
+    import os
+
+    os.environ.update(env)
+    try:
+        queue.put((rank, asyncio.run(_spmd_scenario(rank, world)), None))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which raises
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def spmd_lifecycle(world: int, local_world: int, secret=None, hostnames: bool = False,
+                   timeout: float = 180.0) -> list:
+    """Launch ``world`` ranks (``local_world`` a host) on an ephemeral
+    rendezvous port; the list of per-rank results. Each rank has its own
+    join timeout; a rank left alive is killed."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_spmd_rank_main,
+                         args=(r, world, spmd_env(r, world, local_world, port, secret, hostnames),
+                               queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results: list = [None] * world
+    try:
+        for _ in range(world):
+            rank, res, err = queue.get(timeout=timeout)
+            if err is not None:
+                raise RuntimeError(f"spmd rank {rank} failed:\n{err}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return results

@@ -25,6 +25,11 @@ versioned channel (publish, block for the next version, GC old ones), and
 under per-key watermarks, so a generator starts on the first layers while
 the trainer still publishes the last.
 
+Across hosts: a volume on another host is reached over the bulk TCP rung
+(striped transfers, page-locked staging for cards), and
+``initialize_spmd`` brings one store up across a torchrun-style world
+(each host's volumes, one controller; ``barrier`` between ranks).
+
 ``initialize(colocated=True)`` hosts the volume in the caller's process;
 ``StoreConfig(auth_secret=...)`` authenticates every connection;
 ``inject_fault`` / ``clear_faults`` drive the fault points,
@@ -34,6 +39,7 @@ the trainer still publishes the last.
 
 from torchstore_tpu_torch.api import (
     DEFAULT_STORE,
+    barrier,
     clear_faults,
     client,
     collect_trace,
@@ -47,6 +53,7 @@ from torchstore_tpu_torch.api import (
     get_state_dict,
     get_state_dict_streamed,
     initialize,
+    initialize_spmd,
     inject_fault,
     keys,
     metrics_snapshot,
@@ -90,6 +97,7 @@ __all__ = [
     "TensorSlice",
     "WeightPublisher",
     "WeightSubscriber",
+    "barrier",
     "clear_faults",
     "client",
     "collect_trace",
@@ -104,6 +112,7 @@ __all__ = [
     "get_state_dict",
     "get_state_dict_streamed",
     "initialize",
+    "initialize_spmd",
     "inject_fault",
     "keys",
     "metrics_snapshot",

@@ -25,12 +25,12 @@ import base64
 import os
 import pickle
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from torchstore_tpu_torch import config as config_mod
-from torchstore_tpu_torch import state_dict_utils
+from torchstore_tpu_torch import native, state_dict_utils
 from torchstore_tpu_torch.client import LocalClient
 from torchstore_tpu_torch.config import ENV_AUTH_SECRET, ENV_PREFIX, StoreConfig, default_config
 from torchstore_tpu_torch.controller import Controller
@@ -45,7 +45,6 @@ from torchstore_tpu_torch.runtime import (
     stop_singleton,
 )
 from torchstore_tpu_torch.runtime.actors import (
-    BIND_HOST,
     ActorServer,
     close_all_connections,
     register_inproc,
@@ -94,16 +93,24 @@ async def initialize(
     store_name: str = DEFAULT_STORE,
     config: Optional[StoreConfig] = None,
     colocated: bool = False,
+    volume_env_fn: Optional[Callable[[int], dict]] = None,
 ) -> ActorRef:
     """Boot a store on this host: spawn the volume processes and the
     controller process, and wire them. ``colocated=True`` hosts the one
-    volume in this process instead."""
+    volume in this process instead.
+
+    ``volume_env_fn(rank) -> dict`` adds environment to each spawned volume
+    (ignored when colocated): a ``TORCHSTORE_TORCH_HOSTNAME`` of its own
+    emulates a volume on another host on one box, so the client reaches
+    it over the bulk rung."""
     if store_name in _stores:
         raise RuntimeError(f"store {store_name!r} already initialized")
     config = config or default_config()
     if colocated and num_storage_volumes != 1:
         raise ValueError("colocated=True hosts exactly one volume")
     set_log_level(config.log_level)
+    if native.enabled():
+        native.get_lib()  # built or loaded now, not under the first transfer
     if strategy is None:
         strategy = SingletonStrategy() if num_storage_volumes == 1 else LocalRankStrategy()
     if config.auth_secret:
@@ -123,7 +130,8 @@ async def initialize(
     # Volumes and controller start together.
     volumes, controller = await asyncio.gather(
         _host_colocated_volume(store_name, strategy) if colocated else spawn_actors(
-            num_storage_volumes, StorageVolume, f"tst_{store_name}_volume", strategy
+            num_storage_volumes, StorageVolume, f"tst_{store_name}_volume", strategy,
+            env_fn=volume_env_fn,
         ),
         get_or_spawn_singleton(_controller_name(store_name), Controller),
         return_exceptions=True,
@@ -162,9 +170,9 @@ async def _host_colocated_volume(store_name: str, strategy) -> tuple[ActorMesh, 
     name = f"tst_{store_name}_volume_0"
     server = ActorServer()
     server.register(name, volume)
-    port = await server.start(BIND_HOST)
-    ref = ActorRef(name, BIND_HOST, port)
-    register_inproc(BIND_HOST, port, name, volume)
+    port = await server.start()
+    ref = ActorRef(name, server.address, port)
+    register_inproc(server.address, port, name, volume)
     return ActorMesh([ref], []), (server, ref, volume)
 
 
@@ -400,13 +408,47 @@ async def get_state_dict_streamed(
     )
 
 
+async def initialize_spmd(
+    strategy: Optional[StoreStrategy] = None,
+    store_name: str = DEFAULT_STORE,
+    config: Optional[StoreConfig] = None,
+    storage_dir: Optional[str] = None,
+    recover: bool = False,
+) -> None:
+    """Collective bootstrap from a torchrun-style environment: call it on
+    every rank (``spmd.initialize``). ``storage_dir`` / ``recover`` (durable
+    volumes and index recovery) are not ported: passing either raises."""
+    from torchstore_tpu_torch import spmd
+
+    await spmd.initialize(strategy=strategy, store_name=store_name, config=config,
+                          storage_dir=storage_dir, recover=recover)
+
+
+async def barrier(name: str, store_name: str = DEFAULT_STORE, timeout: float = 300.0) -> None:
+    """A barrier across the SPMD world that initialized this store
+    (put, barrier, get is the exchange); needs ``initialize_spmd``."""
+    from torchstore_tpu_torch import spmd
+
+    session = spmd._spmd_sessions.get(store_name)
+    if session is None:
+        raise RuntimeError(
+            f"barrier requires an SPMD-initialized store (none for {store_name!r}); "
+            "call initialize_spmd() first"
+        )
+    await session.client.barrier(name, session.env.world_size, timeout=timeout)
+
+
 async def shutdown(store_name: str = DEFAULT_STORE) -> None:
     """Tear down a store: release its direct-sync staging and the client's
     segment attachments, reset and stop the volume and controller
     processes. In a process that reached the store by its published handle,
-    only this process's client and connections go."""
+    only this process's client and connections go. A store an SPMD session
+    owns shuts down collectively (``spmd.shutdown``)."""
+    from torchstore_tpu_torch import spmd
     from torchstore_tpu_torch.provision.pool import local_pool
 
+    if await spmd.shutdown(store_name):
+        return
     handle = _stores.pop(store_name, None)
     if handle is None:
         return

@@ -29,8 +29,11 @@ once. ``SyncPlanCache`` holds the transfer plans of ``put_state_dict`` /
 Transient failures (``RETRYABLE_ERRORS``: a dead or wedged actor, a broken
 socket, an injected fault) are retried under ``config.retry``: a put whose
 every replica failed is landed again, a single-volume put walks down the
-transport ladder one rung per attempt (shm -> rpc), and a get relocates and
-fetches again from the replicas still alive. ``put_batch`` / ``get_batch``
+transport ladder one rung per attempt (shm -> bulk -> rpc), and a get
+relocates and fetches again from the replicas still alive. A volume on
+another host (its ``hostname`` is not this process's) is reached over the
+bulk TCP rung; the client's ``BulkClientCache`` keeps one promoted
+connection per volume and the stripe connections of large transfers. ``put_batch`` / ``get_batch``
 root a trace (``ensure_root``) under their spans. The one-sided planes are
 later work.
 """
@@ -54,6 +57,7 @@ from torchstore_tpu_torch.metadata.index_core import ObjectType, StorageInfo
 from torchstore_tpu_torch.runtime import ActorDiedError, ActorRef
 from torchstore_tpu_torch.strategy import StorageVolumeRef
 from torchstore_tpu_torch.transport.buffers import TransportContext
+from torchstore_tpu_torch.transport.bulk import BulkClientCache
 from torchstore_tpu_torch.transport.factory import (
     TransportType,
     create_transport_buffer,
@@ -233,7 +237,8 @@ class LocalClient:
         return self._controller
 
     def close(self) -> None:
-        """Unpin and drop this client's segment attachments."""
+        """Unpin and drop this client's segment attachments, and close its
+        bulk connections."""
         self._ctx.clear()
 
     def shm_stats(self) -> dict:
@@ -245,6 +250,12 @@ class LocalClient:
         return {**cache.counts, "pin_seconds": cache.pin_seconds,
                 "pin_wait_seconds": cache.pin_wait_seconds,
                 "pin_pending": cache.pin_pending()}
+
+    def bulk_stats(self) -> dict:
+        """The bulk rung's connections: dials made (main and stripe),
+        connections alive, and the seconds of its card path (receive vs
+        copy to the card on gets, copy from the card vs send on puts)."""
+        return self._ctx.get_cache(BulkClientCache).stats()
 
     async def wait_pinned(self) -> float:
         """Wait until the attachments queued for page-locking are locked

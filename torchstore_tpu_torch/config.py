@@ -42,6 +42,12 @@ ENV_RETRY_MAX_S = ENV_PREFIX + "RETRY_MAX_S"
 ENV_RETRY_MULTIPLIER = ENV_PREFIX + "RETRY_MULTIPLIER"
 ENV_RETRY_JITTER = ENV_PREFIX + "RETRY_JITTER"
 ENV_RETRY_DEADLINE_S = ENV_PREFIX + "RETRY_DEADLINE_S"
+ENV_BULK_TCP_ENABLED = ENV_PREFIX + "BULK_TCP_ENABLED"
+ENV_BULK_STRIPE_THRESHOLD = ENV_PREFIX + "BULK_STRIPE_THRESHOLD"
+ENV_BULK_EMULATE_GBPS = ENV_PREFIX + "BULK_EMULATE_GBPS"
+ENV_BIND_HOST = ENV_PREFIX + "BIND_HOST"
+ENV_ADVERTISE_HOST = ENV_PREFIX + "ADVERTISE_HOST"
+ENV_USE_NATIVE = ENV_PREFIX + "USE_NATIVE"
 
 
 @dataclass(frozen=True)
@@ -61,6 +67,17 @@ ENV_REGISTRY: tuple[EnvVar, ...] = (
     # --- transports
     EnvVar(ENV_SHM_ENABLED, "bool", True,
            "Same-host puts, gets and direct staging go through /dev/shm segments."),
+    EnvVar(ENV_BULK_TCP_ENABLED, "bool", True,
+           "Volumes on another host are reached over the bulk TCP rung (striped transfers)."),
+    EnvVar(ENV_BULK_STRIPE_THRESHOLD, "int", 64 << 20,
+           "Bulk payloads above this many bytes are striped across the stripe connections."),
+    EnvVar(ENV_BULK_EMULATE_GBPS, "float", 0,
+           "When > 0, every bulk payload frame adds the time a link of this many GB/s "
+           "would take (one box emulates a cross-host link)."),
+    EnvVar(ENV_USE_NATIVE, "bool", True,
+           "Host copies go through the native library (csrc/host_copy.cc, built at "
+           "first use); off: torch copies. One setting per process tree: volumes "
+           "spawned by the process inherit it."),
     EnvVar(ENV_ICI_ENABLED, "bool", True,
            "A direct publish whose leaves all live on cards takes the device rung."),
     EnvVar(ENV_ZERO_COPY_GET, "bool", True,
@@ -108,6 +125,11 @@ ENV_REGISTRY: tuple[EnvVar, ...] = (
     EnvVar(ENV_MP_CONTEXT, "str", "forkserver",
            "Start method of actor processes: forkserver (preloads the runtime) or spawn."),
     EnvVar(ENV_HOSTNAME, "str", None, "Host identity override (tests emulate hosts with it)."),
+    EnvVar(ENV_BIND_HOST, "str", "127.0.0.1",
+           "Address the actor, bulk and direct-sync listeners bind (0.0.0.0 across hosts)."),
+    EnvVar(ENV_ADVERTISE_HOST, "str", None,
+           "Reachable address put in actor refs and bulk and direct-sync endpoints "
+           "(default: the bind address, or the hostname when binding 0.0.0.0 or ::)."),
     # --- faults and retries
     EnvVar(ENV_PREFIX + "FAULTPOINTS", "str", None,
            "Fault points armed at start: name=action[:count=N][:prob=P][:delay_ms=D];..."),
@@ -218,6 +240,26 @@ class RetryPolicy:
         return time.monotonic() < deadline
 
 
+def bind_host() -> str:
+    """The address this process's listeners bind."""
+    return _env_str(ENV_BIND_HOST, "127.0.0.1")
+
+
+def advertise_host(bound: Optional[str] = None) -> str:
+    """The address peers dial to reach a listener bound to ``bound`` (this
+    process's bind address by default): ``ADVERTISE_HOST`` when set, else
+    the machine's hostname for a wildcard bind, else the bind address."""
+    bound = bind_host() if bound is None else bound
+    advertised = os.environ.get(ENV_ADVERTISE_HOST)
+    if advertised:
+        return advertised
+    if bound in ("0.0.0.0", "::", ""):
+        import socket
+
+        return socket.gethostname()
+    return bound
+
+
 def _default_shm_pool_cap() -> int:
     """A quarter of /dev/shm's available space at startup, clamped to
     [4 GB, 64 GB]: room is left for live and retired segments and for other
@@ -281,7 +323,12 @@ class StoreConfig:
     it parses a frame; empty turns auth off. One per process.
     ``handshake_timeout``: seconds a transport handshake RPC or a
     direct-sync dial may take. ``retry``: the ``RetryPolicy`` of the
-    client's retries and failovers."""
+    client's retries and failovers.
+
+    ``bulk_tcp_enabled``: a volume on another host is reached over the
+    bulk TCP rung (striped transfers on connections of their own), else
+    over RPC frames. The native host copies are gated per process, by
+    ``TORCHSTORE_TORCH_USE_NATIVE`` alone (``native.enabled``)."""
 
     rpc_timeout: float = field(default_factory=lambda: _env_float(ENV_RPC_TIMEOUT, 300.0))
     shm_enabled: bool = field(default_factory=lambda: _env_bool(ENV_SHM_ENABLED, True))
@@ -312,6 +359,9 @@ class StoreConfig:
         default_factory=lambda: _env_float(ENV_HANDSHAKE_TIMEOUT, 60.0)
     )
     retry: RetryPolicy = field(default_factory=RetryPolicy.from_env)
+    bulk_tcp_enabled: bool = field(
+        default_factory=lambda: _env_bool(ENV_BULK_TCP_ENABLED, True)
+    )
 
 
 _default_config: Optional[StoreConfig] = None

@@ -69,7 +69,7 @@ from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.ops import staging
 from torchstore_tpu_torch.ops.staging import cast_reference
 from torchstore_tpu_torch.provision.pool import local_pool
-from torchstore_tpu_torch.runtime.actors import BIND_HOST
+from torchstore_tpu_torch.config import advertise_host, bind_host
 from torchstore_tpu_torch.runtime.auth import (
     client_authenticate,
     close_unauthenticated,
@@ -151,6 +151,8 @@ class WeightHandle:
     meta: TensorMeta
     tensor_slice: TensorSlice
     source_rank: int
+    # The address dests dial (the source's advertised one); None: by host.
+    address: Optional[str] = None
 
 
 @dataclass
@@ -184,12 +186,15 @@ class _PeerReadServer:
         self.stage_host_fn = None
         self._server: Optional[asyncio.AbstractServer] = None
         self.port: Optional[int] = None
+        self.address: Optional[str] = None  # what dests dial (advertised)
         self._writers: set = set()
 
     async def ensure_started(self) -> int:
         if self._server is None:
-            self._server = await asyncio.start_server(self._handle, BIND_HOST, 0)
+            host = bind_host()
+            self._server = await asyncio.start_server(self._handle, host, 0)
             self.port = self._server.sockets[0].getsockname()[1]
+            self.address = advertise_host(host)
         return self.port
 
     async def _control(self, fn, in_thread: bool) -> Optional[bytes]:
@@ -525,6 +530,7 @@ class DirectWeightSyncSource:
                     buffer_id=buffer_id,
                     hostname=hostname,
                     port=port,
+                    address=self.server.address,
                     shm_name=shm_name,
                     meta=meta,
                     tensor_slice=ts,
@@ -566,6 +572,7 @@ class DirectWeightSyncSource:
             "address": dt.DeviceTransferEngine.get().ensure_server(),
             "hostname": get_hostname(),
             "control_port": port,
+            "control_address": self.server.address,
             "pid": os.getpid(),
             "token": token,
             "keys": list(keys),
@@ -628,7 +635,7 @@ class DirectWeightSyncSource:
             seg = self.segments.get(buffer_id)
             handles[flat_key] = [WeightHandle(
                 buffer_id=buffer_id, hostname=info["hostname"], port=info["control_port"],
-                shm_name=None if seg is None else seg.name, meta=meta, tensor_slice=ts,
+                address=info.get("control_address"), shm_name=None if seg is None else seg.name, meta=meta, tensor_slice=ts,
                 source_rank=info["source_rank"],
             )]
         self.host_materializations += 1
@@ -826,10 +833,10 @@ class DirectWeightSyncDest:
         reused = self._ensure_plan(all_handles, dest_flat)
         self._preplanned = True
         dials = dial_errors = attached = 0
-        endpoints = sorted({(h.hostname, h.port) for hs in all_handles.values() for h in hs})
-        for hostname, port in endpoints:
+        endpoints = sorted({_endpoint(h) for hs in all_handles.values() for h in hs})
+        for host, port in endpoints:
             try:
-                await self._get_conn(_dial_host(hostname), port)
+                await self._get_conn(host, port)
                 dials += 1
             except OSError:
                 dial_errors += 1
@@ -867,7 +874,7 @@ class DirectWeightSyncDest:
         each lands. The generations are checked at the end: a consumer
         treats served keys as tentative until the pull returns (a torn pull
         serves every key again)."""
-        endpoints = sorted({(h.hostname, h.port) for hs in all_handles.values() for h in hs})
+        endpoints = sorted({_endpoint(h) for hs in all_handles.values() for h in hs})
         for _ in (0, 1):
             gens0 = await self._stable_gens(endpoints)
             result = await self._pull_once(all_handles, dest_state_dict, key_order, on_layer)
@@ -881,8 +888,8 @@ class DirectWeightSyncDest:
             "publishes or pull between refreshes"
         )
 
-    async def _read_gen(self, hostname: str, port: int) -> int:
-        (gen,) = _U64.unpack(await self._control_op(hostname, port, _GET_GEN))
+    async def _read_gen(self, host: str, port: int) -> int:
+        (gen,) = _U64.unpack(await self._control_op(host, port, _GET_GEN))
         return gen
 
     async def _stable_gens(self, endpoints) -> list:
@@ -1038,10 +1045,10 @@ class DirectWeightSyncDest:
         for _, writer, _ in (pool or {}).get("conns", ()):
             writer.close()
 
-    async def _control_op(self, hostname: str, port: int, opcode: int) -> bytes:
-        """One control op against a source's peer server. A source that
-        refuses it, or is gone (closed, restarted), raises ``KeyError``."""
-        host = _dial_host(hostname)
+    async def _control_op(self, host: str, port: int, opcode: int) -> bytes:
+        """One control op against a source's peer server (dialed at
+        ``host``). A source that refuses it, or is gone (closed,
+        restarted), raises ``KeyError``."""
         try:
             reader, writer, lock = await self._get_conn(host, port)
             async with lock:
@@ -1053,7 +1060,7 @@ class DirectWeightSyncDest:
                 return await reader.readexactly(length)
         except (asyncio.IncompleteReadError, ConnectionError, OSError) as exc:
             await self._drop_conns(host, port)
-            raise KeyError(f"direct-sync source at {hostname}:{port} is gone: {exc!r}") from exc
+            raise KeyError(f"direct-sync source at {host}:{port} is gone: {exc!r}") from exc
 
     async def _read_shard(self, handle: WeightHandle, pin: bool = False,
                           row_range: Optional[tuple[int, int]] = None
@@ -1085,7 +1092,7 @@ class DirectWeightSyncDest:
             out_shape = (r1 - r0,) + tuple(shape[1:])
         else:
             r0, offset, want_len, out_shape = 0, 0, handle.meta.nbytes, tuple(shape)
-        reader, writer, lock = await self._get_conn(_dial_host(handle.hostname), handle.port)
+        reader, writer, lock = await self._get_conn(*_endpoint(handle))
         async with lock:
             writer.write(_READ_REQ.pack(handle.buffer_id, offset, want_len))
             await writer.drain()
@@ -1154,7 +1161,7 @@ class DirectWeightSyncDest:
         self._opened = {t: b for t, b in self._opened.items() if t in tokens}
         tracker = LatencyTracker("direct_pull_device")
         dest_flat, mapping = flatten_state_dict(dest_state_dict)
-        endpoints = [(info["hostname"], info["control_port"]) for info in device_infos]
+        endpoints = [_info_endpoint(info) for info in device_infos]
         for _ in (0, 1):
             gens0 = await self._stable_gens(endpoints)
             parts_by_key: dict[str, list[tuple[TensorSlice, torch.Tensor]]] = {}
@@ -1215,8 +1222,7 @@ class DirectWeightSyncDest:
         return blocks
 
     async def _control_request(self, device_info: dict, opcode: int) -> bytes:
-        return await self._control_op(device_info["hostname"], device_info["control_port"],
-                                      opcode)
+        return await self._control_op(*_info_endpoint(device_info), opcode)
 
     async def _fetch_host_handles(self, device_info: dict) -> dict[str, list[WeightHandle]]:
         """Ask one source rank to copy its staging to host buffers; returns
@@ -1240,9 +1246,21 @@ class DirectWeightSyncDest:
 # --------------------------------------------------------------------------
 
 
-def _dial_host(hostname: str) -> str:
-    """Same-host sources are dialled over loopback."""
+def _dial_host(hostname: str, address: Optional[str] = None) -> str:
+    """The address a dest dials to reach a source: the one the source
+    advertised (its bind address, or ``ADVERTISE_HOST``); for a source
+    that advertised none, loopback on the same host, else its hostname."""
+    if address:
+        return address
     return "127.0.0.1" if hostname == get_hostname() else hostname
+
+
+def _endpoint(handle: WeightHandle) -> tuple[str, int]:
+    return _dial_host(handle.hostname, handle.address), handle.port
+
+
+def _info_endpoint(info: dict) -> tuple[str, int]:
+    return _dial_host(info["hostname"], info.get("control_address")), info["control_port"]
 
 
 def _row_range(handle: WeightHandle, ops: list[_TransferOp]) -> Optional[tuple[int, int]]:

@@ -16,6 +16,11 @@ have a site in this package:
     channel.delta_baseline the delta tier's baseline reads (publisher and
                            reader)
     actor.ping             the actor server's ping control (per process)
+    bulk.send_frame        every bulk TCP frame a client or volume sends
+                           (``drop-frame`` loses it silently)
+    bulk.recv_frame        every frame header the volume's bulk server
+                           parses (``drop-frame`` drains and drops it)
+    rendezvous.dispatch    every op the SPMD rendezvous server serves
 
 A disarmed point costs one dict lookup. Sync sites call :func:`fire`,
 async ones :func:`afire`.
@@ -67,6 +72,9 @@ REGISTRY: frozenset[str] = frozenset(
         "channel.watermark",
         "channel.delta_baseline",
         "actor.ping",
+        "bulk.send_frame",
+        "bulk.recv_frame",
+        "rendezvous.dispatch",
     }
 )
 

@@ -55,7 +55,7 @@ class LocalSegmentPool:
             budget -= fits * size
             clamped_bytes += (want - fits) * size
             for _ in range(fits):
-                self._by_size.setdefault(size, []).append(shm.ShmSegment.create_warm(size))
+                self._by_size.setdefault(size, []).append(shm.ShmSegment.create_provisioned(size))
                 created += 1
                 created_bytes += size
         if clamped_bytes:

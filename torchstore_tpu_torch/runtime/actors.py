@@ -15,7 +15,9 @@ starts fresh interpreters instead. An actor registered in process
 serialization. Every request frame carries the caller's trace context,
 re-activated around the endpoint under an ``rpc/<method>`` span, and every
 accepted connection passes the auth challenge (``auth.py``) before a frame
-is parsed.
+is parsed. Servers bind ``TORCHSTORE_TORCH_BIND_HOST`` (127.0.0.1 by
+default) and refs carry the advertised address (``ADVERTISE_HOST``, or the
+hostname when binding 0.0.0.0 or ::).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import socket
 import traceback
 from typing import Any, Callable, Optional
 
-from torchstore_tpu_torch.config import ENV_MP_CONTEXT, ENV_PREFIX
+from torchstore_tpu_torch.config import ENV_MP_CONTEXT, ENV_PREFIX, advertise_host, bind_host
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.observability import context as trace_context
 from torchstore_tpu_torch.observability.tracing import span
@@ -53,7 +55,6 @@ _ENDPOINT_ATTR = "_torchstore_torch_endpoint"
 
 SPAWN_TIMEOUT_S = 120.0
 STOP_TIMEOUT_S = 10.0
-BIND_HOST = "127.0.0.1"
 
 
 def endpoint(fn: Callable) -> Callable:
@@ -419,16 +420,21 @@ class ActorServer:
         self.stop_event = asyncio.Event()
         self._server: Optional[asyncio.AbstractServer] = None
         self.port: Optional[int] = None
+        self.address: Optional[str] = None
         self._client_writers: set[asyncio.StreamWriter] = set()
 
     def register(self, name: str, actor: Actor) -> None:
         self.actors[name] = actor
 
-    async def start(self, host: str = BIND_HOST, port: int = 0) -> int:
+    async def start(self, host: Optional[str] = None, port: int = 0) -> int:
+        """Listen on ``host`` (the process's bind address by default);
+        ``self.address`` is then the address refs carry."""
+        host = bind_host() if host is None else host
         self._server = await asyncio.start_server(
             self._handle_client, host, port, limit=2**20
         )
         self.port = self._server.sockets[0].getsockname()[1]
+        self.address = advertise_host(host)
         return self.port
 
     async def _handle_client(
@@ -586,16 +592,18 @@ def _reinit_after_fork() -> None:
     """Re-arm what a forked child inherits from the helper against its own
     corrected env: the config, observability (trace path, dumper thread,
     recorder), fault points, the landing pool (its threads died in the
-    fork) and the side streams."""
+    fork), the side streams and the bulk rung's stripe threshold and
+    emulated link rate."""
     from torchstore_tpu_torch import config as config_mod
     from torchstore_tpu_torch import faults, observability
-    from torchstore_tpu_torch.transport import landing, pinning
+    from torchstore_tpu_torch.transport import bulk, landing, pinning
 
     config_mod._default_config = None
     observability.reinit_after_fork()
     faults.reinit_after_fork()
     landing.reinit_after_fork()
     pinning.reinit_after_fork()
+    bulk.reinit_after_fork()
 
 
 async def _child_async(pipe, actor_cls, name: str, args: tuple, kwargs: dict) -> None:
@@ -603,8 +611,10 @@ async def _child_async(pipe, actor_cls, name: str, args: tuple, kwargs: dict) ->
     try:
         actor = actor_cls(*args, **kwargs)
         server.register(name, actor)
-        port = await server.start(BIND_HOST)
-        pipe.send(("ready", BIND_HOST, port))
+        # Refs carry a reachable address: a wildcard bind (across hosts)
+        # advertises the hostname or ADVERTISE_HOST, not 0.0.0.0.
+        port = await server.start()
+        pipe.send(("ready", server.address, port))
     except BaseException:
         pipe.send(("error", traceback.format_exc(), None))
         raise

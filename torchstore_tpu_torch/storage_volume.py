@@ -8,8 +8,11 @@ get may ask for a sub-box of a whole tensor or of one stored shard; the
 transport then returns only that box. Every put gives its keys a new write
 generation. ``inject_fault`` / ``clear_faults`` arm and disarm fault
 points inside the volume's process (``faults.py``), and ``stats()`` carries
-the process's metrics registry. Tiering, the one-sided planes and the
-health and repair endpoints are later work.
+the process's metrics registry. The volume serves the bulk TCP rung
+through its ``BulkServerCache`` (a listener of its own, started at the
+first bulk handshake) and builds the native host copies at start.
+Tiering, the one-sided planes and the health and repair endpoints are
+later work.
 """
 
 from __future__ import annotations
@@ -20,11 +23,11 @@ from typing import Any, Optional
 
 import torch
 
-from torchstore_tpu_torch import faults
+from torchstore_tpu_torch import faults, native
 from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.observability import recorder as obs_recorder
 from torchstore_tpu_torch.runtime import Actor, endpoint
-from torchstore_tpu_torch.transport import shared_memory
+from torchstore_tpu_torch.transport import bulk, shared_memory
 from torchstore_tpu_torch.transport.buffers import Served, TransportBuffer, TransportContext
 from torchstore_tpu_torch.transport.types import Request, TensorMeta, TensorSlice
 from torchstore_tpu_torch.utils import Box, get_hostname, maybe_await
@@ -49,6 +52,7 @@ class StorageVolume(Actor):
         if shared_memory.is_available():
             # Crashed processes leave segments behind; sweep before serving.
             shared_memory.reap_orphaned_segments()
+        native.get_lib()  # built or loaded now, not under the first transfer
         # An unclean exit (faults or errors recorded) leaves its last events.
         obs_recorder.recorder().arm_exit_dump()
 
@@ -188,7 +192,9 @@ class StorageVolume(Actor):
         once that transport served traffic: live, retired and pooled
         segments and bytes, read leases, warm-ups in flight, handshake
         offers by outcome (spare / pooled / miss), segments created,
-        recycled and reaped."""
+        recycled and reaped; and the bulk server's counts once that
+        transport served traffic (connections accepted, frames and bytes in
+        and out, striped payloads each way, aborts, payloads pending)."""
         stored_bytes = 0
         for entry in self.store.values():
             tensors = [t for _, t in entry.values()] if isinstance(entry, ShardedEntry) else [entry]
@@ -204,6 +210,9 @@ class StorageVolume(Actor):
         cache = self.ctx.peek(shared_memory.ShmServerCache)
         if cache is not None:
             out["shm"] = cache.stats()
+        bulk_cache = self.ctx.peek(bulk.BulkServerCache)
+        if bulk_cache is not None:
+            out["bulk"] = bulk_cache.stats()
         out["metrics"] = obs_metrics.metrics_snapshot()
         return out
 

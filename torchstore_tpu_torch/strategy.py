@@ -20,8 +20,11 @@ from torchstore_tpu_torch.utils import get_hostname
 
 @dataclass
 class StorageVolumeRef:
-    """What transports need of a volume: its actor handle and id, the
-    client's transport context, its host, and an optional forced
+    """What transports need of a volume: its actor handle (whose host is
+    the address the volume advertised), its id, the client's transport
+    context, its host identity (``TORCHSTORE_TORCH_HOSTNAME`` in the
+    volume's process, else the machine's name: an emulated other host is
+    not this one, so shared memory is not offered) and an optional forced
     transport."""
 
     actor: ActorRef

@@ -55,6 +55,7 @@ from typing import Any, Optional
 
 import torch
 
+from torchstore_tpu_torch import native
 from torchstore_tpu_torch.config import StoreConfig, default_config
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.transport import landing
@@ -181,6 +182,21 @@ class ShmSegment:
         seg = cls.create(size)
         if not cls._POPULATE and size:
             torch.frombuffer(seg.mmap, dtype=torch.uint8)[::4096].zero_()
+        return seg
+
+    @classmethod
+    def create_provisioned(cls, size: int, nthreads: int = 0) -> "ShmSegment":
+        """Cold-start provisioning variant of ``create_warm`` (the prewarm
+        path, off the first sync's critical path): mapped without
+        MAP_POPULATE, then every page prefaulted by the native library's
+        threads (``nthreads`` 0: by size). With the library off, as
+        ``create_warm``."""
+        if not native.enabled():
+            return cls.create_warm(size)
+        seg = cls.create(size, populate=False)
+        if size:
+            native.prefault(torch.frombuffer(seg.mmap, dtype=torch.uint8).data_ptr(), size,
+                            nthreads)
         return seg
 
     @classmethod
@@ -344,6 +360,20 @@ class ShmServerCache(TransportCache):
 
     def grant(self, name: str) -> None:
         self.grants[name] = self.grants.get(name, 0) + 1
+
+    def release(self, name: str) -> None:
+        """End one lease this process granted itself (a bulk send of the
+        segment finished); a retired segment pools once unleased."""
+        have = self.grants.get(name)
+        if have is None:
+            return
+        if have > 1:
+            self.grants[name] = have - 1
+            return
+        del self.grants[name]
+        entry = self.retired.pop(name, None)
+        if entry is not None:
+            self._add_free(entry[0])
 
     def apply_releases(self, payload: Optional[dict]) -> None:
         """Apply a client's numbered release batches exactly once: they are
