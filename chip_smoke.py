@@ -3,7 +3,11 @@
     python3 chip_smoke.py                 # every phase, as a user would run it
     python3 chip_smoke.py --phases device,build,parity   # a subset
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line. Widths are always full; so the whole
+run stays well inside its 1200 s limit, reshard, quant, channel, runtime
+(legs b and d) and bulk run at 12 of the 32 layers (``TIME_CAP_LAYERS``,
+each listed under ``reduced``), where earlier slices ran them at full
+depth; main, direct_device, spmd and tiering keep full depth:
 
 1. device       - the card, its power limit, /dev/shm and host memory;
 2. build        - nvcc builds csrc/cast.cu, csrc/flash_attention.cu (the
@@ -152,7 +156,36 @@ Phases, each printing one JSON line:
                   launches per publish (the planner's chunks), card memory
                   a pull leaves (0), peak card memory per process; every
                   target bit-equal; no process or segment left;
-15. runtime     - the runtime's foundations, in four legs: (a) start-up:
+15. tiering     - version retention and the disk tier at full Llama-3-8B
+                  width (the port Llama's 291 tensors, fp32 on the card,
+                  bf16 on the wire, bf16 targets on the card), after a
+                  printed plan (free /dev/shm, card memory, and the free
+                  disk and filesystem type, from /proc/mounts, of the tier
+                  and storage directories, placed on a disk filesystem when
+                  the machine has one; depth cut only as the plan forces,
+                  under ``reduced``); a store with the spill tier on, no
+                  background sweeper, a budget of two versions' bytes and
+                  a 1 GiB segment pool: (a) WeightPublisher(keep=2)
+                  publishes v0..v3, each after a seeded in-place step,
+                  cohort "eval" leasing v0 before v1: GC reaps v1 and
+                  keeps v0, v2, v3; a raw delete_prefix of v0 leaves its
+                  keys and counts them blocked; (b) tier_sweep spills v2
+                  (the coldest unpinned version) and leaves v0 and v3
+                  resident, s and GB/s of the spill; (c) acquire(version=0)
+                  into the targets with no fault-in; (d) acquire(version=2)
+                  faults v2 in from disk (s, GB/s, ts_fault_ins_total),
+                  then again warm; (e) the lease released, v4 published:
+                  GC reaps v0 (and v2), and acquire(version=0) raises
+                  KeyError; (f) a durable store (initialize(storage_dir=))
+                  takes a put, stops without the teardown, and
+                  initialize(recover=True) serves it again
+                  (rebuild_index's count and s, the first get's GB/s).
+                  Gates: every target bit-equal to the bf16 cast of the
+                  regenerated source at its version, K1 launches per
+                  publish and put = the planner's chunks with no cast
+                  outside the kernel, no segment, process, tier or
+                  storage file left;
+16. runtime     - the runtime's foundations, in four legs: (a) start-up:
                   initialize + shutdown twice under the forkserver (the
                   default) and twice under TORCHSTORE_TORCH_MP_CONTEXT=spawn,
                   seconds each, and a forked actor child that allocates on
@@ -186,7 +219,7 @@ Phases, each printing one JSON line:
                   traces parented by a client span; printed: span counts and
                   total ms per warm step, and the repull's open / land /
                   generation split;
-16. bulk        - a cross-host store on one box over the bulk TCP rung, at
+17. bulk        - a cross-host store on one box over the bulk TCP rung, at
                   the depth a printed plan of card and host memory allows:
                   one volume spawned with a TORCHSTORE_TORCH_HOSTNAME of its
                   own (``initialize(volume_env_fn=...)``), every listener on
@@ -208,7 +241,7 @@ Phases, each printing one JSON line:
                   rpc with ts_client_put_retries_total{transport=rpc} and
                   failovers{op=put} at 1, and after clearing it a get over
                   bulk reads it back bit-equal;
-17. landing     - host-to-host landings at main's sizes (the Llama-3-8B
+18. landing     - host-to-host landings at main's sizes (the Llama-3-8B
                   state dict in bf16, pageable host tensors on both ends,
                   depth from a printed plan of host memory): the landing
                   pool's Tensor.copy_ row blocks (the native library off)
@@ -217,7 +250,7 @@ Phases, each printing one JSON line:
                   native, pool; s and GB/s each; gates: every destination
                   bit-equal to its source after each landing, native calls
                   only in the native runs;
-18. spmd        - four processes launched with torchrun's variables (RANK,
+19. spmd        - four processes launched with torchrun's variables (RANK,
                   WORLD_SIZE=4, LOCAL_RANK, LOCAL_WORLD_SIZE=2,
                   MASTER_ADDR=127.0.0.1, an ephemeral MASTER_PORT), an auth
                   secret and two emulated hosts (ranks 0-1 the trainer host,
@@ -233,7 +266,7 @@ Phases, each printing one JSON line:
                   own host), K1 launches = the planner's chunks on every
                   trainer put, no card memory left by a get, every rank
                   exits 0, no process left;
-19. kernels     - one line listing every ported kernel.
+20. kernels     - one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints no
@@ -244,6 +277,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import importlib
 import json
 import math
@@ -261,7 +295,7 @@ except ImportError:  # alone in a directory: main() finds no package and fails
 
 ALL_PHASES = (
     "device", "build", "parity", "timing", "main", "reshard", "quant", "channel",
-    "flash_parity", "flash_timing", "ring", "model", "rl", "direct_device", "runtime",
+    "flash_parity", "flash_timing", "ring", "model", "rl", "direct_device", "tiering", "runtime",
     "bulk", "landing", "spmd", "kernels",
 )
 
@@ -284,8 +318,27 @@ FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores (the simt flash kern
 L2_BYTES = 50 * 2**20
 
 
+# Depth of the phases that measure the paths of earlier slices again
+# (reshard, quant, channel, runtime, bulk): each still drives its path and
+# holds K1 against the plain version, at this many layers, so the whole
+# script stays well inside its 1200 s limit with main, direct_device, spmd
+# and tiering at full depth. Widths never change.
+TIME_CAP_LAYERS = 12
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def time_capped(name: str, layers: int) -> int:
+    """``layers``, or TIME_CAP_LAYERS when that is fewer (listed under
+    ``reduced``)."""
+    if layers <= TIME_CAP_LAYERS:
+        return layers
+    emit({"reduced": {name: TIME_CAP_LAYERS, "of": LAYERS,
+                      "why": "the script's 1200 s limit; this path ran at full depth in "
+                             "earlier slices"}})
+    return TIME_CAP_LAYERS
 
 
 def sh(cmd: list[str]) -> str:
@@ -695,13 +748,19 @@ def main() -> int:
             res = phase_landing(torch)
         elif phase == "spmd":
             res = phase_spmd(torch, staging)
+        elif phase == "tiering":
+            res = phase_tiering(torch, staging)
         else:
             res = phase_kernels(results)
         res["seconds"] = time.perf_counter() - t0
         res.setdefault("device", torch.cuda.get_device_name(0))
+        res["mem_available_bytes"] = mem_available_bytes()
         emit(res)
         results[phase] = res
         torch.cuda.empty_cache()
+        # Mappings of unlinked segments held by a phase's cycles go now, not
+        # under the next phase's memory plan.
+        gc.collect()
         if res.get("ok") is False:
             print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
             return 1
@@ -1298,6 +1357,7 @@ def phase_reshard(torch, staging) -> dict:
     layers, sizing = plan_layers()
     if layers < LAYERS:
         emit({"reduced": {"reshard_layers": layers}, **sizing})
+    layers = time_capped("reshard_layers", layers)
     res = asyncio.run(_reshard_path(torch, staging, layers, torch.device("cuda", 0)))
     res["phase"] = "reshard"
     res["sizing"] = sizing
@@ -1637,7 +1697,8 @@ async def _quant_path(torch, layers: int, dev, geometry=None, delta_layers=None)
 
 
 def phase_quant(torch) -> dict:
-    res = asyncio.run(_quant_path(torch, LAYERS, torch.device("cuda", 0)))
+    layers = time_capped("quant_layers", LAYERS)
+    res = asyncio.run(_quant_path(torch, layers, torch.device("cuda", 0)))
     res["phase"] = "quant"
     res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     return res
@@ -1658,18 +1719,23 @@ CHANNEL_DELTA_KEYFRAME = 3
 CHANNEL_DELTA_KEEP = 3
 
 
-def _model_state(torch, cfg, layers: int, gen, dev) -> dict:
-    """The port Llama's state dict at ``cfg``'s width and ``layers`` deep
-    (Llama-3-8B: 291 tensors at 32 layers; the model's own key names, so
-    ``forward_key_order`` orders them), fp32 standard normal on ``dev``
-    from ``gen``, as ``workloads.llama_state_dict`` fills its tensors."""
+def _model_shapes(torch, cfg, layers: int) -> dict:
+    """The port Llama's state-dict shapes at ``cfg``'s width and ``layers``
+    deep (Llama-3-8B: 291 tensors at 32 layers; the model's own key names,
+    so ``forward_key_order`` orders them)."""
     import dataclasses
 
     from torchstore_tpu_torch.models.llama import Llama
 
     model = Llama(dataclasses.replace(cfg, num_layers=layers), torch.device("meta"))
-    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    return {k: torch.randn(s, generator=gen, device=dev) for k, s in shapes.items()}
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def _model_state(torch, cfg, layers: int, gen, dev) -> dict:
+    """``_model_shapes``' tensors, fp32 standard normal on ``dev`` from
+    ``gen``, as ``workloads.llama_state_dict`` fills its tensors."""
+    return {k: torch.randn(s, generator=gen, device=dev)
+            for k, s in _model_shapes(torch, cfg, layers).items()}
 
 
 def _modules(order: list) -> list:
@@ -1973,6 +2039,7 @@ def phase_channel(torch, staging) -> dict:
     layers, plan = plan_channel_layers(torch, dev)
     if layers < LAYERS:
         emit({"reduced": {"channel_layers": layers, "of": LAYERS}, **plan})
+    layers = time_capped("channel_layers", layers)
     res = asyncio.run(_channel_path(torch, staging, layers, dev))
     res["phase"] = "channel"
     res["plan"] = plan
@@ -3584,6 +3651,8 @@ def phase_runtime(torch, staging) -> dict:
     trace_layers = min(layers, plan_direct_device_layers(torch, dev)[0])
     if layers < LAYERS or trace_layers < LAYERS:
         emit({"reduced": {"runtime_layers": layers, "trace_layers": trace_layers}, **sizing})
+    layers = time_capped("runtime_layers", layers)
+    trace_layers = time_capped("trace_layers", trace_layers)
     emit({"reduced": {"fault_layers": FAULT_LAYERS, "of": LAYERS,
                       "why": "the demoted put moves the bytes in RPC frames"}})
     with tempfile.TemporaryDirectory() as tdir:
@@ -3853,6 +3922,7 @@ def phase_bulk(torch, staging) -> dict:
     layers, sizing = plan_bulk_layers(torch, dev)
     if layers < LAYERS:
         emit({"reduced": {"bulk_layers": layers}, **sizing})
+    layers = time_capped("bulk_layers", layers)
     emit({"reduced": {"bulk_fault_layers": FAULT_LAYERS, "of": LAYERS,
                       "why": "the demoted put moves the bytes in RPC frames"}})
     res = asyncio.run(_bulk_path(torch, staging, layers, dev))
@@ -4228,6 +4298,426 @@ def phase_spmd(torch, staging) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# tiering: version retention and the disk tier
+# --------------------------------------------------------------------------
+
+TIER_KEEP = 2
+TIER_VERSIONS = 4  # leg (a): v0..v3; leg (e) publishes v4
+TIER_SEED = 4242
+TIER_STORE = "tiering"
+TIER_DURABLE_STORE = "tiering_durable"
+TIER_CHANNEL = "tier"
+# The tier store's segment pool: small, so a demoted version's segments
+# leave /dev/shm at once, and no warm spare set competes with the versions.
+TIER_POOL_CAP = 1 << 30
+MEMORY_FS = ("tmpfs", "ramfs")
+
+
+def _mount_of(path: str) -> tuple[str, str]:
+    """(mount point, filesystem type) of ``path``, from /proc/mounts."""
+    real = os.path.realpath(path)
+    best = ("/", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            if len(fields) < 3:
+                continue
+            mount = fields[1].encode().decode("unicode_escape")
+            inside = real == mount or real.startswith(mount.rstrip("/") + "/")
+            if inside and len(mount) >= len(best[0]):
+                best = (mount, fields[2])
+    return best
+
+
+def _dir_facts(path: str) -> dict:
+    os.makedirs(path, exist_ok=True)
+    mount, fstype = _mount_of(path)
+    st = os.statvfs(path)
+    return {"path": path, "mount": mount, "fstype": fstype,
+            "free_bytes": st.f_frsize * st.f_bavail}
+
+
+def _tier_base_dirs() -> list:
+    """Where the phase may keep its tier and storage directories: a
+    directory of the checkout (git-ignored) and one under the temporary
+    directory, in that order."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [os.path.join(here, "_tiering"), os.path.join(tempfile.gettempdir(), "tst_tiering")]
+
+
+def plan_tiering(torch, dev) -> tuple[int, dict]:
+    """The phase's plan: both directories on the first candidate that is a
+    disk filesystem (not tmpfs: a disk tier there would measure RAM), and
+    the depth that fits. /dev/shm holds four bf16 versions at the peak (the
+    leased v0, the two kept, one landing) and the pool cap (plus both disk
+    copies when only tmpfs is left); the disk holds one spilled version and
+    the durable copy; the card holds the fp32 source, the bf16 targets, a
+    publish's bf16 cast and a check's regenerated tensor. Widths never
+    change."""
+    from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
+
+    facts = [_dir_facts(p) for p in _tier_base_dirs()]
+    disk = [f for f in facts if f["fstype"] not in MEMORY_FS]
+    base = (disk or facts)[0]
+    geo = dict(LLAMA3_8B)
+    per_layer = sum(math.prod(s) for s in _leaves(llama_shapes(**{**geo, "layers": 1})["layers"]))
+    outer = sum(math.prod(s) for s in _leaves({**llama_shapes(**{**geo, "layers": 0}),
+                                               "layers": {}}))
+    params = lambda n: outer + n * per_layer  # noqa: E731
+    shm_free, mem_free = shm_free_bytes(), mem_available_bytes()
+    host_budget = 0.8 * min(shm_free, mem_free)
+    card_free, card_total = torch.cuda.mem_get_info(dev)
+    card_budget = 0.9 * card_free
+    on_disk = base["fstype"] not in MEMORY_FS
+    leaf = 4 * geo["vocab"] * geo["hidden"]
+    host_need = lambda n: 4 * 2 * params(n) + TIER_POOL_CAP + (0 if on_disk else 4 * params(n))  # noqa: E731
+    disk_need = lambda n: int(2 * 2 * params(n) * 1.05) + (64 << 20)  # noqa: E731
+    card_need = lambda n: (4 + 2 + 2) * params(n) + 3 * leaf  # noqa: E731
+    layers = geo["layers"]
+    while layers > 1 and (host_need(layers) > host_budget or card_need(layers) > card_budget
+                          or disk_need(layers) > base["free_bytes"]):
+        layers -= 1
+    plan = {
+        "dev_shm_free_bytes": shm_free, "mem_available_bytes": mem_free,
+        "card_free_bytes": card_free, "card_total_bytes": card_total,
+        "candidates": facts, "base": base["path"], "on_disk": on_disk,
+        "tier_dir": os.path.join(base["path"], "tier"),
+        "storage_dir": os.path.join(base["path"], "storage"),
+        "host_budget_bytes": int(host_budget), "host_needed_bytes": host_need(layers),
+        "disk_needed_bytes": disk_need(layers), "card_budget_bytes": int(card_budget),
+        "card_needed_bytes": card_need(layers), "pool_cap": TIER_POOL_CAP,
+    }
+    plan["dirs"] = {name: {**_dir_facts(plan[name]), "free_bytes": base["free_bytes"]}
+                    for name in ("tier_dir", "storage_dir")}
+    return layers, plan
+
+
+def _tier_tensor(torch, shape, idx: int, version: int, dev):
+    """Tensor ``idx`` of the source at ``version``: its seeded fp32 start
+    plus one seeded step per version, each added in place as the phase's
+    training step adds it; regenerated to check a target bit for bit."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TIER_SEED + idx)
+    t = torch.randn(shape, generator=gen, device=dev)
+    for v in range(1, version + 1):
+        _tier_step(torch, t, idx, v, dev)
+    return t
+
+
+def _tier_step(torch, t, idx: int, version: int, dev) -> None:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TIER_SEED + 100_003 * version + idx)
+    t.add_(torch.randn(t.shape, generator=gen, device=dev), alpha=1e-3)
+
+
+def _tier_mismatches(torch, targets: dict, shapes: dict, version: int, dev) -> int:
+    """Targets that differ from the bf16 cast of the source at ``version``
+    (regenerated one tensor at a time)."""
+    bad = 0
+    for idx, key in enumerate(shapes):
+        want = _tier_tensor(torch, shapes[key], idx, version, dev).to(torch.bfloat16)
+        bad += not torch.equal(targets[key].view(torch.int16), want.view(torch.int16))
+        del want
+    return bad
+
+
+async def _volume_stats(client) -> dict:
+    stats = await client.controller.stats.call_one(include_volumes=True)
+    (vol,) = stats["volumes"].values()
+    return {"tier": vol.get("tier", {}), "metrics": vol["metrics"],
+            "controller_metrics": stats["metrics"], "resident_bytes": vol["resident_bytes"]}
+
+
+async def _stop_keeping_files(tst, store_name: str) -> None:
+    """A restart's first half: the store's processes stop (each volume
+    releases its segments), without the teardown that would reset the
+    volumes and with them the durable directory."""
+    from torchstore_tpu_torch import api
+    from torchstore_tpu_torch.runtime import stop_singleton
+    from torchstore_tpu_torch.runtime.actors import close_all_connections
+
+    handle = api._stores.pop(store_name)
+    handle.client.close()
+    os.environ.pop(api.ENV_STORE_PREFIX + store_name, None)
+    await handle.volume_mesh.stop()
+    await stop_singleton(api._controller_name(store_name))
+    await close_all_connections()
+
+
+async def _tiering_path(torch, staging, layers: int, dev, tier_dir: str, storage_dir: str,
+                        cfg=None) -> dict:
+    """The channel's multi-version path at Llama-3-8B width (the port
+    Llama's 291 tensors, fp32 on the card, bf16 on the wire, bf16 targets on
+    the card), six legs through the port's entry points: (a) keep=2 publishes
+    v0..v3 with v0 leased by cohort eval; (b) a spill pass demotes v2; (c) a
+    pinned acquire of resident v0; (d) a pinned acquire of v2 from disk,
+    then warm; (e) the lease released, v4 published, v0 reaped; (f) a
+    durable store restarted and recovered."""
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.config import StoreConfig
+    from torchstore_tpu_torch.transport.shared_memory import PREFIX, SHM_DIR
+    from torchstore_tpu_torch.workloads import llama3_8b_config
+
+    bf16 = torch.bfloat16
+    cuda = dev.type == "cuda"
+    shapes = _model_shapes(torch, cfg or llama3_8b_config(layers), layers)
+    src = {k: _tier_tensor(torch, s, i, 0, dev) for i, (k, s) in enumerate(shapes.items())}
+    targets = {k: torch.zeros(s, dtype=bf16, device=dev) for k, s in shapes.items()}
+    n_params = sum(t.numel() for t in src.values())
+    wire = 2 * n_params
+    chunks = len(staging.plan_chunks(list(src.values()), bf16))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def zero_targets():
+        for t in targets.values():
+            t.zero_()
+        sync()
+
+    out: dict = {"layers": layers, "tensors": len(src), "params": n_params, "wire_bytes": wire,
+                 "chunks_per_publish": chunks, "tier_dir": tier_dir, "storage_dir": storage_dir}
+    env = {"TORCHSTORE_TORCH_TIER_ENABLED": "1", "TORCHSTORE_TORCH_TIER_DIR": tier_dir,
+           "TORCHSTORE_TORCH_TIER_BUDGET_BYTES": str(2 * wire),
+           "TORCHSTORE_TORCH_TIER_HIGH_PCT": "1.0", "TORCHSTORE_TORCH_TIER_LOW_PCT": "1.0",
+           "TORCHSTORE_TORCH_TIER_SWEEP_INTERVAL_S": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    staging.cast_kernel.launches = 0  # count the tiering path's launches only
+    staging.cast_kernel.fallbacks = 0
+    config = StoreConfig(shm_pool_max_bytes=TIER_POOL_CAP)
+    pids: set = set()
+    legs: dict = {}
+    try:
+        await tst.initialize(store_name=TIER_STORE, config=config)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    pids |= {p.pid for p in multiprocessing.active_children()}
+    client = tst.client(TIER_STORE)
+    try:
+        # (a) keep=2 publishes, v0 leased by cohort "eval" before v1.
+        pub = tst.WeightPublisher(TIER_CHANNEL, store_name=TIER_STORE, keep=TIER_KEEP)
+        rows, lease = [], None
+        for v in range(TIER_VERSIONS):
+            if v:
+                for i, t in enumerate(src.values()):
+                    _tier_step(torch, t, i, v, dev)
+            sync()
+            launched, fell = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+            t0 = time.perf_counter()
+            version = await pub.publish(src, transfer_dtype=bf16)
+            sync()
+            seconds = time.perf_counter() - t0
+            if v == 0:
+                lease = await tst.lease_acquire("eval", TIER_CHANNEL, 0, ttl_s=3600,
+                                                store_name=TIER_STORE)
+            catalog = await tst.version_catalog(TIER_CHANNEL, store_name=TIER_STORE)
+            rows.append({"version": version, "publish_s": seconds,
+                         "publish_gb_per_s": wire / seconds / 1e9,
+                         "launches": staging.cast_kernel.launches - launched,
+                         "cast_fallbacks": staging.cast_kernel.fallbacks - fell,
+                         "versions_present": sorted(catalog.get(TIER_CHANNEL, {}))})
+        before = await _volume_stats(client)
+        removed = await tst.delete_prefix(f"{TIER_CHANNEL}/v0", store_name=TIER_STORE)
+        after = await _volume_stats(client)
+        blocked = (_series_total(after["controller_metrics"], "ts_lease_blocked_deletes_total")
+                   - _series_total(before["controller_metrics"], "ts_lease_blocked_deletes_total"))
+        v0_keys = len(await tst.keys(f"{TIER_CHANNEL}/v0", store_name=TIER_STORE))
+        leg = {"publishes": rows, "lease": {k: lease[k] for k in ("lease_id", "resident_keys")},
+               "raw_delete_listed": removed, "v0_keys_after_raw_delete": v0_keys,
+               "blocked_deletes": blocked}
+        leg["ok"] = (
+            [r["version"] for r in rows] == list(range(TIER_VERSIONS))
+            and rows[-1]["versions_present"] == [0, 2, 3]
+            and v0_keys == len(src) + 1 and blocked >= v0_keys
+            and all(r["cast_fallbacks"] == 0 for r in rows)
+            and (not cuda or all(r["launches"] == chunks for r in rows))
+        )
+        legs["a_publish"] = leg
+        emit({"tiering_leg": "a_publish", **leg})
+
+        # (b) a spill pass: resident v0 (leased), v2, v3 against a budget of
+        # two versions; v2, the coldest unpinned, goes to disk.
+        t0 = time.perf_counter()
+        report = await tst.tier_sweep(TIER_STORE)
+        sweep_s = time.perf_counter() - t0
+        after_b = await _volume_stats(client)
+        spill_bytes = after_b["tier"]["spill_bytes"] - before["tier"].get("spill_bytes", 0)
+        spill_s = after_b["tier"]["spill_s"] - before["tier"].get("spill_s", 0.0)
+        catalog = await tst.version_catalog(TIER_CHANNEL, store_name=TIER_STORE)
+        tiers = {v: (rec["resident_keys"], rec["spilled_keys"])
+                 for v, rec in catalog[TIER_CHANNEL].items()}
+        (rep,) = report.values()
+        leg = {"sweep_s": sweep_s, "spill_s": spill_s, "spill_bytes": spill_bytes,
+               "spill_gb_per_s": spill_bytes / spill_s / 1e9 if spill_s else None,
+               "spilled_keys": rep["spilled"], "tiers": tiers,
+               "resident_bytes": after_b["resident_bytes"],
+               "spills_total": _series_total(after_b["metrics"], "ts_spills_total"),
+               "tier_files": sum(len(fs) for _, _, fs in os.walk(tier_dir))}
+        leg["ok"] = (tiers[2] == (0, len(src) + 1) and tiers[0][1] == 0 and tiers[3][1] == 0
+                     and spill_bytes == wire and rep["spilled"] == len(src) + 1)
+        legs["b_spill"] = leg
+        emit({"tiering_leg": "b_spill", **leg})
+
+        # (c) cohort eval reads its pinned v0, resident: no fault-in.
+        sub = tst.WeightSubscriber(TIER_CHANNEL, store_name=TIER_STORE, cohort="eval")
+        zero_targets()
+        t0 = time.perf_counter()
+        _, got = await sub.acquire(targets, version=0)
+        sync()
+        seconds = time.perf_counter() - t0
+        after_c = await _volume_stats(client)
+        leg = {"version": got, "acquire_s": seconds, "acquire_gb_per_s": wire / seconds / 1e9,
+               "fault_ins": after_c["tier"]["fault_ins"] - after_b["tier"]["fault_ins"],
+               "mismatched": _tier_mismatches(torch, targets, shapes, 0, dev)}
+        leg["ok"] = got == 0 and leg["fault_ins"] == 0 and leg["mismatched"] == 0
+        legs["c_pinned_resident"] = leg
+        emit({"tiering_leg": "c_pinned_resident", **leg})
+
+        # (d) a pinned read of v2 faults it in from disk; then again, warm.
+        steps = {}
+        for step in ("fault_in", "warm"):
+            zero_targets()
+            before_d = await _volume_stats(client)
+            t0 = time.perf_counter()
+            _, got = await sub.acquire(targets, version=2)
+            sync()
+            seconds = time.perf_counter() - t0
+            after_d = await _volume_stats(client)
+            fin_s = after_d["tier"]["fault_in_s"] - before_d["tier"]["fault_in_s"]
+            fin_bytes = after_d["tier"]["fault_in_bytes"] - before_d["tier"]["fault_in_bytes"]
+            steps[step] = {
+                "version": got, "acquire_s": seconds, "acquire_gb_per_s": wire / seconds / 1e9,
+                "fault_ins": after_d["tier"]["fault_ins"] - before_d["tier"]["fault_ins"],
+                "fault_in_s": fin_s, "fault_in_bytes": fin_bytes,
+                "fault_in_gb_per_s": fin_bytes / fin_s / 1e9 if fin_s else None,
+                "ts_fault_ins_total": _series_total(after_d["metrics"], "ts_fault_ins_total"),
+                "mismatched": _tier_mismatches(torch, targets, shapes, 2, dev),
+            }
+        leg = dict(steps)
+        leg["ok"] = (steps["fault_in"]["fault_ins"] == len(src) + 1
+                     and steps["fault_in"]["fault_in_bytes"] == wire
+                     and steps["warm"]["fault_ins"] == 0
+                     and all(s["version"] == 2 and s["mismatched"] == 0 for s in steps.values()))
+        legs["d_pinned_fault_in"] = leg
+        emit({"tiering_leg": "d_pinned_fault_in", **leg})
+
+        # (e) the lease released and v4 published: GC reaps v0 at last.
+        await tst.lease_release(lease["lease_id"], store_name=TIER_STORE)
+        for i, t in enumerate(src.values()):
+            _tier_step(torch, t, i, TIER_VERSIONS, dev)
+        sync()
+        launched, fell = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+        t0 = time.perf_counter()
+        version = await pub.publish(src, transfer_dtype=bf16)
+        sync()
+        seconds = time.perf_counter() - t0
+        catalog = await tst.version_catalog(TIER_CHANNEL, store_name=TIER_STORE)
+        try:
+            await sub.acquire(targets, version=0)
+            gone = None
+        except KeyError as exc:
+            gone = str(exc)
+        leg = {"version": version, "publish_s": seconds, "publish_gb_per_s": wire / seconds / 1e9,
+               "launches": staging.cast_kernel.launches - launched,
+               "cast_fallbacks": staging.cast_kernel.fallbacks - fell,
+               "versions_present": sorted(catalog.get(TIER_CHANNEL, {})), "v0_acquire": gone}
+        leg["ok"] = (version == TIER_VERSIONS and leg["versions_present"] == [3, 4]
+                     and gone is not None and "does not retain v0" in gone
+                     and leg["cast_fallbacks"] == 0 and (not cuda or leg["launches"] == chunks))
+        legs["e_release"] = leg
+        emit({"tiering_leg": "e_release", **leg})
+    finally:
+        await tst.shutdown(TIER_STORE)
+    out["tier_files_left"] = [os.path.join(d, f) for d, _, fs in os.walk(tier_dir) for f in fs]
+
+    # (f) a durable store: put, restart over the directory, recover, get.
+    await tst.initialize(store_name=TIER_DURABLE_STORE, storage_dir=storage_dir)
+    pids |= {p.pid for p in multiprocessing.active_children()}
+    try:
+        launched, fell = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+        t0 = time.perf_counter()
+        await tst.put_state_dict("durable", src, transfer_dtype=bf16,
+                                 store_name=TIER_DURABLE_STORE)
+        sync()
+        put_s = time.perf_counter() - t0
+        put_launches = staging.cast_kernel.launches - launched
+        put_fallbacks = staging.cast_kernel.fallbacks - fell
+        files = sum(len(fs) for _, _, fs in os.walk(storage_dir))
+        await _stop_keeping_files(tst, TIER_DURABLE_STORE)
+        t0 = time.perf_counter()
+        await tst.initialize(store_name=TIER_DURABLE_STORE, storage_dir=storage_dir,
+                             recover=True)
+        init_s = time.perf_counter() - t0
+        pids |= {p.pid for p in multiprocessing.active_children()}
+        dclient = tst.client(TIER_DURABLE_STORE)
+        t0 = time.perf_counter()
+        count = await dclient.controller.rebuild_index.call_one()
+        rebuild_s = time.perf_counter() - t0
+        zero_targets()
+        t0 = time.perf_counter()
+        await tst.get_state_dict("durable", targets, store_name=TIER_DURABLE_STORE)
+        sync()
+        get_s = time.perf_counter() - t0
+        bad = _tier_mismatches(torch, targets, shapes, TIER_VERSIONS, dev)
+    finally:
+        if TIER_DURABLE_STORE in tst.api._stores:
+            await tst.shutdown(TIER_DURABLE_STORE)
+    leg = {"put_s": put_s, "put_gb_per_s": wire / put_s / 1e9, "launches": put_launches,
+           "cast_fallbacks": put_fallbacks, "files": files,
+           "initialize_recover_s": init_s, "rebuild_index_count": count,
+           "rebuild_index_s": rebuild_s, "first_get_s": get_s,
+           "first_get_gb_per_s": wire / get_s / 1e9, "mismatched": bad,
+           "storage_files_left": [f for _, _, fs in os.walk(storage_dir) for f in fs]}
+    leg["ok"] = (bad == 0 and count == len(src) + 1 and put_fallbacks == 0
+                 and (not cuda or put_launches == chunks) and not leg["storage_files_left"])
+    legs["f_durable"] = leg
+    emit({"tiering_leg": "f_durable", **leg})
+
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children() if p.pid in pids]
+    own = pids | {os.getpid()}
+    leaked = [n for n in os.listdir(SHM_DIR)
+              if n.startswith(PREFIX) and int(n[len(PREFIX):].split("_")[0]) in own]
+    out.update({"legs": {k: v["ok"] for k, v in legs.items()},
+                "launches": staging.cast_kernel.launches,
+                "cast_fallbacks": staging.cast_kernel.fallbacks,
+                "processes_left": alive, "segments_left": leaked[:5],
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if cuda else 0})
+    out["ok"] = (all(v["ok"] for v in legs.values()) and not alive and not leaked
+                 and not out["tier_files_left"] and staging.cast_kernel.fallbacks == 0)
+    return out
+
+
+def phase_tiering(torch, staging) -> dict:
+    import shutil
+
+    dev = torch.device("cuda", 0)
+    layers, plan = plan_tiering(torch, dev)
+    emit({"tiering_plan": plan})
+    if layers < LAYERS:
+        emit({"reduced": {"tiering_layers": layers, "of": LAYERS}, **plan})
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        res = asyncio.run(_tiering_path(torch, staging, layers, dev, plan["tier_dir"],
+                                        plan["storage_dir"]))
+    finally:
+        for base in _tier_base_dirs():
+            shutil.rmtree(base, ignore_errors=True)
+    res["phase"] = "tiering"
+    res["plan"] = {k: plan[k] for k in ("base", "on_disk", "tier_dir", "storage_dir", "dirs")}
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return res
+
+
 def phase_kernels(results: dict) -> dict:
     """One entry per ported kernel, and per (mode, variant) of the flash
     kernels. The cast's times are the timing phase's measured publish row
@@ -4261,6 +4751,8 @@ def phase_kernels(results: dict) -> dict:
         by_path["bulk"] = results["bulk"]["launches"]
     if "spmd" in results:
         by_path["spmd"] = results["spmd"]["launches"]
+    if "tiering" in results:
+        by_path["tiering"] = results["tiering"]["launches"]
     entries = [{
         "name": "cast",
         "route": "cuda",
@@ -4292,7 +4784,9 @@ def phase_kernels(results: dict) -> dict:
                + ("; on bulk: put, reput and reput2 over the bulk rung" if "bulk" in results
                   else "")
                + ("; on spmd: the two trainer ranks' put and reput, each of its half"
-                  if "spmd" in results else ""),
+                  if "spmd" in results else "")
+               + ("; on tiering: the channel's publishes v0..v4 and the durable put"
+                  if "tiering" in results else ""),
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"

@@ -783,3 +783,52 @@ def test_bulk_rung_stages_card_payloads(cuda):
     assert torch.equal(dests["small"].view(torch.int16), small.view(torch.int16))
     assert torch.equal(dests["strided"], strided)
     assert moved == (1, 1) and left <= 0
+
+
+@pytest.mark.cuda
+def test_pinned_acquire_into_card_targets_after_a_fault_in(cuda, tmp_path, monkeypatch):
+    """A keep=1 bf16 channel on the card with the spill tier on: v0 pinned
+    by a cohort lease survives GC, a spill pass demotes it to disk, and
+    ``acquire(version=0)`` faults it back in and fills bf16 targets on the
+    card, bit-equal to v0's cast by the grouped kernel."""
+    import asyncio
+
+    import torchstore_tpu_torch as tst
+
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_ENABLED", "1")
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_DIR", str(tmp_path / "tier"))
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_BUDGET_BYTES", "1")  # demote all unpinned
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_SWEEP_INTERVAL_S", "0")
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    src = {"a": torch.randn(1024, 384, generator=gen, device=cuda),
+           "b": torch.randn(4096, generator=gen, device=cuda)}
+    want = {k: v.to(torch.bfloat16) for k, v in src.items()}
+    targets = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=cuda) for k, v in src.items()}
+
+    async def go():
+        await tst.initialize(store_name="tiercuda")
+        try:
+            pub = tst.WeightPublisher("policy", store_name="tiercuda", keep=1)
+            await pub.publish(src, transfer_dtype=torch.bfloat16)
+            lease = await tst.lease_acquire("eval", "policy", 0, store_name="tiercuda")
+            for t in src.values():
+                t.add_(1.0)
+            await pub.publish(src, transfer_dtype=torch.bfloat16)  # GC keeps leased v0
+            await tst.lease_release(lease["lease_id"], store_name="tiercuda")
+            sweep = await tst.tier_sweep("tiercuda")
+            catalog = await tst.version_catalog("policy", store_name="tiercuda")
+            sub = tst.WeightSubscriber("policy", store_name="tiercuda", cohort="eval")
+            _, v = await sub.acquire(targets, version=0)
+            torch.cuda.synchronize()
+            stats = await tst.client("tiercuda").controller.stats.call_one(include_volumes=True)
+            (vol,) = stats["volumes"].values()
+            return sweep, catalog, v, vol["tier"]["fault_ins"]
+        finally:
+            await tst.shutdown("tiercuda")
+
+    sweep, catalog, v, fault_ins = asyncio.run(go())
+    assert next(iter(sweep.values()))["spilled"] > 0
+    assert catalog["policy"][0]["spilled_keys"] == catalog["policy"][0]["keys"]
+    assert v == 0 and fault_ins >= len(src)
+    assert all(torch.equal(targets[k].view(torch.int16), want[k].view(torch.int16))
+               for k in src)

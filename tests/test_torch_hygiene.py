@@ -65,6 +65,8 @@ def test_import_leaves_no_jax_or_reference_module():
         "import torchstore_tpu_torch.native, torchstore_tpu_torch.spmd\n"
         "import torchstore_tpu_torch.transport.bulk\n"
         "import torchstore_tpu_torch.runtime.rendezvous\n"
+        "import torchstore_tpu_torch.tiering, torchstore_tpu_torch.tiering.leases\n"
+        "import torchstore_tpu_torch.tiering.spill, torchstore_tpu_torch.storage_utils.file_store\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN_ROOTS)!r})\n"
         "print(json.dumps(bad))\n"

@@ -306,27 +306,23 @@ async def _spmd_scenario(rank: int, world: int) -> dict:
     return out
 
 
-def _spmd_rank_main(rank: int, world: int, env: dict, queue) -> None:
+def _spmd_rank_main(rank: int, world: int, env: dict, queue, scenario=None, args=()) -> None:
     import os
 
     os.environ.update(env)
     try:
-        queue.put((rank, asyncio.run(_spmd_scenario(rank, world)), None))
+        queue.put((rank, asyncio.run((scenario or _spmd_scenario)(rank, world, *args)), None))
     except BaseException:  # noqa: BLE001 - reported to the parent, which raises
         queue.put((rank, None, traceback.format_exc()))
 
 
-def spmd_lifecycle(world: int, local_world: int, secret=None, hostnames: bool = False,
-                   timeout: float = 180.0) -> list:
-    """Launch ``world`` ranks (``local_world`` a host) on an ephemeral
-    rendezvous port; the list of per-rank results. Each rank has its own
-    join timeout; a rank left alive is killed."""
+def _run_ranks(world: int, envs: list, timeout: float, scenario=None, args=()) -> list:
+    """Start one spawned process per rank with its env; the per-rank
+    results. Each rank has its own join timeout; a rank left alive is
+    killed."""
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_spmd_rank_main,
-                         args=(r, world, spmd_env(r, world, local_world, port, secret, hostnames),
-                               queue))
+    procs = [ctx.Process(target=_spmd_rank_main, args=(r, world, envs[r], queue, scenario, args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -344,3 +340,59 @@ def spmd_lifecycle(world: int, local_world: int, secret=None, hostnames: bool = 
                 p.kill()
                 p.join(timeout=10)
     return results
+
+
+def spmd_lifecycle(world: int, local_world: int, secret=None, hostnames: bool = False,
+                   timeout: float = 180.0) -> list:
+    """Launch ``world`` ranks (``local_world`` a host) on an ephemeral
+    rendezvous port; the list of per-rank results."""
+    port = _free_port()
+    return _run_ranks(world, [spmd_env(r, world, local_world, port, secret, hostnames)
+                              for r in range(world)], timeout)
+
+
+DURABLE_STORE = "tst_dspmd"
+
+
+async def _spmd_durable_scenario(rank: int, world: int, storage: str, phase: str) -> dict:
+    """test_spmd_durable_recovery's two phases. ``write``: every rank puts
+    its key into a durable store, then the world exits without the
+    collective shutdown (a crash: the volumes are killed, nothing is torn
+    down). ``recover``: a fresh world over the same directory rebuilds the
+    index and every rank reads every rank's key."""
+    import torchstore_tpu_torch as ts
+    from torchstore_tpu_torch import spmd
+
+    if phase == "write":
+        await ts.initialize_spmd(store_name=DURABLE_STORE, storage_dir=storage)
+        await ts.put(f"r{rank}", torch.full((4,), float(rank), dtype=torch.float64),
+                     store_name=DURABLE_STORE)
+        await ts.barrier("puts", store_name=DURABLE_STORE)
+        session = spmd._spmd_sessions[DURABLE_STORE]
+        # The other ranks confirm no rendezvous request is in flight before
+        # rank 0, which hosts the rendezvous server, crashes.
+        if rank != 0:
+            await session.client.add("drained", 1)
+        else:
+            await session.client.wait_counter("drained", world - 1)
+        if session.volume_mesh is not None:
+            for proc in session.volume_mesh._processes:
+                proc.terminate()
+                proc.join(10)
+        return {"wrote": rank}
+    await ts.initialize_spmd(store_name=DURABLE_STORE, storage_dir=storage, recover=True)
+    reads = [(await ts.get(f"r{other}", store_name=DURABLE_STORE)).tolist()
+             for other in range(world)]
+    keys = await ts.keys(store_name=DURABLE_STORE)
+    await ts.barrier("reads", store_name=DURABLE_STORE)
+    await ts.shutdown(DURABLE_STORE)
+    await asyncio.sleep(0.2)
+    return {"reads": reads, "keys": sorted(keys),
+            "children_left": [p.pid for p in multiprocessing.active_children()]}
+
+
+def spmd_durable(world: int, storage: str, phase: str, timeout: float = 180.0) -> list:
+    """One phase of the durable world (one host, ``world`` ranks)."""
+    port = _free_port()
+    return _run_ranks(world, [spmd_env(r, world, world, port) for r in range(world)], timeout,
+                      _spmd_durable_scenario, (storage, phase))

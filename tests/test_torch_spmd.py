@@ -2,8 +2,9 @@
 validated from the same env dicts, the rendezvous KV through both
 packages' servers and clients, and test_spmd_full_lifecycle's four cases
 (1 host x 2 ranks, 1 x 4, 2 x 2, 2 x 2 with auth), every rank's reads held
-against what the JAX package's ranks read. Durable recovery (storage_dir /
-recover) is not ported and raises."""
+against what the JAX package's ranks read. test_spmd_durable_recovery's
+world writes into durable volumes, crashes, and a fresh world over the same
+directory recovers every rank's key (``storage_dir`` / ``recover``)."""
 
 import asyncio
 import json
@@ -140,13 +141,28 @@ def test_rendezvous_takes_auth_and_its_fault_point(monkeypatch):
 
 
 def test_durable_recovery_is_not_ported(monkeypatch):
+    """Durable recovery is ported now (``test_spmd_durable_recovery``);
+    what stays refused, as the JAX package refuses it, is ``recover``
+    without a ``storage_dir``, before any rank starts a process."""
+    import torchstore_tpu as ts_ref
     import torchstore_tpu_torch as tst
 
     for k, v in BASE.items():
         monkeypatch.setenv(k, v)
-    for kwargs in ({"storage_dir": "/nonexistent"}, {"recover": True}):
-        with pytest.raises(NotImplementedError, match="A11"):
-            asyncio.run(tst.initialize_spmd(store_name="tst_nodurable", **kwargs))
+    for pkg in (tst, ts_ref):
+        with pytest.raises(ValueError, match="recover=True requires storage_dir"):
+            asyncio.run(pkg.initialize_spmd(store_name="tst_nodurable", recover=True))
+
+
+def test_spmd_durable_recovery(tmp_path):
+    world, storage = 2, str(tmp_path / "storage")
+    wrote = worker.spmd_durable(world, storage, "write")
+    assert [r["wrote"] for r in wrote] == list(range(world))
+    for rank, res in enumerate(worker.spmd_durable(world, storage, "recover")):
+        # As the JAX package's test reads: each rank's key, its rank's value.
+        assert res["reads"] == [[float(other)] * 4 for other in range(world)], rank
+        assert res["keys"] == [f"r{other}" for other in range(world)]
+        assert res["children_left"] == []
 
 
 # --------------------------------------------------------------------------

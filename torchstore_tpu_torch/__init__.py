@@ -30,6 +30,14 @@ Across hosts: a volume on another host is reached over the bulk TCP rung
 ``initialize_spmd`` brings one store up across a torchrun-style world
 (each host's volumes, one controller; ``barrier`` between ranks).
 
+Versions of a channel are kept for mixed cohorts: ``lease_acquire`` pins
+one against GC and spill, ``WeightSubscriber.acquire(version=N)`` reads a
+retained version under a lease of its own, ``version_catalog`` lists what
+is kept where, and with ``TORCHSTORE_TORCH_TIER_ENABLED`` each volume
+spills cold versions to disk (``tier_sweep``) and faults them back in on
+a get. ``initialize(storage_dir=...)`` makes the volumes durable, and
+``recover=True`` serves what a restarted store's directory holds.
+
 ``initialize(colocated=True)`` hosts the volume in the caller's process;
 ``StoreConfig(auth_secret=...)`` authenticates every connection;
 ``inject_fault`` / ``clear_faults`` drive the fault points,
@@ -56,6 +64,10 @@ from torchstore_tpu_torch.api import (
     initialize_spmd,
     inject_fault,
     keys,
+    lease_acquire,
+    lease_list,
+    lease_release,
+    lease_renew,
     metrics_snapshot,
     prewarm,
     put,
@@ -63,6 +75,8 @@ from torchstore_tpu_torch.api import (
     put_state_dict,
     shutdown,
     state_dict_stream,
+    tier_sweep,
+    version_catalog,
     wait_for,
 )
 from torchstore_tpu_torch.client import Shard
@@ -115,6 +129,10 @@ __all__ = [
     "initialize_spmd",
     "inject_fault",
     "keys",
+    "lease_acquire",
+    "lease_list",
+    "lease_release",
+    "lease_renew",
     "metrics_snapshot",
     "prewarm",
     "put",
@@ -125,6 +143,8 @@ __all__ = [
     "shards_from_numpy",
     "shutdown",
     "state_dict_stream",
+    "tier_sweep",
+    "version_catalog",
     "wait_for",
 ]
 

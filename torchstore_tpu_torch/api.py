@@ -8,6 +8,12 @@ store's ``LocalClient``. ``initialize`` publishes the controller's handle in
 its children, so an actor process reaches the store by name (a learner
 publishing, a generator acquiring).
 
+``initialize(storage_dir=...)`` makes the volumes durable (each persists
+its entries under ``<storage_dir>/<volume_id>``), and ``recover=True``
+rebuilds the controller's index from what the directory holds.
+``version_catalog``, the ``lease_*`` calls and ``tier_sweep`` reach the
+version-retention and spill-tier plane (``tiering/``).
+
 ``initialize(colocated=True)`` hosts the one volume in this process: its
 actor server still answers other processes, and this process's calls on it
 are direct (the transports copy what they store and serve, as the frames
@@ -32,7 +38,13 @@ import torch
 from torchstore_tpu_torch import config as config_mod
 from torchstore_tpu_torch import native, state_dict_utils
 from torchstore_tpu_torch.client import LocalClient
-from torchstore_tpu_torch.config import ENV_AUTH_SECRET, ENV_PREFIX, StoreConfig, default_config
+from torchstore_tpu_torch.config import (
+    ENV_AUTH_SECRET,
+    ENV_PREFIX,
+    ENV_STORAGE_DIR,
+    StoreConfig,
+    default_config,
+)
 from torchstore_tpu_torch.controller import Controller
 from torchstore_tpu_torch.logging import get_logger, set_log_level
 from torchstore_tpu_torch.observability import metrics as obs_metrics
@@ -92,12 +104,19 @@ async def initialize(
     strategy: Optional[StoreStrategy] = None,
     store_name: str = DEFAULT_STORE,
     config: Optional[StoreConfig] = None,
+    storage_dir: Optional[str] = None,
+    recover: bool = False,
     colocated: bool = False,
     volume_env_fn: Optional[Callable[[int], dict]] = None,
 ) -> ActorRef:
     """Boot a store on this host: spawn the volume processes and the
     controller process, and wire them. ``colocated=True`` hosts the one
     volume in this process instead.
+
+    ``storage_dir``: the volumes persist every entry under
+    ``<storage_dir>/<volume_id>`` and serve what it already holds;
+    ``recover=True`` (which requires it) rebuilds the index from those
+    entries, so a store restarted over the directory serves them again.
 
     ``volume_env_fn(rank) -> dict`` adds environment to each spawned volume
     (ignored when colocated): a ``TORCHSTORE_TORCH_HOSTNAME`` of its own
@@ -106,6 +125,8 @@ async def initialize(
     if store_name in _stores:
         raise RuntimeError(f"store {store_name!r} already initialized")
     config = config or default_config()
+    if recover and not storage_dir:
+        raise ValueError("recover=True requires storage_dir")
     if colocated and num_storage_volumes != 1:
         raise ValueError("colocated=True hosts exactly one volume")
     set_log_level(config.log_level)
@@ -127,11 +148,15 @@ async def initialize(
         if existing != config.auth_secret:
             os.environ[ENV_AUTH_SECRET] = config.auth_secret
             config_mod._default_config = None
+    # The storage directory rides each volume's spawn environment, never
+    # this process's: a failed or concurrent initialize leaks it nowhere.
+    volume_env = {ENV_STORAGE_DIR: storage_dir} if storage_dir else {}
     # Volumes and controller start together.
     volumes, controller = await asyncio.gather(
-        _host_colocated_volume(store_name, strategy) if colocated else spawn_actors(
+        _host_colocated_volume(store_name, strategy, storage_dir) if colocated else spawn_actors(
             num_storage_volumes, StorageVolume, f"tst_{store_name}_volume", strategy,
-            env_fn=volume_env_fn,
+            env_fn=lambda rank: {**volume_env, **((volume_env_fn(rank) or {})
+                                                  if volume_env_fn else {})},
         ),
         get_or_spawn_singleton(_controller_name(store_name), Controller),
         return_exceptions=True,
@@ -145,6 +170,9 @@ async def initialize(
                 raise res
         controller.rpc_timeout = config.rpc_timeout
         await controller.init.call_one(strategy, volumes.refs)
+        if recover:
+            recovered = await controller.rebuild_index.call_one()
+            logger.info("recovered %d entries from %s", recovered, storage_dir)
     except BaseException:
         if inproc_volume is not None:
             await _stop_colocated_volume(inproc_volume)
@@ -162,11 +190,13 @@ async def initialize(
     return controller
 
 
-async def _host_colocated_volume(store_name: str, strategy) -> tuple[ActorMesh, tuple]:
+async def _host_colocated_volume(
+    store_name: str, strategy, storage_dir: Optional[str] = None
+) -> tuple[ActorMesh, tuple]:
     """One ``StorageVolume`` in this process: a real actor server (other
     processes reach it over RPC) and an in-process registration (this
     process's calls are direct)."""
-    volume = StorageVolume(strategy)
+    volume = StorageVolume(strategy, storage_dir)
     name = f"tst_{store_name}_volume_0"
     server = ActorServer()
     server.register(name, volume)
@@ -416,8 +446,9 @@ async def initialize_spmd(
     recover: bool = False,
 ) -> None:
     """Collective bootstrap from a torchrun-style environment: call it on
-    every rank (``spmd.initialize``). ``storage_dir`` / ``recover`` (durable
-    volumes and index recovery) are not ported: passing either raises."""
+    every rank (``spmd.initialize``). ``storage_dir``: each host's volumes
+    persist under it; ``recover=True`` rebuilds the index from it on rank
+    0."""
     from torchstore_tpu_torch import spmd
 
     await spmd.initialize(strategy=strategy, store_name=store_name, config=config,
@@ -471,6 +502,55 @@ async def shutdown(store_name: str = DEFAULT_STORE) -> None:
         await _stop_colocated_volume(handle.inproc_volume)
     await stop_singleton(_controller_name(store_name))
     await close_all_connections()
+
+
+# ---- version retention and the spill tier -----------------------------------
+
+
+async def version_catalog(channel: Optional[str] = None, store_name: str = DEFAULT_STORE) -> dict:
+    """Every ``{channel}/v{n}`` group the store holds: keys, logical bytes,
+    volumes, the tier split (resident vs spilled to disk) and the cohort
+    leases pinning it."""
+    return await client(store_name).version_catalog(channel)
+
+
+async def lease_acquire(
+    cohort: str, channel: str, version: int, ttl_s: Optional[float] = None,
+    store_name: str = DEFAULT_STORE,
+) -> dict:
+    """Pin ``(channel, version)`` for ``cohort``: the publisher's GC skips
+    it, the controller refuses deletes under it, and no spill pass demotes
+    it while the lease lives. TTL'd (default
+    ``TORCHSTORE_TORCH_LEASE_TTL_S``); renew to keep it. Returns the lease's
+    description; its ``lease_id`` renews and releases it.
+    ``WeightSubscriber.acquire(version=)`` holds a read-scoped one itself."""
+    return await client(store_name).lease_acquire(cohort, channel, version, ttl_s)
+
+
+async def lease_renew(lease_id: str, ttl_s: Optional[float] = None,
+                      store_name: str = DEFAULT_STORE) -> dict:
+    """Extend a live lease; ``KeyError`` once it expired (re-acquire and
+    check the version still exists)."""
+    return await client(store_name).lease_renew(lease_id, ttl_s)
+
+
+async def lease_release(lease_id: str, store_name: str = DEFAULT_STORE) -> bool:
+    """Drop a lease (idempotent); the version may be reaped or spilled once
+    its last lease is gone."""
+    return await client(store_name).lease_release(lease_id)
+
+
+async def lease_list(channel: Optional[str] = None, store_name: str = DEFAULT_STORE) -> dict:
+    """The live pins, ``{channel: {version: [cohort, ...]}}``."""
+    return await client(store_name).lease_list(channel)
+
+
+async def tier_sweep(store_name: str = DEFAULT_STORE) -> dict:
+    """One spill pass over every volume now, in place of the background
+    ``TORCHSTORE_TORCH_TIER_SWEEP_INTERVAL_S`` cadence; per volume its
+    spills, fault-ins, resident and spilled bytes (``enabled: False`` when
+    ``TORCHSTORE_TORCH_TIER_ENABLED`` is off)."""
+    return await client(store_name).tier_sweep()
 
 
 # ---- faults, metrics, traces ------------------------------------------------

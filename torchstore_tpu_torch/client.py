@@ -34,8 +34,11 @@ relocates and fetches again from the replicas still alive. A volume on
 another host (its ``hostname`` is not this process's) is reached over the
 bulk TCP rung; the client's ``BulkClientCache`` keeps one promoted
 connection per volume and the stripe connections of large transfers. ``put_batch`` / ``get_batch``
-root a trace (``ensure_root``) under their spans. The one-sided planes are
-later work.
+root a trace (``ensure_root``) under their spans. Cohort leases, the
+version catalog and the spill pass are the controller's, reached through
+``lease_acquire`` / ``lease_renew`` / ``lease_release`` / ``lease_list``,
+``version_catalog`` and ``tier_sweep``. The one-sided planes are later
+work.
 """
 
 from __future__ import annotations
@@ -804,3 +807,40 @@ class LocalClient:
         (telemetry)."""
         await self._ensure_setup()
         await self._controller.stream_ack.call_one(key, version, subscriber)
+
+    # ------------------------------------------------------------------
+    # version retention and the spill tier (see tiering/)
+    # ------------------------------------------------------------------
+
+    async def lease_acquire(
+        self, cohort: str, channel: str, version: int, ttl_s: Optional[float] = None
+    ) -> dict:
+        """Pin (channel, version) for ``cohort`` against GC and spill
+        (TTL'd: renew to keep it); returns the lease's description, whose
+        ``lease_id`` renews and releases it."""
+        await self._ensure_setup()
+        return await self._controller.lease_acquire.call_one(cohort, channel, version, ttl_s)
+
+    async def lease_renew(self, lease_id: str, ttl_s: Optional[float] = None) -> dict:
+        await self._ensure_setup()
+        return await self._controller.lease_renew.call_one(lease_id, ttl_s)
+
+    async def lease_release(self, lease_id: str) -> bool:
+        await self._ensure_setup()
+        return await self._controller.lease_release.call_one(lease_id)
+
+    async def lease_list(self, channel: Optional[str] = None) -> dict[str, dict[int, list[str]]]:
+        """{channel: {version: [cohort, ...]}} over the live leases."""
+        await self._ensure_setup()
+        return await self._controller.lease_list.call_one(channel)
+
+    async def version_catalog(self, channel: Optional[str] = None) -> dict[str, dict[int, dict]]:
+        """Each channel version's keys, bytes, volumes, tier split and
+        leases (``Controller.version_catalog``)."""
+        await self._ensure_setup()
+        return await self._controller.version_catalog.call_one(channel)
+
+    async def tier_sweep(self) -> dict[str, dict]:
+        """One spill pass over every volume now; a summary per volume."""
+        await self._ensure_setup()
+        return await self._controller.tier_sweep.call_one()

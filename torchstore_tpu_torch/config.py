@@ -48,6 +48,14 @@ ENV_BULK_EMULATE_GBPS = ENV_PREFIX + "BULK_EMULATE_GBPS"
 ENV_BIND_HOST = ENV_PREFIX + "BIND_HOST"
 ENV_ADVERTISE_HOST = ENV_PREFIX + "ADVERTISE_HOST"
 ENV_USE_NATIVE = ENV_PREFIX + "USE_NATIVE"
+ENV_TIER_ENABLED = ENV_PREFIX + "TIER_ENABLED"
+ENV_TIER_DIR = ENV_PREFIX + "TIER_DIR"
+ENV_TIER_BUDGET_BYTES = ENV_PREFIX + "TIER_BUDGET_BYTES"
+ENV_TIER_HIGH_PCT = ENV_PREFIX + "TIER_HIGH_PCT"
+ENV_TIER_LOW_PCT = ENV_PREFIX + "TIER_LOW_PCT"
+ENV_TIER_SWEEP_INTERVAL_S = ENV_PREFIX + "TIER_SWEEP_INTERVAL_S"
+ENV_LEASE_TTL_S = ENV_PREFIX + "LEASE_TTL_S"
+ENV_STORAGE_DIR = ENV_PREFIX + "STORAGE_DIR"
 
 
 @dataclass(frozen=True)
@@ -89,6 +97,28 @@ ENV_REGISTRY: tuple[EnvVar, ...] = (
            "Threads of the host-copy pool (0: one per core, at most 4)."),
     EnvVar(ENV_ARENA_MAX_BYTES, "int", 256 << 10,
            "Tensors of a put batch at or under this size share one segment."),
+    # --- version retention and the disk tier
+    EnvVar(ENV_TIER_ENABLED, "bool", False,
+           "Each volume demotes cold, unleased version groups to a disk spill tier under "
+           "the watermark policy; a get of a spilled key faults it back in."),
+    EnvVar(ENV_TIER_DIR, "path", None,
+           "Root of the disk spill tier, one subdirectory per volume id (default: "
+           "<tmpdir>/torchstore_torch_tier). Writes are write-temp, fsync, rename."),
+    EnvVar(ENV_TIER_BUDGET_BYTES, "int", None,
+           "Resident bytes the spill watermarks apply to (default: the segment pool's cap)."),
+    EnvVar(ENV_TIER_HIGH_PCT, "float", 0.85,
+           "A volume whose resident bytes exceed this fraction of the budget starts "
+           "demoting (least recently used version groups first, leased ones exempt)."),
+    EnvVar(ENV_TIER_LOW_PCT, "float", 0.65,
+           "Demotion stops once resident bytes are at or under this fraction of the budget."),
+    EnvVar(ENV_TIER_SWEEP_INTERVAL_S, "float", 2.0,
+           "Seconds between the controller's spill passes (<= 0: none in the background; "
+           "tier_sweep() runs one on demand)."),
+    EnvVar(ENV_LEASE_TTL_S, "float", 30.0,
+           "Default TTL, seconds, of a cohort retention lease (renew to keep the pin)."),
+    EnvVar(ENV_STORAGE_DIR, "path", None,
+           "Durable directory of the storage volumes (one subdirectory per volume id; "
+           "unset: memory only). Set by initialize(storage_dir=)."),
     # --- state-dict layer
     EnvVar(ENV_TRANSFER_QUANT, "str", "none",
            "Default wire quantization of state-dict publishes."),

@@ -11,9 +11,20 @@ publishes (``stream_begin``, ``stream_seal``, ``stream_mark_unchanged``,
 watermarks ``notify_put_batch(watermark=)`` applies in the same indexing
 step as the metadata). ``inject_fault`` / ``clear_faults`` arm and disarm
 fault points in the controller's process, and ``stats()`` carries its
-metrics registry. The relay, tiering, control, autoscale and mirror
-engines of the reference are not part of this port yet. The controller
-never sees tensor bytes: only ``Request.meta_only()`` copies.
+metrics registry.
+
+Version retention (``tiering/``): the controller holds the store's cohort
+leases (``lease_acquire`` / ``lease_renew`` / ``lease_release`` /
+``lease_list``); ``notify_delete_batch`` refuses to de-index a leased
+version's keys whoever asks; ``version_catalog`` lists every channel
+version with its tier split and leases; ``tier_sweep`` (and a background
+sweeper every ``TORCHSTORE_TORCH_TIER_SWEEP_INTERVAL_S``) runs each
+volume's spill pass with the pinned groups and folds the reported spills
+and fault-ins into the index; ``rebuild_index`` recovers the index from the
+volumes' manifests after a restart of a durable store. The relay,
+control, autoscale and mirror engines of the reference are not part of
+this port yet. The controller never sees tensor bytes: only
+``Request.meta_only()`` copies.
 """
 
 from __future__ import annotations
@@ -22,15 +33,23 @@ import asyncio
 import time
 from typing import Any, Optional
 
-from torchstore_tpu_torch import faults
+from torchstore_tpu_torch import faults, tiering
+from torchstore_tpu_torch.config import ENV_TIER_SWEEP_INTERVAL_S, _env_float
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.observability import recorder as obs_recorder
-from torchstore_tpu_torch.metadata.index_core import IndexCore, StorageInfo
+from torchstore_tpu_torch.metadata.index_core import IndexCore, StorageInfo, resolve_manifests
 from torchstore_tpu_torch.runtime import Actor, ActorRef, endpoint
+from torchstore_tpu_torch.tiering import spill as tiering_spill
 from torchstore_tpu_torch.transport.types import Request
+from torchstore_tpu_torch.utils import spawn_logged
 
 logger = get_logger("torchstore_tpu_torch.controller")
+
+_LEASE_BLOCKED_DELETES = obs_metrics.counter(
+    "ts_lease_blocked_deletes_total",
+    "Delete requests refused because a cohort lease pins the version",
+)
 
 
 class Controller(Actor):
@@ -50,6 +69,15 @@ class Controller(Actor):
         # Stream records of layer-streamed publishes, by state-dict key; dict
         # order is touch recency (see _stream_rec).
         self._streams: dict[str, dict] = {}
+        # Cohort retention leases: the authority on which versions are
+        # pinned against deletes and spills.
+        self._leases = tiering.LeaseRegistry()
+        # The background spill sweeper: on when the tier is (one reading of
+        # the knob the volumes read too) and the interval is positive.
+        self._tier_enabled = tiering_spill.enabled()
+        self._tier_interval = _env_float(ENV_TIER_SWEEP_INTERVAL_S, 2.0)
+        self._tier_task: Optional[asyncio.Task] = None
+        self._tasks: set = set()
         obs_recorder.recorder().arm_exit_dump()
 
     def _bump_epoch(self) -> int:
@@ -70,6 +98,7 @@ class Controller(Actor):
                 raise ValueError(f"duplicate volume id {vid!r}; check strategy env wiring")
             self.volume_refs[vid] = ref
             self.volume_hostnames[vid] = info["hostname"]
+        self._start_tier_sweeper()
         return {"volume_ids": sorted(self.volume_refs), "hostnames": self.volume_hostnames}
 
     @endpoint
@@ -164,12 +193,36 @@ class Controller(Actor):
         if unchanged:
             self._record_unchanged(rec, unchanged, version, now)
 
+    def _lease_guard(self, keys: list[str]) -> list[str]:
+        """The keys a delete may reap: those under a pinned (channel,
+        version) stay indexed whoever asked (the publisher's GC, a close, a
+        raw ``delete_prefix``). The hard guarantee that a leased version is
+        never reaped mid-read; one snapshot of the pinned groups serves the
+        batch."""
+        pinned = self._leases.pinned_groups()
+        if not pinned:
+            return keys
+        passed, blocked = [], []
+        for key in keys:
+            group = tiering.version_group(key)
+            (blocked if group is not None and tiering.group_key(*group) in pinned
+             else passed).append(key)
+        if blocked:
+            _LEASE_BLOCKED_DELETES.inc(len(blocked))
+            obs_recorder.record("tier", "delete_blocked", keys=len(blocked), sample=blocked[0])
+            logger.warning("refusing to delete %d key(s) under leased version(s) (e.g. %s); "
+                           "release or let the cohort leases expire first",
+                           len(blocked), blocked[0])
+        return passed
+
     @endpoint
     async def notify_delete_batch(self, keys: list[str]) -> dict[str, list[str]]:
         """Remove keys from the index first (notify-before-delete) and
-        return which volumes held each key. Deleting a streamed state
-        dict's commit marker (or a stream key itself) retires its stream
-        record: pollers wake and see it gone."""
+        return which volumes held each key; keys of a leased version stay
+        (``_lease_guard``). Deleting a streamed state dict's commit marker
+        (or a stream key itself) retires its stream record: pollers wake
+        and see it gone."""
+        keys = self._lease_guard(keys)
         by_volume = self.core.delete_keys(keys)
         if by_volume:
             deleted = {k for vkeys in by_volume.values() for k in vkeys}
@@ -417,12 +470,125 @@ class Controller(Actor):
                     "ready": [], "watermarks": {}, "aliases": {}, "quant": None}
         return v
 
+    # ---- version retention and the spill tier ------------------------------
+
+    @endpoint
+    async def lease_acquire(self, cohort: str, channel: str, version: int,
+                            ttl_s: Optional[float] = None) -> dict:
+        """Pin (channel, version) for a cohort (TTL'd: renew to keep);
+        returns the lease's description. Pinning a version with no keys is
+        allowed (a pre-pin) and says so: ``resident_keys`` 0."""
+        lease = self._leases.acquire(cohort, channel, version, ttl_s)
+        lease["resident_keys"] = self.core.count_prefix(tiering.group_key(channel, version))
+        return lease
+
+    @endpoint
+    async def lease_renew(self, lease_id: str, ttl_s: Optional[float] = None) -> dict:
+        return self._leases.renew(lease_id, ttl_s)
+
+    @endpoint
+    async def lease_release(self, lease_id: str) -> bool:
+        return self._leases.release(lease_id)
+
+    @endpoint
+    async def lease_list(self, channel: Optional[str] = None) -> dict[str, dict[int, list[str]]]:
+        """{channel: {version: [cohort, ...]}} over the live leases."""
+        return self._leases.pins(channel)
+
+    @endpoint
+    async def version_catalog(self, channel: Optional[str] = None) -> dict[str, dict[int, dict]]:
+        """Every ``{channel}/v{n}`` group of the index: keys, logical bytes,
+        volumes, the tier split, and the live leases pinning it (pre-pins
+        of versions with no keys included)."""
+        out = self.core.catalog(channel)
+        for lease in self._leases.describe():
+            if channel is not None and lease["channel"] != channel:
+                continue
+            out.setdefault(lease["channel"], {}).setdefault(lease["version"], {
+                "keys": 0, "bytes": 0, "resident_keys": 0, "spilled_keys": 0,
+                "volumes": set(), "leases": [],
+            })["leases"].append(lease)
+        for versions in out.values():
+            for rec in versions.values():
+                rec["volumes"] = sorted(rec["volumes"])
+        return out
+
+    def _start_tier_sweeper(self) -> None:
+        """(Re)start the background sweeper; idempotent across inits."""
+        if self._tier_task is not None:
+            self._tier_task.cancel()
+            self._tier_task = None
+        if self._tier_enabled and self._tier_interval > 0:
+            self._tier_task = spawn_logged(self._tier_loop(), name="controller.tier_sweep",
+                                           tasks=self._tasks, log=logger)
+
+    async def _tier_loop(self) -> None:
+        while True:
+            await asyncio.sleep(self._tier_interval)
+            try:
+                await self._tier_sweep_once()
+            except Exception:  # noqa: BLE001 - one bad pass must not stop the sweeper
+                logger.exception("tier sweep failed; retrying next round")
+
+    async def _tier_sweep_once(self) -> dict[str, dict]:
+        """One spill pass over the volumes with the current pinned groups;
+        their spills and fault-ins become the index's tier states (metadata
+        only: no epoch bump)."""
+        pins = sorted(self._leases.pinned_groups())
+        reports: dict[str, dict] = {}
+        for vid, ref in list(self.volume_refs.items()):
+            try:
+                rep = await ref.tier_sweep.call_one(pins)
+            except Exception as exc:  # noqa: BLE001 - reported per volume
+                reports[vid] = {"error": f"{type(exc).__name__}: {exc}"}
+                continue
+            if not rep.get("enabled"):
+                reports[vid] = rep
+                continue
+            self.core.set_tiers(vid, list(rep["spilled"]), list(rep["fault_ins"]))
+            if rep["spilled"]:
+                obs_recorder.record("tier", f"sweep/{vid}", spilled=len(rep["spilled"]),
+                                    resident_bytes=rep.get("resident_bytes"),
+                                    spilled_bytes=rep.get("spilled_bytes"), pins=len(pins))
+            reports[vid] = {
+                "spilled": len(rep["spilled"]),
+                "fault_ins": len(rep["fault_ins"]),
+                "resident_bytes": rep.get("resident_bytes"),
+                "spilled_bytes": rep.get("spilled_bytes"),
+                "spilled_keys": rep.get("spilled_keys"),
+            }
+        return reports
+
+    @endpoint
+    async def tier_sweep(self) -> dict[str, dict]:
+        """One spill pass now (``tier_sweep()``), in place of waiting for
+        the background interval; a summary per volume."""
+        return await self._tier_sweep_once()
+
+    @endpoint
+    async def rebuild_index(self) -> int:
+        """Recover the index from the volumes' manifests (durable volumes
+        and spilled entries); returns the entries indexed. A key whose
+        shards disagree on layout keeps only the newest (file mtime): that
+        layout may stay partial until it is put again, and its gets fail
+        loudly rather than mix stale and fresh shards."""
+        manifests = await asyncio.gather(
+            *(ref.manifest.call_one() for ref in self.volume_refs.values()))
+        survivors, dropped = resolve_manifests(list(zip(self.volume_refs, manifests)))
+        count = await self.core.reindex(survivors)
+        if dropped:
+            logger.warning("rebuild_index dropped %d superseded-layout shard(s); the surviving "
+                           "layout may be partially committed until put again", dropped)
+        self._bump_epoch()  # the rebuilt index invalidates every plan
+        return count
+
     @endpoint
     async def stats(self, include_volumes: bool = False) -> dict:
-        """The index summary (op counters, keys, indexed bytes) and the
-        volume count; with ``include_volumes`` each volume's ``stats`` too
-        (an ``error`` string for one that does not answer)."""
+        """The index summary (op counters, keys, indexed bytes), the volume
+        count and the live leases; with ``include_volumes`` each volume's
+        ``stats`` too (an ``error`` string for one that does not answer)."""
         out = {**self.core.summary(), "num_volumes": len(self.volume_refs),
+               "active_leases": len(self._leases),
                "metrics": obs_metrics.metrics_snapshot()}
         if include_volumes:
 
@@ -460,7 +626,11 @@ class Controller(Actor):
 
     @endpoint
     async def teardown(self) -> None:
-        """Reset every volume and forget the index."""
+        """Reset every volume and forget the index and the leases."""
+        if self._tier_task is not None:
+            self._tier_task.cancel()
+            self._tier_task = None
+        self._leases.clear()
         results = await asyncio.gather(
             *(ref.reset.call_one() for ref in self.volume_refs.values()),
             return_exceptions=True,

@@ -11,6 +11,10 @@ have a site in this package:
     volume.handshake       StorageVolume.handshake entry (every transport)
     volume.put             StorageVolume.put entry
     volume.get             StorageVolume.get entry
+    volume.spill           each key a spill pass demotes, before its disk
+                           write (a raise leaves that key resident)
+    volume.fault_in        each spilled key a get or put lands back in
+                           memory, before its disk read
     shm.handshake          the volume's side of the shared-memory handshake
     channel.publish_layer  every layer batch a streamed publish puts
     channel.delta_baseline the delta tier's baseline reads (publisher and
@@ -67,6 +71,8 @@ REGISTRY: frozenset[str] = frozenset(
         "volume.put",
         "volume.get",
         "volume.handshake",
+        "volume.spill",
+        "volume.fault_in",
         "shm.handshake",
         "channel.publish_layer",
         "channel.watermark",

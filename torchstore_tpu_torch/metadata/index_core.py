@@ -5,18 +5,24 @@ volumes hold each key and what they hold (a whole tensor, an object, or
 the shards of a sharded tensor by mesh coordinate), commit tracking for
 sharded keys, structural-change tracking for the placement epoch, deletes,
 and per-key update generations with a condition the blocking waits sleep
-on. Replica reclaims, health-aware locates and the stamped publication of
-the index are later work.
+on. Each replica carries its capacity tier (resident, or spilled to its
+volume's disk); a fresh put resets it to resident, and a tier flip is
+metadata only, never structural. ``catalog`` is the per-channel version
+inventory, and ``reindex`` rebuilds the index from volume manifests
+(``resolve_manifests``). Replica reclaims, health-aware locates and the
+stamped publication of the index are later work.
 """
 
 from __future__ import annotations
 
 import asyncio
 import math
+import secrets
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Optional
 
+from torchstore_tpu_torch import tiering
 from torchstore_tpu_torch.storage_utils.trie import Trie
 from torchstore_tpu_torch.transport.types import Request, TensorMeta, TensorSlice
 
@@ -53,6 +59,9 @@ class StorageInfo:
     tensor_slices: dict[tuple, TensorSlice] = field(default_factory=dict)
     # The volume's write generation of the last indexed put (0: unknown).
     write_gen: int = 0
+    # Capacity tier of this replica's bytes: tiering.RESIDENT (memory) or
+    # tiering.TIERED (on the volume's disk; the next get faults it in).
+    tier: str = tiering.RESIDENT
 
     @classmethod
     def from_meta(cls, meta: Request) -> "StorageInfo":
@@ -60,6 +69,41 @@ class StorageInfo:
         if meta.tensor_slice is not None:
             info.tensor_slices[meta.tensor_slice.coordinates] = meta.tensor_slice
         return info
+
+
+def resolve_manifests(
+    per_volume: list[tuple[str, list]],
+) -> tuple[list[tuple[str, Request, int]], int]:
+    """(volume id, meta, write generation) entries to index from volume
+    manifests, keeping only the newest layout (by file mtime) of a key whose
+    shards disagree on mesh, global shape or dtype (a crash mid re-shard).
+    Returns (survivors, how many were dropped). Bare ``Request`` items
+    count as mtime 0 and generation 0."""
+    entries: list[tuple[str, Request, Optional[tuple], int]] = []
+    layouts: dict[str, dict[tuple, float]] = {}  # key -> layout -> newest mtime
+    for vid, manifest in per_volume:
+        for item in manifest:
+            if isinstance(item, dict):
+                meta, mtime, gen = item["meta"], item.get("mtime", 0.0), item.get("write_gen", 0)
+            else:
+                meta, mtime, gen = item, 0.0, 0
+            sig = None
+            if meta.tensor_slice is not None:
+                ts = meta.tensor_slice
+                sig = (ts.mesh_shape, ts.global_shape,
+                       meta.tensor_meta.dtype if meta.tensor_meta else None)
+                sigs = layouts.setdefault(meta.key, {})
+                sigs[sig] = max(sigs.get(sig, 0.0), mtime)
+            entries.append((vid, meta, sig, gen))
+    winners = {key: max(sigs, key=sigs.get) for key, sigs in layouts.items() if len(sigs) > 1}
+    survivors: list[tuple[str, Request, int]] = []
+    dropped = 0
+    for vid, meta, sig, gen in entries:
+        if sig is not None and meta.key in winners and sig != winners[meta.key]:
+            dropped += 1
+            continue
+        survivors.append((vid, meta, gen))
+    return survivors, dropped
 
 
 def _layout(meta: Request) -> tuple:
@@ -202,6 +246,11 @@ class IndexCore:
             out[key] = infos
         return out
 
+    def count_prefix(self, prefix: str) -> int:
+        """Keys under ``prefix`` by whole segments ("c/v1" never counts
+        "c/v10/...")."""
+        return sum(1 for _ in self.index.keys().filter_by_prefix(prefix))
+
     def keys_list(self, prefix: Optional[str] = None) -> list[str]:
         """Every key, or those under ``prefix`` by whole path segments
         ("a/b" holds "a/b" and "a/b/c", not "a/bc"), as the reference's
@@ -261,6 +310,8 @@ class IndexCore:
                 old.tensor_slices[coords] = meta.tensor_slice
                 old.tensor_meta = meta.tensor_meta
                 old.write_gen = max(old.write_gen, gen)
+                # Fresh bytes land resident (the volume drops a stale disk copy).
+                old.tier = tiering.RESIDENT
             for vid in detach_volume_ids or ():
                 if infos.pop(vid, None) is not None:
                     structural = True
@@ -280,6 +331,73 @@ class IndexCore:
             for vid in infos:
                 by_volume.setdefault(vid, []).append(key)
         return by_volume
+
+    def set_tiers(self, volume_id: str, spilled: list[str], fault_ins: list[str]) -> None:
+        """Fold one volume's reported spills and fault-ins into its replicas'
+        tiers. Metadata only, not structural: cached plans stay valid, and a
+        get of a spilled key faults it in on the volume."""
+        for keys, tier in ((spilled, tiering.TIERED), (fault_ins, tiering.RESIDENT)):
+            for key in keys:
+                infos = self.index.get(key)
+                if infos is not None and volume_id in infos:
+                    infos[volume_id].tier = tier
+
+    async def reindex(self, survivors: list[tuple[str, Request, int]]) -> int:
+        """Rebuild the index from resolved volume manifests (durable
+        recovery); returns the entries indexed. Every recovered key's update
+        generation is seeded at one random large offset: a subscriber that
+        outlived the restart holds an old generation, and ``wait_for_change``
+        wakes on inequality, so small seeds could equal exactly the one it
+        last saw and block it."""
+        count = 0
+        for vid, meta, gen in survivors:
+            infos = self.index.get(meta.key)
+            if infos is None:
+                infos = self.index[meta.key] = {}
+            info = infos.get(vid)
+            if info is None:
+                info = infos[vid] = StorageInfo.from_meta(meta)
+            elif meta.tensor_slice is not None:
+                info.tensor_slices[meta.tensor_slice.coordinates] = meta.tensor_slice
+            info.write_gen = max(info.write_gen, gen)
+            count += 1
+        offset = secrets.randbits(46) | (1 << 45)
+        async with self.cond():
+            for key in self.index:
+                self._key_gens[key] = offset
+            self.cond().notify_all()
+        return count
+
+    def catalog(self, channel: Optional[str] = None) -> dict[str, dict[int, dict]]:
+        """The per-channel version inventory: for each "{channel}/v{n}"
+        group, its keys, logical bytes (one replica's), volumes, and the
+        tier split (a key counts resident while any replica serves it from
+        memory). Leases are the controller's and are folded in there."""
+        out: dict[str, dict[int, dict]] = {}
+        for key, infos in self.index.items():
+            group = tiering.version_group(key)
+            if group is None or not infos:
+                continue
+            chan, ver = group
+            if channel is not None and chan != channel:
+                continue
+            rec = out.setdefault(chan, {}).setdefault(ver, {
+                "keys": 0, "bytes": 0, "resident_keys": 0, "spilled_keys": 0,
+                "volumes": set(), "leases": [],
+            })
+            rec["keys"] += 1
+            info = next(iter(infos.values()))
+            if info.object_type == ObjectType.TENSOR_SLICE:
+                itemsize = info.tensor_meta.itemsize if info.tensor_meta is not None else 4
+                rec["bytes"] += sum(ts.nelements * itemsize for ts in info.tensor_slices.values())
+            elif info.tensor_meta is not None:
+                rec["bytes"] += info.tensor_meta.nbytes
+            if any(i.tier != tiering.TIERED for i in infos.values()):
+                rec["resident_keys"] += 1
+            else:
+                rec["spilled_keys"] += 1
+            rec["volumes"].update(infos)
+        return out
 
     def teardown(self) -> None:
         self.index.clear()

@@ -16,9 +16,10 @@ server that rank 0 hosts, and:
 
 Shutdown is two-phase: every rank signals it is done, rank 0 tears the
 controller down and broadcasts the status, and rank 0 stops the rendezvous
-server only once every rank has read it. Durable volumes and index
-recovery (``storage_dir`` / ``recover``) are not ported: they need the
-file store.
+server only once every rank has read it. With ``storage_dir`` each host's
+volumes persist under it (durable volumes, ``storage_utils/file_store.py``),
+and ``recover=True`` has rank 0 rebuild the index from what they hold
+before the handle is broadcast.
 """
 
 from __future__ import annotations
@@ -30,7 +31,12 @@ from typing import Optional
 
 from torchstore_tpu_torch import api
 from torchstore_tpu_torch.client import LocalClient
-from torchstore_tpu_torch.config import ENV_BIND_HOST, StoreConfig, default_config
+from torchstore_tpu_torch.config import (
+    ENV_BIND_HOST,
+    ENV_STORAGE_DIR,
+    StoreConfig,
+    default_config,
+)
 from torchstore_tpu_torch.controller import Controller
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.runtime import (
@@ -173,11 +179,8 @@ async def initialize(
     recover: bool = False,
 ) -> None:
     """Collective store bootstrap: call it on every rank of the world."""
-    if storage_dir is not None or recover:
-        raise NotImplementedError(
-            "storage_dir / recover (durable volumes and index recovery) need the file "
-            "store, which is not ported yet; see ROADMAP.md, queue A, item A11"
-        )
+    if recover and not storage_dir:
+        raise ValueError("recover=True requires storage_dir")
     env = SPMDEnv.from_env()
     config = config or default_config()
     if strategy is None:
@@ -216,7 +219,9 @@ async def initialize(
     volume_mesh: Optional[ActorMesh] = None
 
     async def spawn_local_volumes() -> ActorMesh:
-        wildcard = {ENV_BIND_HOST: "0.0.0.0"} if env.num_hosts > 1 else {}
+        extra = {ENV_BIND_HOST: "0.0.0.0"} if env.num_hosts > 1 else {}
+        if storage_dir:
+            extra[ENV_STORAGE_DIR] = storage_dir
         if isinstance(strategy, LocalRankStrategy):
             num_local = env.local_world_size
             base_rank = env.host_rank * env.local_world_size
@@ -224,12 +229,12 @@ async def initialize(
             def env_fn(i: int) -> dict[str, str]:
                 return {"RANK": str(base_rank + i), "LOCAL_RANK": str(i),
                         "WORLD_SIZE": str(env.world_size),
-                        "LOCAL_WORLD_SIZE": str(env.local_world_size), **wildcard}
+                        "LOCAL_WORLD_SIZE": str(env.local_world_size), **extra}
         else:  # HostStrategy: one volume per host
             num_local = 1
 
             def env_fn(i: int) -> dict[str, str]:
-                return dict(wildcard)
+                return dict(extra)
 
         return await spawn_actors(num_local, StorageVolume,
                                   f"tst_{store_name}_volume_h{env.host_rank}", strategy,
@@ -250,6 +255,9 @@ async def initialize(
                                                           Controller)
                 controller.rpc_timeout = config.rpc_timeout
                 await controller.init.call_one(strategy, all_refs)
+                if recover:
+                    recovered = await controller.rebuild_index.call_one()
+                    logger.info("spmd recovered %d entries from %s", recovered, storage_dir)
             except BaseException as exc:
                 await client.set(f"{ns}/controller_status", ("error", repr(exc)))
                 raise

@@ -536,6 +536,15 @@ class ShmServerCache(TransportCache):
                 entry.seg.unlink()
                 self.grants.pop(entry.seg.name, None)
 
+    def retire_key(self, key: str) -> None:
+        """Drop ``key``'s entries as a same-layout re-put does: a segment
+        still leased to a reader retires (the reader attaches after the
+        serve), an unleased one goes to the pool. The spill tier demotes
+        through this, never unlinking a segment under a reader."""
+        for entry in self.by_key.pop(key, {}).values():
+            if self._release_entry_ref(entry.seg):
+                self._retire_or_free(entry.seg)
+
     def stats(self) -> dict:
         live = {e.seg.name: e.seg.size for es in self.by_key.values() for e in es.values()}
         return {

@@ -18,16 +18,25 @@ subscriber woken by the pointer always finds a complete state dict. GC
 keeps ``keep`` versions, so a subscriber mid-pull on version n is safe
 while n+1 publishes (keep >= 2).
 
+Mixed cohorts (``tiering/``): ``acquire(version=N)`` and
+``acquire_streamed(version=N)`` read a retained older version under a
+read-scoped cohort lease, renewed in the background while the pull runs,
+so GC cannot reap it and no spill pass demotes it mid-read; a spilled
+version faults back in through the ordinary get. GC and the reclaim of a
+crashed publisher's partial skip leased versions (the controller refuses
+to delete them anyway), leased versions leave GC's ``keep`` window, and a
+resumed publisher numbers past a leased survivor.
+
 Not in this port yet, each raising ``NotImplementedError``: ``register``
-(provisioning, ROADMAP A11), the relay (``relay=`` / ``relay_volume=``,
-A11) and pinned reads of an older version (``version=``, cohort leases,
-A11). Without a lease plane, GC and the reclaim of a crashed publisher's
-partial version delete whatever they find stale, as the reference does
-when no lease pins a version.
+(provisioning, ROADMAP A11) and the relay (``relay=`` / ``relay_volume=``,
+A11).
 """
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
+import os
 import secrets
 import time
 from typing import Any, Optional
@@ -35,6 +44,7 @@ from typing import Any, Optional
 from torchstore_tpu_torch import state_dict_utils as sdu
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability import recorder as obs_recorder
 from torchstore_tpu_torch.observability.tracing import span
 from torchstore_tpu_torch.state_dict_utils import NoMatchingPush
 
@@ -57,6 +67,10 @@ _VERSION_LAG = obs_metrics.gauge(
 _SKIPPED = obs_metrics.counter(
     "ts_weight_channel_versions_skipped_total",
     "Published versions a subscriber never pulled (lagged past)",
+)
+_PINNED_ACQUIRES = obs_metrics.counter(
+    "ts_weight_channel_pinned_acquires_total",
+    "Version-pinned acquires served under a cohort lease, per channel",
 )
 
 _LATEST = "LATEST"
@@ -143,7 +157,12 @@ class WeightPublisher:
     async def _resolve_next_version(self, client) -> int:
         """Resume after the channel's LATEST (a restarted publisher must not
         overwrite live versions), and reclaim a partial version a crashed
-        predecessor left beyond the pointer."""
+        predecessor left beyond the pointer. A version that survives the
+        reclaim (leased; also of a closed and recreated channel, whose
+        numbering restarts at 0) moves the counter past it: a publish must
+        never land in a retained version's directory, where its keys would
+        mix with the survivor's, and past it the survivor enters GC's
+        window once its leases lapse."""
         if self._next_version is None:
             try:
                 current, epoch = _parse_pointer(await client.get(f"{self.name}/{_LATEST}"))
@@ -153,7 +172,9 @@ class WeightPublisher:
                 self._next_version = 0
                 self._epoch = secrets.randbits(62) or 1
                 current = -1
-            await self._reclaim_partials(client, current)
+            survivors = await self._reclaim_partials(client, current)
+            if survivors:
+                self._next_version = max(self._next_version - 1, max(survivors)) + 1
         return self._next_version
 
     async def _commit(self, client, version: int) -> None:
@@ -165,17 +186,45 @@ class WeightPublisher:
         _PUBLISHES.inc(channel=self.name)
         _PUBLISHED_VERSION.set(version, channel=self.name)
 
-    async def _reclaim_partials(self, client, current: int) -> None:
+    async def _leased_versions(self, client) -> Optional[set[int]]:
+        """This channel's versions pinned by live leases, which GC and the
+        partial reclaim skip; None when the lease plane did not answer.
+        Advisory: the controller's delete guard refuses a pinned version's
+        delete however it is asked, so a failed lookup costs delete RPCs,
+        never a reaped version."""
+        try:
+            pins = await client.lease_list(self.name)
+        except Exception:  # noqa: BLE001 - advisory; the controller's guard still holds
+            logger.warning("channel %s: lease_list failed; relying on the controller's "
+                           "delete guard for pinned versions", self.name)
+            return None
+        return {int(v) for v in pins.get(self.name, {})}
+
+    async def _reclaim_partials(self, client, current: int) -> set[int]:
         """Delete every version directory beyond the committed pointer (keys
-        a crashed publisher streamed but never sealed). Once per publisher,
-        on resume."""
+        a crashed publisher streamed but never sealed); once per publisher,
+        on resume. Leased versions survive (a canary cohort may pin an
+        experimental version past the pointer), and so does one whose
+        delete the controller's guard refused; the survivors are returned
+        so numbering moves past them."""
         stale = {v for v in _versions_present(self.name, await client.keys(self.name))
                  if v > current}
+        survivors: set[int] = set()
+        if stale:
+            survivors = (await self._leased_versions(client) or set()) & stale
+            stale -= survivors
         for v in sorted(stale):
             removed = await client.delete_prefix(_version_key(self.name, v))
-            if removed:
+            if await client.keys(_version_key(self.name, v)):
+                # Keys remain: the guard refused (a pin this publisher could
+                # not see). A survivor all the same.
+                survivors.add(v)
+                logger.warning("channel %s: v%d survived reclaim (lease-guarded delete "
+                               "refused); resuming numbering past it", self.name, v)
+            elif removed:
                 logger.warning("channel %s: reclaimed partial v%d (%d keys) left by a crashed "
                                "publisher", self.name, v, removed)
+        return survivors
 
     def _resolve_quant(self, client, override: Optional[str]) -> Optional[str]:
         explicit = override if override is not None else self._transfer_quant
@@ -270,15 +319,37 @@ class WeightPublisher:
         this publish expires: versions orphaned by a crash between pointer
         and GC, or by a restart with a smaller ``keep``, go on the next
         publish. The window counts the versions present, never ``version -
-        keep``; versions beyond ``version`` are left alone."""
+        keep`` (a publisher that resumed past a leased survivor has a gap
+        in its numbering, and a numeric cutoff would leap it and reap the
+        previous LATEST under a subscriber); versions beyond ``version``
+        are left alone.
+
+        Leased versions are skipped and leave the window: a pinned survivor
+        neither goes nor takes a retention slot. A later publish's GC reaps
+        it once its last lease is gone."""
         present = _versions_present(self.name, await client.keys(self.name))
         window = sorted(v for v in present if v <= version)
-        for v in window[: -self.keep]:
+        stale = set(window[: -self.keep])
+        lease_plane_ok = True
+        if stale:
+            leased = await self._leased_versions(client)
+            lease_plane_ok = leased is not None
+            leased = (leased or set()) & set(window)
+            if leased:
+                stale = set([v for v in window if v not in leased][: -self.keep])
+                logger.debug("channel %s: GC keeps leased version(s) %s", self.name,
+                             sorted(leased))
+        for v in sorted(stale):
             removed = await client.delete_prefix(_version_key(self.name, v))
+            if removed and not lease_plane_ok and await client.keys(_version_key(self.name, v)):
+                continue  # the guard refused a pin this publisher could not see
             logger.debug("channel %s: GC'd v%d (%d keys)", self.name, v, removed)
 
     async def close(self, delete: bool = False) -> None:
-        """With ``delete=True``, remove every key the channel owns."""
+        """With ``delete=True``, remove every key the channel owns. Leased
+        versions survive it (the controller's guard refuses them) and a
+        later publisher's GC reaps them once their leases lapse: a close
+        never wins against a pinned read."""
         if delete:
             await self._resolve_client().delete_prefix(self.name)
 
@@ -351,12 +422,22 @@ class WeightSubscriber:
         client: Any = None,
         relay: bool = False,
         relay_volume: Optional[str] = None,
+        cohort: Optional[str] = None,
     ) -> None:
         if relay or relay_volume is not None:
             raise _not_ported("WeightSubscriber(relay=...) (broadcast relay)", "A11")
         self.name = name
         self._store_name = store_name
         self._client = client
+        # The cohort of pinned reads, as version_catalog shows their leases
+        # (default: unique to this subscriber; name it, e.g. "eval").
+        self.cohort = cohort or f"sub-{os.getpid()}-{id(self):x}"
+        # The lease owner of each pinned read is "{cohort}:{pid}:{id}:r{n}",
+        # unique per read even under a cohort name a fleet shares: the
+        # registry coalesces one owner's pins, so a shared owner would let
+        # the first reader's release drop the second reader's pin.
+        self._lease_owner = f"{self.cohort}:{os.getpid()}:{id(self):x}"
+        self._read_seq = 0
         self._last_gen = 0
         self._last_stream_gen = 0
         self.last_version: Optional[int] = None
@@ -396,6 +477,78 @@ class WeightSubscriber:
         self._last_epoch = epoch
         _ACQUIRED_VERSION.set(version, channel=self.name)
 
+    # ---- pinned reads ------------------------------------------------------
+
+    async def _pinned_lease(self, client, version: int) -> dict:
+        """Take the read-scoped lease of a pinned acquire under this read's
+        own owner (``{cohort}:{pid}:{id}:r{n}``). ``KeyError`` when nothing
+        is indexed under the version (reaped, or never published): before
+        the pull, with a precise message."""
+        self._read_seq += 1
+        owner = f"{self._lease_owner}:r{self._read_seq}"
+        lease = await client.lease_acquire(owner, self.name, version)
+        if lease.get("resident_keys") == 0:
+            if not lease.get("renewed"):
+                await client.lease_release(lease["lease_id"])
+            raise KeyError(
+                f"channel {self.name!r} does not retain v{version} (GC'd or never "
+                "published); pin versions with a cohort lease before LATEST advances past keep"
+            )
+        return lease
+
+    async def _renew_pinned(self, client, lease: dict) -> None:
+        """Renew a pinned read's lease at a third of its TTL while the pull
+        runs: a pull may outlast the TTL. A failed renewal re-acquires the
+        same owner's pin; only when that fails too does the read go on
+        unprotected (it never fails for it)."""
+        interval = max(0.1, float(lease.get("ttl_s") or 1.0) / 3.0)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                await client.lease_renew(lease["lease_id"])
+            except Exception as renew_exc:  # noqa: BLE001 - degrade, never fail the read
+                try:
+                    fresh = await client.lease_acquire(lease["cohort"], lease["channel"],
+                                                       lease["version"], lease.get("ttl_s"))
+                    lease["lease_id"] = fresh["lease_id"]
+                    logger.info("channel %s: pinned-read lease renewal failed (%s); "
+                                "re-acquired as %s", self.name, renew_exc, fresh["lease_id"])
+                except Exception as exc:  # noqa: BLE001
+                    logger.warning("channel %s: pinned-read lease %s renewal and re-acquire "
+                                   "both failed (%s); the read goes on unprotected",
+                                   self.name, lease["lease_id"], exc)
+                    return
+
+    @contextlib.asynccontextmanager
+    async def _pinned_read(self, client, version: int):
+        """Hold the read-scoped lease for the pull: take it, renew it in the
+        background, release it on the way out, unless the take only renewed
+        a live pin of the same owner (``renewed: True``), which its other
+        holder still needs."""
+        lease = await self._pinned_lease(client, version)
+        renewer = asyncio.ensure_future(self._renew_pinned(client, lease))
+        try:
+            yield lease
+        finally:
+            renewer.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await renewer
+            if lease.get("renewed"):
+                logger.warning("channel %s: pinned-read lease owner collided with a live pin "
+                               "(lease %s); leaving it to its other holder", self.name,
+                               lease["lease_id"])
+            else:
+                try:
+                    await client.lease_release(lease["lease_id"])
+                except Exception as exc:  # noqa: BLE001 - its TTL reaps it anyway
+                    logger.warning("channel %s: pinned-read lease %s release failed (%s); its "
+                                   "TTL will expire it", self.name, lease["lease_id"], exc)
+
+    def _pinned_done(self, version: int) -> None:
+        _PINNED_ACQUIRES.inc(channel=self.name)
+        obs_recorder.record("tier", "pinned_acquire", channel=self.name, version=version,
+                            cohort=self.cohort)
+
     async def acquire(
         self,
         user_state_dict: Any = None,
@@ -410,10 +563,39 @@ class WeightSubscriber:
         publish is delivered at most once (a recreated channel restarts its
         numbering and delivers its v0). ``TimeoutError`` when nothing new
         arrives within ``timeout`` seconds; ``timeout=None`` waits for good
-        (the long poll has no RPC deadline)."""
-        if version is not None:
-            raise _not_ported("acquire(version=...) (pinned reads under cohort leases)", "A11")
+        (the long poll has no RPC deadline).
+
+        ``version=N`` pins the read instead: under a read-scoped cohort
+        lease, renewed while the pull runs, version N can be neither reaped
+        nor demoted mid-read, and a spilled N faults back in on its volume.
+        It returns ``(state_dict, N)`` without touching this subscriber's
+        LATEST tracking. ``timeout`` bounds the pull (there is no wait) and
+        cancels it: an in-place ``user_state_dict`` may then hold a mix of
+        old and new leaves. ``KeyError`` when the channel no longer retains
+        N; ``ValueError`` with ``direct=True`` (the direct path serves one
+        stable key, not versions)."""
         client = self._resolve_client()
+        if version is not None:
+            if direct:
+                raise ValueError(
+                    "acquire(version=...) is incompatible with direct=True (the direct path "
+                    "serves one stable key, not versions)"
+                )
+            version = int(version)
+            async with self._pinned_read(client, version):
+                with span("weight_channel.acquire_pinned", channel=self.name, version=version):
+                    pull = sdu.get_state_dict(client, _version_key(self.name, version),
+                                              user_state_dict, strict=strict,
+                                              delta_state=self._delta_decoder())
+                    try:
+                        sd = await asyncio.wait_for(pull, timeout)
+                    except asyncio.TimeoutError:
+                        raise TimeoutError(
+                            f"pinned acquire of {self.name}/v{version} did not complete "
+                            f"within {timeout}s"
+                        ) from None
+            self._pinned_done(version)
+            return sd, version
         pointer = f"{self.name}/{_LATEST}"
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
@@ -462,13 +644,28 @@ class WeightSubscriber:
         watermarks land, in ``key_order`` when given, calling ``on_layer``
         per leaf, so generation starts before the publisher seals. The dict
         returned is one version's weights, and versions are delivered at
-        most once."""
+        most once.
+
+        ``version=N`` pins the read to a retained version under a
+        read-scoped lease, as :meth:`acquire` does: a sealed stream serves
+        its layers at once (in ``key_order``), and a version whose stream
+        record is gone is read through the barrier path."""
         from torchstore_tpu_torch import stream_sync
 
-        if version is not None:
-            raise _not_ported("acquire_streamed(version=...) (pinned reads under cohort leases)",
-                              "A11")
         client = self._resolve_client()
+        if version is not None:
+            version = int(version)
+            async with self._pinned_read(client, version):
+                with span("weight_channel.acquire_pinned", channel=self.name, version=version,
+                          streamed=True):
+                    sd = await stream_sync.get_state_dict_streamed(
+                        client, _version_key(self.name, version),
+                        user_state_dict=user_state_dict, key_order=key_order,
+                        on_layer=on_layer, strict=strict, timeout=timeout,
+                        delta_state=self._delta_decoder(),
+                    )
+            self._pinned_done(version)
+            return sd, version
         pointer = f"{self.name}/{_STREAM_PTR}"
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
