@@ -4,10 +4,11 @@
     python3 chip_smoke.py --phases device,build,parity   # a subset
 
 Phases, each printing one JSON line. Widths are always full; so the whole
-run stays well inside its 1200 s limit, reshard, quant, channel, runtime
-(legs b and d) and bulk run at 12 of the 32 layers (``TIME_CAP_LAYERS``,
-each listed under ``reduced``), where earlier slices ran them at full
-depth; main, direct_device, spmd and tiering keep full depth:
+run stays well inside its 1200 s limit, reshard, quant, channel, tiering,
+runtime (legs b and d) and bulk run at 12 of the 32 layers
+(``TIME_CAP_LAYERS``, each listed under ``reduced``), where earlier slices
+ran them at full depth; main, direct_device, healing and spmd keep full
+depth:
 
 1. device       - the card, its power limit, /dev/shm and host memory;
 2. build        - nvcc builds csrc/cast.cu, csrc/flash_attention.cu (the
@@ -156,8 +157,8 @@ depth; main, direct_device, spmd and tiering keep full depth:
                   launches per publish (the planner's chunks), card memory
                   a pull leaves (0), peak card memory per process; every
                   target bit-equal; no process or segment left;
-15. tiering     - version retention and the disk tier at full Llama-3-8B
-                  width (the port Llama's 291 tensors, fp32 on the card,
+15. tiering     - version retention and the disk tier at Llama-3-8B
+                  width, 12 layers (the port Llama's tensors, fp32 on the card,
                   bf16 on the wire, bf16 targets on the card), after a
                   printed plan (free /dev/shm, card memory, and the free
                   disk and filesystem type, from /proc/mounts, of the tier
@@ -185,7 +186,31 @@ depth; main, direct_device, spmd and tiering keep full depth:
                   publish and put = the planner's chunks with no cast
                   outside the kernel, no segment, process, tier or
                   storage file left;
-16. runtime     - the runtime's foundations, in four legs: (a) start-up:
+16. healing     - replication, repair and the health supervisor at full
+                  Llama-3-8B width and depth (291 tensors, fp32 on the
+                  card, bf16 on the wire, bf16 targets on the card), at
+                  the depth a printed plan of host and card memory allows:
+                  3 volumes at replication 2, 1 GiB segment pools, the
+                  supervisor at 0.5 s and 3 misses: (a) put_state_dict,
+                  K1 launches = the planner's chunks, every key on exactly
+                  2 volumes; (b) a get; (c) SIGKILL of the volume holding
+                  the most bytes, then a get (its seconds and the
+                  diagnosis it met) and another, which asks no diagnosis;
+                  (d) the supervisor's quarantine (seconds from the kill,
+                  volume_health) and auto-repair back to 2 healthy copies
+                  of every key (bytes, seconds, GB/s, the rung pull_from
+                  took: bulk), no other volume quarantined; (e) repair():
+                  the victim replaced, nothing lost or failed, its keys
+                  copied back, a get after it, none of the dead process's
+                  segments left in /dev/shm; (f) at 2 layers, a SIGSTOPped
+                  volume: check_volumes reads wedged, repair() lists it and
+                  replaces nothing, and after SIGCONT a get; (g) at 2
+                  layers, replication 1: the killed volume's keys raise
+                  ActorDiedError carrying the controller's diagnosis
+                  (dead), and repair() reports them lost. Gates: every
+                  target bit-equal to the bf16 cast of its source, no cast
+                  outside K1, no process and no segment left;
+17. runtime     - the runtime's foundations, in four legs: (a) start-up:
                   initialize + shutdown twice under the forkserver (the
                   default) and twice under TORCHSTORE_TORCH_MP_CONTEXT=spawn,
                   seconds each, and a forked actor child that allocates on
@@ -219,7 +244,7 @@ depth; main, direct_device, spmd and tiering keep full depth:
                   traces parented by a client span; printed: span counts and
                   total ms per warm step, and the repull's open / land /
                   generation split;
-17. bulk        - a cross-host store on one box over the bulk TCP rung, at
+18. bulk        - a cross-host store on one box over the bulk TCP rung, at
                   the depth a printed plan of card and host memory allows:
                   one volume spawned with a TORCHSTORE_TORCH_HOSTNAME of its
                   own (``initialize(volume_env_fn=...)``), every listener on
@@ -241,7 +266,7 @@ depth; main, direct_device, spmd and tiering keep full depth:
                   rpc with ts_client_put_retries_total{transport=rpc} and
                   failovers{op=put} at 1, and after clearing it a get over
                   bulk reads it back bit-equal;
-18. landing     - host-to-host landings at main's sizes (the Llama-3-8B
+19. landing     - host-to-host landings at main's sizes (the Llama-3-8B
                   state dict in bf16, pageable host tensors on both ends,
                   depth from a printed plan of host memory): the landing
                   pool's Tensor.copy_ row blocks (the native library off)
@@ -250,7 +275,7 @@ depth; main, direct_device, spmd and tiering keep full depth:
                   native, pool; s and GB/s each; gates: every destination
                   bit-equal to its source after each landing, native calls
                   only in the native runs;
-19. spmd        - four processes launched with torchrun's variables (RANK,
+20. spmd        - four processes launched with torchrun's variables (RANK,
                   WORLD_SIZE=4, LOCAL_RANK, LOCAL_WORLD_SIZE=2,
                   MASTER_ADDR=127.0.0.1, an ephemeral MASTER_PORT), an auth
                   secret and two emulated hosts (ranks 0-1 the trainer host,
@@ -266,7 +291,7 @@ depth; main, direct_device, spmd and tiering keep full depth:
                   own host), K1 launches = the planner's chunks on every
                   trainer put, no card memory left by a get, every rank
                   exits 0, no process left;
-20. kernels     - one line listing every ported kernel.
+21. kernels     - one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints no
@@ -295,8 +320,8 @@ except ImportError:  # alone in a directory: main() finds no package and fails
 
 ALL_PHASES = (
     "device", "build", "parity", "timing", "main", "reshard", "quant", "channel",
-    "flash_parity", "flash_timing", "ring", "model", "rl", "direct_device", "tiering", "runtime",
-    "bulk", "landing", "spmd", "kernels",
+    "flash_parity", "flash_timing", "ring", "model", "rl", "direct_device", "tiering", "healing",
+    "runtime", "bulk", "landing", "spmd", "kernels",
 )
 
 # Llama-3-8B geometry (the store's north-star state dict: 291 tensors).
@@ -319,10 +344,10 @@ L2_BYTES = 50 * 2**20
 
 
 # Depth of the phases that measure the paths of earlier slices again
-# (reshard, quant, channel, runtime, bulk): each still drives its path and
-# holds K1 against the plain version, at this many layers, so the whole
-# script stays well inside its 1200 s limit with main, direct_device, spmd
-# and tiering at full depth. Widths never change.
+# (reshard, quant, channel, tiering, runtime, bulk): each still drives its
+# path and holds K1 against the plain version, at this many layers, so the
+# whole script stays well inside its 1200 s limit with main, direct_device,
+# healing and spmd at full depth. Widths never change.
 TIME_CAP_LAYERS = 12
 
 
@@ -750,6 +775,8 @@ def main() -> int:
             res = phase_spmd(torch, staging)
         elif phase == "tiering":
             res = phase_tiering(torch, staging)
+        elif phase == "healing":
+            res = phase_healing(torch, staging)
         else:
             res = phase_kernels(results)
         res["seconds"] = time.perf_counter() - t0
@@ -4705,6 +4732,7 @@ def phase_tiering(torch, staging) -> dict:
     emit({"tiering_plan": plan})
     if layers < LAYERS:
         emit({"reduced": {"tiering_layers": layers, "of": LAYERS}, **plan})
+    layers = time_capped("tiering", layers)
     torch.cuda.reset_peak_memory_stats(dev)
     try:
         res = asyncio.run(_tiering_path(torch, staging, layers, dev, plan["tier_dir"],
@@ -4714,6 +4742,376 @@ def phase_tiering(torch, staging) -> dict:
             shutil.rmtree(base, ignore_errors=True)
     res["phase"] = "tiering"
     res["plan"] = {k: plan[k] for k in ("base", "on_disk", "tier_dir", "storage_dir", "dirs")}
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return res
+
+
+# --------------------------------------------------------------------------
+# healing: replication, repair and the health supervisor
+# --------------------------------------------------------------------------
+
+HEAL_SEED = 5151
+HEAL_STORE = "healing"
+HEAL_WEDGE_STORE = "healing_wedge"
+HEAL_R1_STORE = "healing_r1"
+HEAL_KEY = "heal"
+HEAL_VOLUMES = 3
+HEAL_REPLICATION = 2
+HEAL_SIDE_LAYERS = 2  # the wedge leg's and the replication-1 control's depth
+HEAL_ENV = {"TORCHSTORE_TORCH_HEALTH_INTERVAL_S": "0.5",
+            "TORCHSTORE_TORCH_HEALTH_MISS_THRESHOLD": "3"}
+# The phase's segment pools: small, so no warm spare set competes with the
+# replicas, auto-repair's copy and repair's copy for host memory.
+HEAL_POOL_CAP = 1 << 30
+# Host copies at the peak: the dead volume's segments (until repair reaps
+# them), the surviving replica, auto-repair's copy, and one for the pools,
+# the client's transient staging and the replacement's copy racing the reap.
+HEAL_HOST_COPIES = 4
+HEAL_WAIT_S = 120.0
+
+
+def plan_healing(torch, dev) -> tuple[int, dict]:
+    """Depth that fits, by plan_layers' rule: HEAL_HOST_COPIES bf16 copies
+    in host memory and /dev/shm; on the card the fp32 source, its bf16 cast
+    during the put, and the bf16 targets. Widths never change."""
+    from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
+
+    geo = dict(LLAMA3_8B)
+    per_layer = sum(math.prod(s) for s in _leaves(llama_shapes(**{**geo, "layers": 1})["layers"]))
+    outer = sum(math.prod(s) for s in _leaves({**llama_shapes(**{**geo, "layers": 0}),
+                                               "layers": {}}))
+    params = lambda n: outer + n * per_layer  # noqa: E731
+    shm_free, mem_free = shm_free_bytes(), mem_available_bytes()
+    host_budget = 0.8 * min(shm_free, mem_free)
+    card_free, card_total = torch.cuda.mem_get_info(dev)
+    card_budget = 0.9 * card_free
+    host_need = lambda n: HEAL_HOST_COPIES * 2 * params(n)  # noqa: E731
+    card_need = lambda n: (4 + 2 + 2) * params(n) + 4 * geo["vocab"] * geo["hidden"]  # noqa: E731
+    layers = geo["layers"]
+    while layers > 1 and (host_need(layers) > host_budget or card_need(layers) > card_budget):
+        layers -= 1
+    return layers, {"dev_shm_free_bytes": shm_free, "mem_available_bytes": mem_free,
+                    "host_budget_bytes": int(host_budget), "host_needed_bytes": host_need(layers),
+                    "host_copies": HEAL_HOST_COPIES, "card_free_bytes": card_free,
+                    "card_total_bytes": card_total, "card_budget_bytes": int(card_budget),
+                    "card_needed_bytes": card_need(layers)}
+
+
+def _volume_process(tst, store_name: str, ref):
+    """The process hosting the volume at ``ref`` (its first mesh, or a
+    replacement repair spawned)."""
+    handle = tst.api._stores[store_name]
+    for mesh in [handle.volume_mesh, *handle.repair_meshes]:
+        for idx, mine in enumerate(mesh.refs):
+            if (mine.host, mine.port, mine.name) == (ref.host, ref.port, ref.name):
+                return mesh._processes[idx]
+    raise LookupError(f"no process hosts {ref!r}")
+
+
+async def _wait_until(predicate, limit_s: float = HEAL_WAIT_S, every_s: float = 0.05):
+    """Poll ``predicate`` (a coroutine function) until it returns a truthy
+    value; that value, or None after ``limit_s``."""
+    deadline = time.monotonic() + limit_s
+    while time.monotonic() < deadline:
+        got = await predicate()
+        if got:
+            return got
+        await asyncio.sleep(every_s)
+    return None
+
+
+async def _heal_store(tst, store_name: str, num_volumes: int, replication: int):
+    """A store of ``num_volumes`` volumes under the phase's supervisor
+    settings (they ride the controller's spawn environment)."""
+    from torchstore_tpu_torch.config import StoreConfig
+
+    saved = {k: os.environ.get(k) for k in HEAL_ENV}
+    os.environ.update(HEAL_ENV)
+    try:
+        await tst.initialize(num_storage_volumes=num_volumes, store_name=store_name,
+                             strategy=tst.LocalRankStrategy(replication=replication),
+                             config=StoreConfig(shm_pool_max_bytes=HEAL_POOL_CAP))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return tst.client(store_name)
+
+
+async def _healing_path(torch, staging, layers: int, dev, cfg=None,
+                        side_layers: int = HEAL_SIDE_LAYERS) -> dict:
+    """Replicated puts that survive a volume's death, at Llama-3-8B width
+    (fp32 weights on the card, bf16 on the wire, bf16 targets on the
+    card), through the port's entry points, on 3 volumes at replication
+    2: (a) put_state_dict, every key on exactly 2 volumes; (b) a get; (c)
+    SIGKILL of the volume holding the most bytes, then gets; (d) the
+    supervisor's quarantine and auto-repair back to 2 healthy copies; (e)
+    repair(); (f) a wedged (SIGSTOPped) volume reported, not replaced;
+    (g) replication 1: a killed volume's keys raise with the controller's
+    diagnosis and repair reports them lost. Every target is held bit for
+    bit against the plain cast of its source."""
+    import signal
+
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.runtime import ActorDiedError
+    from torchstore_tpu_torch.transport.shared_memory import SHM_DIR, owner_pid
+    from torchstore_tpu_torch.workloads import llama3_8b_config
+
+    bf16 = torch.bfloat16
+    cuda = dev.type == "cuda"
+    cfg = cfg or llama3_8b_config(layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(HEAL_SEED)
+    src = _model_state(torch, cfg, layers, gen, dev)
+    targets = {k: torch.zeros(t.shape, dtype=bf16, device=dev) for k, t in src.items()}
+    n_params = sum(t.numel() for t in src.values())
+    wire = 2 * n_params
+    chunks = len(staging.plan_chunks(list(src.values()), bf16))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def mismatched(tgts: dict, source: dict) -> int:
+        sync()
+        return sum(not torch.equal(tgts[k].view(torch.int16), source[k].to(bf16).view(torch.int16))
+                   for k in source)
+
+    async def get_all(store_name: str, tgts: dict) -> float:
+        for t in tgts.values():
+            t.zero_()
+        sync()
+        t0 = time.perf_counter()
+        await tst.get_state_dict(HEAL_KEY, tgts, store_name=store_name)
+        sync()
+        return time.perf_counter() - t0
+
+    async def put_all(store_name: str, source: dict) -> dict:
+        launched, fell = staging.cast_kernel.launches, staging.cast_kernel.fallbacks
+        sync()
+        t0 = time.perf_counter()
+        await tst.put_state_dict(HEAL_KEY, source, transfer_dtype=bf16, store_name=store_name)
+        sync()
+        seconds = time.perf_counter() - t0
+        return {"put_s": seconds,
+                "put_gb_per_s": 2 * sum(t.numel() for t in source.values()) / seconds / 1e9,
+                "launches": staging.cast_kernel.launches - launched,
+                "chunks": len(staging.plan_chunks(list(source.values()), bf16)),
+                "cast_fallbacks": staging.cast_kernel.fallbacks - fell}
+
+    out: dict = {"layers": layers, "tensors": len(src), "params": n_params, "wire_bytes": wire,
+                 "chunks_per_put": chunks, "volumes": HEAL_VOLUMES,
+                 "replication": HEAL_REPLICATION, "supervisor": HEAL_ENV}
+    staging.cast_kernel.launches = 0  # count the healing path's launches only
+    staging.cast_kernel.fallbacks = 0
+    legs: dict = {}
+    pids: set = set()
+    dead_pids: set = set()
+    stopped: list = []
+    client = await _heal_store(tst, HEAL_STORE, HEAL_VOLUMES, HEAL_REPLICATION)
+    pids |= {p.pid for p in multiprocessing.active_children()}
+    try:
+        # (a) the replicated put: K1 casts on the card, every key on 2 volumes.
+        leg = await put_all(HEAL_STORE, src)
+        keys = await tst.keys(HEAL_KEY, store_name=HEAL_STORE)
+        located = await client.controller.locate_volumes.call_one(keys)
+        copies = sorted({len(v) for v in located.values()})
+        leg.update({"keys": len(keys), "copies_per_key": copies})
+        leg["ok"] = (copies == [HEAL_REPLICATION] and leg["cast_fallbacks"] == 0
+                     and (not cuda or leg["launches"] == leg["chunks"]))
+        legs["a_put"] = leg
+        emit({"healing_leg": "a_put", **leg})
+
+        # (b) a get into the card targets.
+        seconds = await get_all(HEAL_STORE, targets)
+        leg = {"get_s": seconds, "get_gb_per_s": wire / seconds / 1e9,
+               "mismatched": mismatched(targets, src)}
+        leg["ok"] = leg["mismatched"] == 0
+        legs["b_get"] = leg
+        emit({"healing_leg": "b_get", **leg})
+
+        # (c) SIGKILL the volume holding the most bytes; the next gets fail over.
+        stats = await client.controller.stats.call_one(include_volumes=True)
+        held = {vid: v.get("resident_bytes", 0) for vid, v in stats["volumes"].items()}
+        victim = sorted(held, key=lambda v: (-held[v], v))[0]
+        victim_keys = sorted(k for k, infos in located.items() if victim in infos)
+        vmap = await client.controller.get_volume_map.call_one()
+        proc = _volume_process(tst, HEAL_STORE, vmap[victim]["ref"])
+        victim_pid = proc.pid
+        dead_pids.add(victim_pid)
+        proc.kill()
+        t_kill = time.time()
+        proc.join(10)
+        diagnoses = client.diagnoses
+        first_s = await get_all(HEAL_STORE, targets)
+        first_bad = mismatched(targets, src)
+        after_first = client.diagnoses
+        second_s = await get_all(HEAL_STORE, targets)
+        leg = {"victim": victim, "victim_bytes": held[victim], "victim_keys": len(victim_keys),
+               "held_bytes": held, "first_get_s": first_s,
+               "first_get_gb_per_s": wire / first_s / 1e9, "first_mismatched": first_bad,
+               "diagnosis": client.last_diagnosis,
+               "diagnosis_fanouts_first_get": after_first - diagnoses,
+               "second_get_s": second_s, "second_mismatched": mismatched(targets, src),
+               "diagnosis_fanouts_second_get": client.diagnoses - after_first}
+        leg["ok"] = (first_bad == 0 and leg["second_mismatched"] == 0
+                     and leg["diagnosis_fanouts_second_get"] == 0
+                     and "dead" in (client.last_diagnosis or ""))
+        legs["c_kill"] = leg
+        emit({"healing_leg": "c_kill", **leg})
+
+        # (d) the supervisor quarantines the victim; auto-repair restores 2
+        # healthy copies of every key, volume to volume.
+        async def quarantined():
+            vh = await tst.volume_health(HEAL_STORE)
+            return vh if vh[victim]["state"] == "quarantined" else None
+
+        health = await _wait_until(quarantined)
+
+        async def repaired():
+            loc = await client.controller.locate_volumes.call_one(keys)
+            return loc if all(victim not in v and len(v) == HEAL_REPLICATION
+                              for v in loc.values()) else None
+
+        healed = await _wait_until(repaired)
+        after_heal = await tst.volume_health(HEAL_STORE)
+        cstats = await client.controller.stats.call_one()
+        report = cstats["auto_repairs"].get(victim, {})
+        quarantines = _series_total(cstats["metrics"], "ts_quarantines_total")
+        # The controller stamps the quarantine (auto-repair's start) on the
+        # host's wall clock, which the kill was stamped on too.
+        start = report.get("started_at")
+        leg = {"quarantine_s_from_kill": start - t_kill if start else None,
+               "volume_health": health, "auto_repair": report,
+               "healed_s_from_kill": start + report["wall_s"] - t_kill if start else None,
+               "auto_repair_gb_per_s": (report["bytes"] / report["seconds"] / 1e9
+                                        if report.get("seconds") else None),
+               "quarantines": quarantines,
+               "others_health": {v: h["state"] for v, h in after_heal.items() if v != victim}}
+        leg["ok"] = (health is not None and healed is not None and quarantines == 1
+                     and report.get("keys") == len(victim_keys)
+                     and set(report.get("rungs", {})) == {"bulk"}
+                     and all(s == "ok" for s in leg["others_health"].values()))
+        legs["d_quarantine"] = leg
+        emit({"healing_leg": "d_quarantine", **leg})
+
+        # (e) repair(): a replacement under the victim's id gets its keys back.
+        t0 = time.perf_counter()
+        rep = await tst.repair(HEAL_STORE)
+        repair_s = time.perf_counter() - t0
+        pids |= {p.pid for p in multiprocessing.active_children()}
+        seconds = await get_all(HEAL_STORE, targets)
+        left = [n for n in os.listdir(SHM_DIR) if owner_pid(n) == victim_pid]
+        statuses = await client.controller.check_volumes.call_one()
+        leg = {"report": {k: (v if k != "lost" else v[:5]) for k, v in rep.items()},
+               "repair_s": repair_s, "repair_gb_per_s": wire / repair_s / 1e9,
+               "get_s": seconds, "mismatched": mismatched(targets, src),
+               "victim_segments_left": left[:5], "statuses": statuses}
+        leg["ok"] = (rep["replaced"] == [victim] and rep["lost"] == [] and rep["failed"] == []
+                     and rep["wedged"] == [] and rep["rereplicated"] == len(victim_keys)
+                     and leg["mismatched"] == 0 and not left)
+        legs["e_repair"] = leg
+        emit({"healing_leg": "e_repair", **leg})
+    finally:
+        await tst.shutdown(HEAL_STORE)
+    del targets
+
+    side_cfg = __import__("dataclasses").replace(cfg, num_layers=side_layers)
+    side_gen = torch.Generator(device=dev)
+    side_gen.manual_seed(HEAL_SEED + 1)
+    side = _model_state(torch, side_cfg, side_layers, side_gen, dev)
+    side_targets = {k: torch.zeros(t.shape, dtype=bf16, device=dev) for k, t in side.items()}
+
+    # (f) a wedged volume: reported by check_volumes and repair, not replaced.
+    wclient = await _heal_store(tst, HEAL_WEDGE_STORE, HEAL_VOLUMES, HEAL_REPLICATION)
+    pids |= {p.pid for p in multiprocessing.active_children()}
+    try:
+        put = await put_all(HEAL_WEDGE_STORE, side)
+        wvmap = await wclient.controller.get_volume_map.call_one()
+        wproc = _volume_process(tst, HEAL_WEDGE_STORE, wvmap["0"]["ref"])
+        os.kill(wproc.pid, signal.SIGSTOP)
+        stopped.append(wproc.pid)
+        t0 = time.perf_counter()
+        statuses = await wclient.controller.check_volumes.call_one()
+        check_s = time.perf_counter() - t0
+        rep = await tst.repair(HEAL_WEDGE_STORE)
+        os.kill(wproc.pid, signal.SIGCONT)
+        stopped.remove(wproc.pid)
+        seconds = await get_all(HEAL_WEDGE_STORE, side_targets)
+        leg = {**put, "status": statuses["0"], "check_s": check_s, "report": rep,
+               "get_s": seconds, "mismatched": mismatched(side_targets, side)}
+        leg["ok"] = (statuses["0"].startswith("wedged") and rep["wedged"] == ["0"]
+                     and rep["replaced"] == [] and leg["mismatched"] == 0
+                     and put["cast_fallbacks"] == 0 and (not cuda or put["launches"] == put["chunks"]))
+        legs["f_wedge"] = leg
+        emit({"healing_leg": "f_wedge", **leg})
+    finally:
+        for pid in stopped:
+            os.kill(pid, signal.SIGCONT)
+        await tst.shutdown(HEAL_WEDGE_STORE)
+
+    # (g) replication 1: a killed volume's keys are lost, loudly.
+    rclient = await _heal_store(tst, HEAL_R1_STORE, 2, 1)
+    pids |= {p.pid for p in multiprocessing.active_children()}
+    try:
+        put = await put_all(HEAL_R1_STORE, side)
+        rkeys = await tst.keys(HEAL_KEY, store_name=HEAL_R1_STORE)
+        rloc = await rclient.controller.locate_volumes.call_one(rkeys)
+        (home,) = {vid for infos in rloc.values() for vid in infos}
+        rvmap = await rclient.controller.get_volume_map.call_one()
+        rproc = _volume_process(tst, HEAL_R1_STORE, rvmap[home]["ref"])
+        dead_pids.add(rproc.pid)
+        rproc.kill()
+        rproc.join(10)
+        try:
+            await get_all(HEAL_R1_STORE, side_targets)
+            raised = None
+        except ActorDiedError as exc:
+            raised = str(exc)
+        rep = await tst.repair(HEAL_R1_STORE)
+        pids |= {p.pid for p in multiprocessing.active_children()}
+        try:
+            await get_all(HEAL_R1_STORE, side_targets)
+            after = None
+        except KeyError as exc:
+            after = f"KeyError: {exc}"
+        leg = {**put, "home": home, "keys": len(rkeys), "error": (raised or "")[:400],
+               "report": {**rep, "lost": len(rep["lost"])}, "get_after_repair": after}
+        leg["ok"] = (raised is not None and "controller diagnosis" in raised
+                     and "dead" in raised and rep["replaced"] == [home]
+                     and sorted(rep["lost"]) == sorted(rkeys) and rep["rereplicated"] == 0
+                     and after is not None and put["cast_fallbacks"] == 0
+                     and (not cuda or put["launches"] == put["chunks"]))
+        legs["g_replication_1"] = leg
+        emit({"healing_leg": "g_replication_1", **leg})
+    finally:
+        await tst.shutdown(HEAL_R1_STORE)
+
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children() if p.pid in pids]
+    leaked = [n for n in os.listdir(SHM_DIR) if owner_pid(n) in pids | {os.getpid()}]
+    out.update({"legs": {k: v["ok"] for k, v in legs.items()},
+                "launches": staging.cast_kernel.launches,
+                "cast_fallbacks": staging.cast_kernel.fallbacks,
+                "processes_left": alive, "segments_left": leaked[:5],
+                "dead_volume_segments_left": [n for n in leaked if owner_pid(n) in dead_pids][:5],
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if cuda else 0})
+    out["ok"] = (all(v["ok"] for v in legs.values()) and len(legs) == 7 and not alive
+                 and not leaked and staging.cast_kernel.fallbacks == 0)
+    return out
+
+
+def phase_healing(torch, staging) -> dict:
+    dev = torch.device("cuda", 0)
+    layers, plan = plan_healing(torch, dev)
+    emit({"healing_plan": plan})
+    if layers < LAYERS:
+        emit({"reduced": {"healing_layers": layers, "of": LAYERS}, **plan})
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = asyncio.run(_healing_path(torch, staging, layers, dev))
+    res["phase"] = "healing"
     res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     return res
 
@@ -4753,6 +5151,8 @@ def phase_kernels(results: dict) -> dict:
         by_path["spmd"] = results["spmd"]["launches"]
     if "tiering" in results:
         by_path["tiering"] = results["tiering"]["launches"]
+    if "healing" in results:
+        by_path["healing"] = results["healing"]["launches"]
     entries = [{
         "name": "cast",
         "route": "cuda",
@@ -4786,7 +5186,9 @@ def phase_kernels(results: dict) -> dict:
                + ("; on spmd: the two trainer ranks' put and reput, each of its half"
                   if "spmd" in results else "")
                + ("; on tiering: the channel's publishes v0..v4 and the durable put"
-                  if "tiering" in results else ""),
+                  if "tiering" in results else "")
+               + ("; on healing: the replicated put and the wedge and replication-1 legs' puts"
+                  if "healing" in results else ""),
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"

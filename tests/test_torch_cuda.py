@@ -832,3 +832,56 @@ def test_pinned_acquire_into_card_targets_after_a_fault_in(cuda, tmp_path, monke
     assert v == 0 and fault_ins >= len(src)
     assert all(torch.equal(targets[k].view(torch.int16), want[k].view(torch.int16))
                for k in src)
+
+
+@pytest.mark.cuda
+def test_replicated_put_survives_a_volume_kill_on_cuda(cuda):
+    """A replicated bf16 state-dict put of fp32 leaves on the card (grouped
+    cast, one launch per planned chunk) lands on two of three volumes; with
+    one of them killed, the get still fills bf16 targets on the card
+    bit-equal to the cast, and repair() copies every key back."""
+    import asyncio
+
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch import api
+
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    src = {"a": torch.randn(1024, 384, generator=gen, device=cuda),
+           "b": torch.randn(4096, generator=gen, device=cuda)}
+    want = {k: v.to(torch.bfloat16) for k, v in src.items()}
+    targets = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=cuda) for k, v in src.items()}
+    chunks = len(staging.plan_chunks(list(src.values()), torch.bfloat16))
+
+    async def go():
+        await tst.initialize(num_storage_volumes=3, store_name="replcuda",
+                             strategy=tst.LocalRankStrategy(replication=2))
+        try:
+            launches = staging.cast_kernel.launches
+            await tst.put_state_dict("policy", src, transfer_dtype=torch.bfloat16,
+                                     store_name="replcuda")
+            launched = staging.cast_kernel.launches - launches
+            client = tst.client("replcuda")
+            keys = await tst.keys("policy", store_name="replcuda")
+            located = await client.controller.locate_volumes.call_one(keys)
+            vmap = await client.controller.get_volume_map.call_one()
+            victim = sorted(next(iter(located.values())))[0]
+            handle = api._stores["replcuda"]
+            (proc,) = [p for r, p in zip(handle.volume_mesh.refs, handle.volume_mesh._processes)
+                       if (r.host, r.port, r.name) == (vmap[victim]["ref"].host,
+                                                       vmap[victim]["ref"].port,
+                                                       vmap[victim]["ref"].name)]
+            proc.kill()
+            proc.join(10)
+            await tst.get_state_dict("policy", targets, store_name="replcuda")
+            torch.cuda.synchronize()
+            equal = all(torch.equal(targets[k].view(torch.int16), want[k].view(torch.int16))
+                        for k in src)
+            report = await tst.repair("replcuda")
+            return launched, {len(v) for v in located.values()}, victim, equal, report, len(keys)
+        finally:
+            await tst.shutdown("replcuda")
+
+    launched, copies, victim, equal, report, nkeys = asyncio.run(go())
+    assert launched == chunks and copies == {2} and equal
+    assert report["replaced"] == [victim] and report["lost"] == [] and report["failed"] == []
+    assert report["rereplicated"] == nkeys

@@ -38,6 +38,12 @@ spills cold versions to disk (``tier_sweep``) and faults them back in on
 a get. ``initialize(storage_dir=...)`` makes the volumes durable, and
 ``recover=True`` serves what a restarted store's directory holds.
 
+With ``LocalRankStrategy(replication=k)`` every put lands on k volumes and
+a get fails over past a dead one. The controller's supervisor quarantines
+a volume that stops answering and copies its keys onto healthy volumes
+(``volume_health``); ``repair`` replaces dead volumes and copies back what
+survivors hold, reporting what was lost.
+
 ``initialize(colocated=True)`` hosts the volume in the caller's process;
 ``StoreConfig(auth_secret=...)`` authenticates every connection;
 ``inject_fault`` / ``clear_faults`` drive the fault points,
@@ -73,10 +79,12 @@ from torchstore_tpu_torch.api import (
     put,
     put_batch,
     put_state_dict,
+    repair,
     shutdown,
     state_dict_stream,
     tier_sweep,
     version_catalog,
+    volume_health,
     wait_for,
 )
 from torchstore_tpu_torch.client import Shard
@@ -140,11 +148,13 @@ __all__ = [
     "parse_quant_blob",
     "put_state_dict",
     "quantize_transfer",
+    "repair",
     "shards_from_numpy",
     "shutdown",
     "state_dict_stream",
     "tier_sweep",
     "version_catalog",
+    "volume_health",
     "wait_for",
 ]
 

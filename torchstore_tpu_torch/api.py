@@ -14,6 +14,11 @@ rebuilds the controller's index from what the directory holds.
 ``version_catalog``, the ``lease_*`` calls and ``tier_sweep`` reach the
 version-retention and spill-tier plane (``tiering/``).
 
+``repair`` replaces dead volumes with fresh processes under their ids and
+copies back every key a survivor still holds; ``volume_health`` reads the
+controller's supervisor (quarantine, probation, auto-repair). ``shutdown``
+also unlinks the segments a killed volume left in ``/dev/shm``.
+
 ``initialize(colocated=True)`` hosts the one volume in this process: its
 actor server still answers other processes, and this process's calls on it
 are direct (the transports copy what they store and serve, as the frames
@@ -30,7 +35,7 @@ import asyncio
 import base64
 import os
 import pickle
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import torch
@@ -42,12 +47,14 @@ from torchstore_tpu_torch.config import (
     ENV_AUTH_SECRET,
     ENV_PREFIX,
     ENV_STORAGE_DIR,
+    ENV_VOLUME_ID,
     StoreConfig,
     default_config,
 )
 from torchstore_tpu_torch.controller import Controller
 from torchstore_tpu_torch.logging import get_logger, set_log_level
 from torchstore_tpu_torch.observability import metrics as obs_metrics
+from torchstore_tpu_torch.observability import recorder as obs_recorder
 from torchstore_tpu_torch.observability import tracing
 from torchstore_tpu_torch.runtime import (
     ActorMesh,
@@ -64,6 +71,8 @@ from torchstore_tpu_torch.runtime.actors import (
 )
 from torchstore_tpu_torch.storage_volume import StorageVolume
 from torchstore_tpu_torch.strategy import LocalRankStrategy, SingletonStrategy, StoreStrategy
+from torchstore_tpu_torch.transport import shared_memory
+from torchstore_tpu_torch.transport.types import Request
 
 logger = get_logger("torchstore_tpu_torch.api")
 
@@ -78,6 +87,12 @@ class _StoreHandle:
     client: LocalClient
     # A colocated volume: (its actor server, its ref, the volume).
     inproc_volume: Optional[tuple] = None
+    # How a volume is spawned again: each one's env by rank, and the rank
+    # each replacement stands in for (by volume id).
+    volume_env_fn: Optional[Callable[[int], dict]] = None
+    # Replacement volumes spawned by repair(), one mesh each.
+    repair_meshes: list = field(default_factory=list)
+    repair_ranks: dict = field(default_factory=dict)
 
 
 _stores: dict[str, _StoreHandle] = {}
@@ -134,6 +149,11 @@ async def initialize(
         native.get_lib()  # built or loaded now, not under the first transfer
     if strategy is None:
         strategy = SingletonStrategy() if num_storage_volumes == 1 else LocalRankStrategy()
+    if getattr(strategy, "replication", 1) > num_storage_volumes:
+        raise ValueError(
+            f"replication={strategy.replication} needs at least that many storage volumes "
+            f"(have {num_storage_volumes})"
+        )
     if config.auth_secret:
         # Auth is per process: the connection pool and every listener of
         # this process read one secret, so a second store with another one
@@ -151,12 +171,15 @@ async def initialize(
     # The storage directory rides each volume's spawn environment, never
     # this process's: a failed or concurrent initialize leaks it nowhere.
     volume_env = {ENV_STORAGE_DIR: storage_dir} if storage_dir else {}
+
+    def env_fn(rank: int) -> dict:
+        return {**volume_env, **((volume_env_fn(rank) or {}) if volume_env_fn else {})}
+
     # Volumes and controller start together.
     volumes, controller = await asyncio.gather(
         _host_colocated_volume(store_name, strategy, storage_dir) if colocated else spawn_actors(
             num_storage_volumes, StorageVolume, f"tst_{store_name}_volume", strategy,
-            env_fn=lambda rank: {**volume_env, **((volume_env_fn(rank) or {})
-                                                  if volume_env_fn else {})},
+            env_fn=env_fn,
         ),
         get_or_spawn_singleton(_controller_name(store_name), Controller),
         return_exceptions=True,
@@ -185,6 +208,7 @@ async def initialize(
         volume_mesh=None if colocated else volumes,
         client=LocalClient(controller, config),
         inproc_volume=inproc_volume,
+        volume_env_fn=env_fn,
     )
     _publish_handle(store_name, controller)
     return controller
@@ -496,12 +520,121 @@ async def shutdown(store_name: str = DEFAULT_STORE) -> None:
         await handle.controller.teardown.call_one()
     except Exception:  # noqa: BLE001 - stop the processes regardless
         logger.exception("controller teardown failed")
-    if handle.volume_mesh is not None:
-        await handle.volume_mesh.stop()
+    for mesh in [handle.volume_mesh, *handle.repair_meshes]:
+        if mesh is not None:
+            await mesh.stop()
     if handle.inproc_volume is not None:
         await _stop_colocated_volume(handle.inproc_volume)
     await stop_singleton(_controller_name(store_name))
     await close_all_connections()
+    if shared_memory.is_available():
+        # A killed volume could not unlink its segments; nothing else would.
+        shared_memory.reap_orphaned_segments()
+
+
+# ---- health and repair --------------------------------------------------------
+
+
+async def volume_health(store_name: str = DEFAULT_STORE) -> dict:
+    """The health supervisor's view: ``{volume_id: {"state": "ok" |
+    "probation" | "quarantined", "misses", "oks"}}``."""
+    c = client(store_name)
+    await c._ensure_setup()
+    return await c.controller.volume_health.call_one()
+
+
+def _volume_rank(handle: _StoreHandle, ref: ActorRef, vid: str) -> int:
+    """The spawn rank of the volume at ``ref`` (its env is that rank's)."""
+    for rank, mine in enumerate(handle.volume_mesh.refs):
+        if (mine.host, mine.port, mine.name) == (ref.host, ref.port, ref.name):
+            return rank
+    return handle.repair_ranks.get(vid, 0)
+
+
+async def repair(store_name: str = DEFAULT_STORE) -> dict:
+    """Replace dead volumes with fresh processes and copy back every key a
+    surviving replica still holds. Runs in the process that initialized the
+    store (with spawned volumes). Returns ``{"replaced": [volume ids],
+    "rereplicated": keys copied back, "lost": [keys with no copy left, now
+    out of the index: reads fail loudly as missing], "failed": [keys whose
+    copy failed: their surviving copies stay indexed, run it again],
+    "wedged": [volume ids alive but not answering]}``. Every dead volume is
+    replaced first, then keys are copied key by key, each replacement
+    getting exactly the slices the dead volume held, so a failure of
+    several volumes repairs whatever any survivor holds. A wedged volume is
+    never replaced (it may recover: kill it first to replace it). The
+    replacement takes the dead volume's id and spawn environment; the
+    segments the dead process left in ``/dev/shm`` are unlinked."""
+    handle = _stores.get(store_name)
+    if handle is None or handle.volume_mesh is None:
+        raise RuntimeError(
+            "repair must run in the process that initialized the store (with process-backed "
+            "volumes)"
+        )
+    c = client(store_name)
+    statuses = await handle.controller.check_volumes.call_one()
+    dead = sorted(v for v, st in statuses.items() if st.startswith("dead"))
+    wedged = sorted(v for v, st in statuses.items() if st.startswith("wedged"))
+    if dead or wedged:
+        # The last seconds of local history, before replacement moves things.
+        obs_recorder.record("health", "repair", dead=dead, wedged=wedged)
+        obs_recorder.dump_postmortem("repair")
+    report = {"replaced": [], "rereplicated": 0, "lost": [], "failed": [], "wedged": wedged}
+    strategy = await handle.controller.get_strategy.call_one()
+    vmap = await handle.controller.get_volume_map.call_one()
+    # Replace every dead volume before any copy: a key whose listed survivor
+    # is another dead volume would otherwise fail the whole repair.
+    recoverable_by_vid: dict[str, dict] = {}
+    for vid in dead:
+        rank = _volume_rank(handle, vmap[vid]["ref"], vid)
+        mesh = await spawn_actors(
+            1, StorageVolume, f"tst_{store_name}_volume_repair{len(handle.repair_meshes)}",
+            strategy, env_fn=lambda _r, _rank=rank, _vid=vid: {
+                **handle.volume_env_fn(_rank), ENV_VOLUME_ID: _vid},
+        )
+        handle.repair_meshes.append(mesh)
+        handle.repair_ranks[vid] = rank
+        new_ref = mesh.refs[0]
+        info = await new_ref.get_id.call_one()
+        result = await handle.controller.replace_volume.call_one(vid, new_ref, info["hostname"])
+        report["replaced"].append(vid)
+        report["lost"].extend(result["lost"])
+        recoverable_by_vid[vid] = result["recoverable"]
+    if dead and shared_memory.is_available():
+        shared_memory.reap_orphaned_segments()
+    await c.refresh_volumes()
+    # Copy back key by key: one read of each region however many
+    # replacements need it, and each replacement gets the slices it held.
+    plan: dict[str, dict[str, Any]] = {}
+    for vid, recoverable in recoverable_by_vid.items():
+        for key, slices in recoverable.items():
+            if key not in report["lost"]:  # its last copy died in a later replacement
+                plan.setdefault(key, {})[vid] = slices
+    for key, by_vid in plan.items():
+        try:
+            whole: Optional[list[Request]] = None
+            regions: dict = {}
+            for vid, slices in by_vid.items():
+                if slices is None:
+                    if whole is None:
+                        whole = LocalClient._value_to_requests(key, await c.get(key))
+                    requests = whole
+                else:
+                    requests = []
+                    for ts in slices:
+                        region = (ts.offsets, ts.local_shape)
+                        if region not in regions:
+                            regions[region] = await c.get(key, like=ts)
+                        requests.append(Request.from_tensor_slice(key, ts, regions[region]))
+                await c.replicate_to(vid, requests)
+            report["rereplicated"] += 1
+        except Exception as exc:  # noqa: BLE001 - reported, never fatal to the others
+            logger.warning("repair: copying %r back onto %s failed: %s", key, sorted(by_vid), exc)
+            report["failed"].append(key)
+    if dead:
+        logger.info("repair(%s): replaced %s, re-replicated %d key(s), lost %s", store_name,
+                    report["replaced"], report["rereplicated"], report["lost"] or "none")
+    return report
 
 
 # ---- version retention and the spill tier -----------------------------------

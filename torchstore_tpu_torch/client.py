@@ -28,9 +28,19 @@ once. ``SyncPlanCache`` holds the transfer plans of ``put_state_dict`` /
 
 Transient failures (``RETRYABLE_ERRORS``: a dead or wedged actor, a broken
 socket, an injected fault) are retried under ``config.retry``: a put whose
-every replica failed is landed again, a single-volume put walks down the
-transport ladder one rung per attempt (shm -> bulk -> rpc), and a get
-relocates and fetches again from the replicas still alive. A volume on
+every replica failed is landed again (re-routed onto healthy spares), a
+single-volume put walks down the transport ladder one rung per attempt (shm
+-> bulk -> rpc) unless its volume was diagnosed dead, then fails over to a
+healthy volume, and a get relocates and fetches again from the replicas
+not seen failing. A volume RPC that fails asks the controller's
+``check_volumes`` (at most once per ``DIAGNOSIS_WINDOW_S``) and raises
+``ActorDiedError`` naming its verdict; volumes it reports not ok are marked
+dead (a get tries them last, a put substitutes a healthy spare for them,
+and this client's attachments to a dead process's segments are dropped),
+and one it reports ok under a new ref was replaced by ``repair``: the
+volume map is reloaded and the retry reaches the replacement. After a
+placement-epoch move the next put re-reads the volumes' health and routes
+around quarantined ones. A volume on
 another host (its ``hostname`` is not this process's) is reached over the
 bulk TCP rung; the client's ``BulkClientCache`` keeps one promoted
 connection per volume and the stripe connections of large transfers. ``put_batch`` / ``get_batch``
@@ -57,7 +67,7 @@ from torchstore_tpu_torch.observability import context as obs_context
 from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.observability.tracing import span
 from torchstore_tpu_torch.metadata.index_core import ObjectType, StorageInfo
-from torchstore_tpu_torch.runtime import ActorDiedError, ActorRef
+from torchstore_tpu_torch.runtime import ActorDiedError, ActorRef, ActorTimeoutError
 from torchstore_tpu_torch.strategy import StorageVolumeRef
 from torchstore_tpu_torch.transport.buffers import TransportContext
 from torchstore_tpu_torch.transport.bulk import BulkClientCache
@@ -108,6 +118,12 @@ _FAILOVERS = obs_metrics.counter(
 # sockets and injected faults. Anything else (a missing key, a shape
 # mismatch) is an answer and surfaces at once.
 RETRYABLE_ERRORS = (ActorDiedError, ConnectionError, OSError, FaultInjectedError)
+# A volume's failure asks the controller for a fleet diagnosis at most once
+# per this many seconds; later failures in the window reuse its verdicts.
+DIAGNOSIS_WINDOW_S = 2.0
+# Seconds the controller's pings and the diagnosis RPC itself may take.
+DIAGNOSIS_PING_S = 5.0
+DIAGNOSIS_RPC_S = 15.0
 
 
 class SyncPlanCache:
@@ -167,6 +183,11 @@ class SyncPlanCache:
         self.entries[(op, key, signature)] = plan
 
 
+def _same_ref(a: ActorRef, b: ActorRef) -> bool:
+    """Refs compare by the actor they reach (pickled copies are not equal)."""
+    return (a.host, a.port, a.name) == (b.host, b.port, b.name)
+
+
 @dataclass
 class Shard:
     """An explicit shard for put and get: its data (a CPU or CUDA tensor of
@@ -210,14 +231,33 @@ class LocalClient:
         # distinct intersection of a wanted region with a stored shard.
         self.parts_fetched = 0
         self.epoch_reads = 0  # placement-epoch RPCs this client made
+        # Volumes the controller's diagnosis reported not ok (dead, wedged
+        # or quarantined): gets try them last, puts replace them with a
+        # healthy spare; forgiven by a later diagnosis that reports them ok.
+        self._dead_volumes: set[str] = set()
+        # The last diagnosis (monotonic time, verdict per volume): the retry
+        # loops of a correlated outage reuse it within the window.
+        self._diag_at = 0.0
+        self._diag_statuses: dict[str, str] = {}
+        self.diagnoses = 0  # diagnosis fan-outs this client asked for
+        self.last_diagnosis: Optional[str] = None  # the verdict the last failure met
+        # Volumes the supervisor quarantined, re-read after an epoch move.
+        self._avoid_volumes: set[str] = set()
+        self._volumes_stale = False
+        # Bumped whenever the volume map was reloaded for stale refs.
+        self._refresh_epoch = 0
 
     @property
     def config(self) -> StoreConfig:
         return self._config
 
     async def _ensure_setup(self) -> None:
-        if self._volume_refs is not None:
-            return
+        if self._volume_refs is None:
+            await self._load_volumes()
+
+    async def _load_volumes(self) -> None:
+        """(Re)read the strategy and the volume map; the swap at the end is
+        one assignment, so a concurrent operation keeps the previous map."""
         self._controller.rpc_timeout = self._config.rpc_timeout
         strategy = await self._controller.get_strategy.call_one()
         vmap = await self._controller.get_volume_map.call_one()
@@ -233,7 +273,13 @@ class LocalClient:
                 transport_type=forced,
             )
         self._strategy = strategy
+        self._adopt_health(vmap)
         self._volume_refs = refs
+
+    def _adopt_health(self, vmap: dict) -> None:
+        """Avoid, in puts, the volumes the supervisor quarantined."""
+        self._avoid_volumes = {vid for vid, info in vmap.items()
+                               if info.get("health") == "quarantined"}
 
     @property
     def controller(self) -> ActorRef:
@@ -277,6 +323,27 @@ class LocalClient:
         self._seen_epoch = epoch
         if moved:
             self._loc_cache.clear()
+            # Quarantines and reinstatements move the epoch: the next put
+            # re-reads the volumes' health before it picks its targets.
+            self._volumes_stale = True
+
+    async def _refresh_health(self) -> set[str]:
+        """Re-read the controller's volume map (one RPC, after an epoch
+        move): quarantined volumes are avoided by puts; a volume added,
+        gone or replaced (a new ref under its id) reloads the map. Returns
+        the ids whose ref is new to this client."""
+        self._volumes_stale = False
+        try:
+            vmap = await self._controller.get_volume_map.call_one()
+        except RETRYABLE_ERRORS:  # a controller hiccup: keep the view we have
+            return set()
+        self._adopt_health(vmap)
+        refs = self._volume_refs or {}
+        fresh = {vid for vid, info in vmap.items()
+                 if vid not in refs or not _same_ref(info["ref"], refs[vid].actor)}
+        if fresh or set(refs) - set(vmap):
+            await self._load_volumes()
+        return fresh
 
     async def placement_epoch(self) -> int:
         """Read and adopt the controller's placement epoch: the one RPC
@@ -310,11 +377,20 @@ class LocalClient:
         return [Request.from_objects(key, OpaqueBlob.wrap(value))]
 
     def _put_volumes(self) -> list[StorageVolumeRef]:
-        """Every volume a put writes to: the primary and its replicas."""
-        vids = self._strategy.select_put_volume_ids(
+        """Every volume a put writes to: the primary and its replicas, as
+        the strategy picks them from all volumes, each quarantined or
+        diagnosed-dead one replaced by a healthy volume it did not pick.
+        With no healthy spare left the avoided volume stays (a degraded put
+        lands where it can and detaches the rest)."""
+        selected = list(self._strategy.select_put_volume_ids(
             self._strategy.get_client_id(), list(self._volume_refs)
-        )
-        return [self._volume_refs[vid] for vid in vids]
+        ))
+        avoid = self._avoid_volumes | self._dead_volumes
+        if avoid and any(vid in avoid for vid in selected):
+            spares = sorted(vid for vid in self._volume_refs
+                            if vid not in avoid and vid not in selected)
+            selected = [spares.pop(0) if vid in avoid and spares else vid for vid in selected]
+        return [self._volume_refs[vid] for vid in selected]
 
     async def put(self, key: str, value: Any) -> None:
         await self.put_batch({key: value})
@@ -348,6 +424,8 @@ class LocalClient:
 
     async def _put_batch(self, items: dict[str, Any], sp: span, watermark, unchanged) -> None:
         await self._ensure_setup()
+        if self._volumes_stale:
+            await self._refresh_health()
         requests = [r for k, v in items.items() for r in self._value_to_requests(k, v)]
         volumes = self._put_volumes()
         sp.set(nbytes=sum(r.nbytes for r in requests), replicas=len(volumes))
@@ -362,6 +440,17 @@ class LocalClient:
             while not landed and policy.should_retry(attempt, deadline):
                 await asyncio.sleep(policy.backoff(attempt))
                 attempt += 1
+                # Placement again: the diagnosis marked the failed replicas
+                # dead or the supervisor quarantined them meanwhile, so
+                # healthy spares stand in (the supersede notify detaches
+                # what the old replicas hold of these keys).
+                if self._volumes_stale:
+                    await self._refresh_health()
+                fresh = self._put_volumes()
+                if [v.volume_id for v in fresh] != [v.volume_id for v in volumes]:
+                    logger.warning("replicated put re-routed: %s -> %s",
+                                   [v.volume_id for v in volumes], [v.volume_id for v in fresh])
+                    volumes = fresh
                 landed, retry_failed = await self._land_all(volumes, requests)
                 if landed:
                     failed = retry_failed
@@ -374,6 +463,8 @@ class LocalClient:
             gens = await self._retry_put_demoted(volumes[0], requests, failed[0][1])
             if gens is not None:
                 landed, failed = [(volumes[0], gens)], []
+            elif isinstance(failed[0][1], RETRYABLE_ERRORS):
+                landed, failed = await self._fail_over_put(volumes[0], requests, failed)
         if not landed:
             raise failed[0][1]
         for volume, exc in failed:
@@ -388,8 +479,31 @@ class LocalClient:
             write_gens={v.volume_id: gens for v, gens in landed},
             watermark=watermark,
             unchanged=unchanged,
+            # A full overwrite: any other volume still indexed for these
+            # metas (an auto-repair copy, a placement before a failover)
+            # holds superseded bytes, detached and reclaimed in this step.
+            supersede=True,
         )
         self._observe_epoch(epoch)
+
+    async def _fail_over_put(self, volume: StorageVolumeRef, requests: list[Request],
+                             failed: list) -> tuple[list, list]:
+        """A single-volume put whose volume is gone: land on the next
+        healthy volume placement picks now (``_put_volumes`` leaves the
+        dead one out); ``(landed, failed)``."""
+        if self._volumes_stale:
+            await self._refresh_health()
+        (retry,) = self._put_volumes()
+        if retry.volume_id == volume.volume_id:
+            return [], failed
+        try:
+            gens = await self._land(retry, requests)
+        except RETRYABLE_ERRORS as exc:
+            logger.warning("put failover to %s failed too: %s", retry.volume_id, exc)
+            return [], failed
+        _FAILOVERS.inc(op="put")
+        logger.warning("put failed over from %s to %s", volume.volume_id, retry.volume_id)
+        return [(retry, gens)], []
 
     async def _land_all(self, volumes: list[StorageVolumeRef], requests: list[Request]):
         """Land on every volume at once; ``(landed, failed)`` lists of
@@ -413,19 +527,64 @@ class LocalClient:
         buffer = create_transport_buffer(volume, self._config, force=transport)
         try:
             await buffer.put_to_storage_volume(volume, requests)
-        except (ConnectionError, OSError) as exc:
-            # A dead volume surfaces as a broken socket: one family for the
-            # callers and the retries.
-            raise ActorDiedError(f"volume {volume.volume_id} unreachable: {exc!r}") from exc
+        except (ActorDiedError, ConnectionError, OSError) as exc:
+            # A dead volume surfaces as a broken socket on some rungs: one
+            # family, with the controller's verdict, for callers and retries.
+            await self._raise_with_diagnosis(volume.volume_id, exc)
         return buffer.write_gens or {}
 
-    async def _volume_alive(self, volume: StorageVolumeRef) -> bool:
-        """Whether the volume's process answers a ping: no transport reaches
-        a dead one, so its put is not retried."""
+    async def _raise_with_diagnosis(self, vid: str, exc: BaseException) -> None:
+        """A volume RPC failed: ask the controller to ping the fleet and
+        raise ``ActorDiedError`` (``ActorTimeoutError`` for a timeout) with
+        its verdict on ``vid``. Volumes it reports not ok are marked dead,
+        and this client's attachments to dead processes' segments are
+        dropped; a volume it reports ok under a ref other than ours was
+        replaced, so the volume map is reloaded for the retry. One fan-out
+        per DIAGNOSIS_WINDOW_S: a retry loop in a correlated outage reuses
+        the verdicts (a failure the last fan-out did not confirm stays
+        retryable)."""
+        cls = ActorTimeoutError if isinstance(exc, ActorTimeoutError) else ActorDiedError
+        loop = asyncio.get_running_loop()
+        now = loop.time()
+        if self._diag_at and now - self._diag_at < DIAGNOSIS_WINDOW_S:
+            cached = self._diag_statuses.get(vid)
+            if cached is not None and cached != "ok":
+                self._dead_volumes.add(vid)
+            self.last_diagnosis = cached
+            raise cls(f"storage volume {vid} RPC failed: {exc} [controller diagnosis (cached): "
+                      f"{cached or 'not in the last health check'}]") from exc
+        self._diag_at = now
+        self.diagnoses += 1
+        diagnosis = "controller unreachable"
         try:
-            return await asyncio.wait_for(volume.actor.ping(), timeout=5.0)
-        except Exception:  # noqa: BLE001 - any failure means not alive
+            statuses = await self._controller.check_volumes.with_timeout(
+                DIAGNOSIS_RPC_S).call_one(timeout=DIAGNOSIS_PING_S)
+        except Exception:  # noqa: BLE001 - the diagnosis is best effort
+            statuses = None
+        if statuses is not None:
+            diagnosis = statuses.get(vid, "unknown volume")
+            self._diag_statuses = statuses
+            self._dead_volumes = {v for v, status in statuses.items() if status != "ok"}
+            if any(status.startswith("dead") for status in statuses.values()):
+                self._ctx.get_cache(ShmClientCache).forget_dead()
+            if diagnosis == "ok" and await self._ref_replaced(vid):
+                diagnosis += " (ref was stale; volume map refreshed)"
+        self.last_diagnosis = diagnosis
+        raise cls(f"storage volume {vid} RPC failed: {exc} [controller diagnosis: "
+                  f"{diagnosis}]") from exc
+
+    async def _ref_replaced(self, vid: str) -> bool:
+        """Whether the controller now maps ``vid`` to another actor than the
+        one this client holds (``repair`` replaced it); if so, the volume
+        map was reloaded and the cached locations are dropped."""
+        try:
+            replaced = vid in await self._refresh_health()
+        except Exception:  # noqa: BLE001 - the retry will reload
             return False
+        if replaced:
+            self._loc_cache.clear()
+            self._refresh_epoch += 1
+        return replaced
 
     async def _retry_put_demoted(
         self, volume: StorageVolumeRef, requests: list[Request], first_exc: BaseException
@@ -434,25 +593,23 @@ class LocalClient:
         rung down the transport ladder per attempt. Returns the write
         generations, or None when the policy ran out or the volume is dead
         (the caller raises ``first_exc``)."""
-        if not isinstance(first_exc, RETRYABLE_ERRORS):
+        if not isinstance(first_exc, RETRYABLE_ERRORS) or volume.volume_id in self._dead_volumes:
             return None
         policy = self._config.retry
         deadline = policy.start()
         ladder = demotion_ladder(volume, self._config)
         attempt = 0
-        last = first_exc
         while policy.should_retry(attempt, deadline):
-            if not isinstance(last, FaultInjectedError) and not await self._volume_alive(volume):
-                return None
             await asyncio.sleep(policy.backoff(attempt))
             rung = ladder[min(attempt + 1, len(ladder) - 1)]
             try:
                 gens = await self._land(volume, requests, transport=rung)
             except RETRYABLE_ERRORS as exc:
                 attempt += 1
-                last = exc
                 logger.warning("put retry %d on %s over %s failed: %s",
                                attempt, volume.volume_id, rung.value, exc)
+                if volume.volume_id in self._dead_volumes:
+                    return None  # diagnosed dead: no rung reaches it
                 continue
             _PUT_RETRIES.inc(transport=rung.value)
             _FAILOVERS.inc(op="put")
@@ -483,9 +640,10 @@ class LocalClient:
         (``placement_epoch``), so cached locations are valid as they are.
 
         A transient fetch failure relocates and fetches again under
-        ``config.retry`` while every key keeps a replica not seen failing;
-        a key another client deleted or re-laid out meanwhile relocates
-        once."""
+        ``config.retry`` while every key keeps a replica not seen failing
+        in this get (a volume ``repair`` replaced counts as not seen: its
+        ref was reloaded); a key another client deleted or re-laid out
+        meanwhile relocates once."""
         with obs_context.ensure_root(), span("get_batch", keys=len(items)):
             return await self._get_batch(items, _epoch_checked)
 
@@ -520,7 +678,8 @@ class LocalClient:
             except RETRYABLE_ERRORS as exc:
                 for key in keys:
                     self._loc_cache.pop(key, None)
-                if not policy.should_retry(attempt, deadline):
+                alive = [v for v in self._volume_refs if v not in self._dead_volumes]
+                if not policy.should_retry(attempt, deadline) or (not alive and attempt > 0):
                     raise
                 _FETCH_RETRIES.inc()
                 logger.warning("fetch attempt %d failed (%r); failing over", attempt + 1, exc)
@@ -584,7 +743,10 @@ class LocalClient:
         """The (volume id, request) pairs that fetch ``want``: one for an
         object or a whole stored tensor, one per distinct intersection of
         the wanted region with the stored shards for a sharded key."""
-        ordered = sorted(infos)
+        # Healthy replicas first: diagnosed-dead and quarantined volumes stay
+        # as a last resort (holding the only copy, they surface the error).
+        ordered = sorted(infos, key=lambda v: (v in self._dead_volumes
+                                               or v in self._avoid_volumes, v))
         info = infos[ordered[0]]
         key = want.key
         if info.object_type == ObjectType.OBJECT:
@@ -655,12 +817,16 @@ class LocalClient:
                 with span("fetch_volume", volume=vid, transport=buffer.transport_name,
                           keys=len(requests), coords=coords or None):
                     return await buffer.get_from_storage_volume(volume, requests)
-            except ActorDiedError:
+            except (ActorDiedError, ConnectionError, OSError) as exc:
+                # Failed in this get: the retry reads the other replicas,
+                # unless the diagnosis found the ref stale and reloaded it.
                 dead.add(vid)
-                raise
-            except ConnectionError as exc:
-                dead.add(vid)
-                raise ActorDiedError(f"volume {vid} unreachable: {exc!r}") from exc
+                refreshed = self._refresh_epoch
+                try:
+                    await self._raise_with_diagnosis(vid, exc)
+                finally:
+                    if self._refresh_epoch != refreshed:
+                        dead.discard(vid)
 
         ordered = sorted(by_volume.items())
         results = await asyncio.gather(*(fetch_volume(v, reqs) for v, reqs in ordered))
@@ -703,12 +869,19 @@ class LocalClient:
         volumes that held them."""
         await self._ensure_setup()
         by_volume = await self._controller.notify_delete_batch.call_one(keys)
-        await asyncio.gather(
-            *(
-                self._volume_refs[vid].actor.delete_batch.call_one(vkeys)
-                for vid, vkeys in sorted(by_volume.items())
-            )
+        ordered = sorted(by_volume.items())
+        results = await asyncio.gather(
+            *(self._volume_refs[vid].actor.delete_batch.call_one(vkeys) for vid, vkeys in ordered),
+            return_exceptions=True,
         )
+        for (vid, vkeys), result in zip(ordered, results):
+            if isinstance(result, RETRYABLE_ERRORS):
+                # De-indexed already: a dead or stuck volume only strands
+                # bytes nobody can reach (they go with its process).
+                logger.warning("delete of %d key(s) on unreachable volume %s skipped (%s)",
+                               len(vkeys), vid, result)
+            elif isinstance(result, BaseException):
+                raise result
         for key in keys:
             self._ctx.delete_key(key)
             self._loc_cache.pop(key, None)
@@ -723,6 +896,30 @@ class LocalClient:
 
     async def keys(self, prefix: Optional[str] = None) -> list[str]:
         return await self._controller.keys.call_one(prefix)
+
+    # ------------------------------------------------------------------
+    # repair support
+    # ------------------------------------------------------------------
+
+    async def refresh_volumes(self) -> None:
+        """Reload the volume map (``repair`` swapped replacements in); drops
+        cached locations, dead marks, and attachments to segments of
+        processes that are gone."""
+        self._loc_cache.clear()
+        self._dead_volumes.clear()
+        self._diag_at = 0.0
+        self._refresh_epoch += 1
+        self._ctx.get_cache(ShmClientCache).forget_dead()
+        await self._load_volumes()
+
+    async def replicate_to(self, volume_id: str, requests: list[Request]) -> None:
+        """Land ``requests`` on the one volume ``volume_id`` and index them
+        there, beside the other copies (``repair``'s re-replication)."""
+        await self._ensure_setup()
+        gens = await self._land(self._volume_refs[volume_id], requests)
+        epoch = await self._controller.notify_put_batch.call_one(
+            [r.meta_only() for r in requests], volume_id, write_gens={volume_id: gens})
+        self._observe_epoch(epoch)
 
     async def exists(self, key: str) -> bool:
         """True once any part of ``key`` is indexed (also when partial)."""

@@ -56,6 +56,11 @@ ENV_TIER_LOW_PCT = ENV_PREFIX + "TIER_LOW_PCT"
 ENV_TIER_SWEEP_INTERVAL_S = ENV_PREFIX + "TIER_SWEEP_INTERVAL_S"
 ENV_LEASE_TTL_S = ENV_PREFIX + "LEASE_TTL_S"
 ENV_STORAGE_DIR = ENV_PREFIX + "STORAGE_DIR"
+ENV_VOLUME_ID = ENV_PREFIX + "VOLUME_ID"
+ENV_RECLAIM_DELAYS = ENV_PREFIX + "RECLAIM_DELAYS"
+ENV_HEALTH_INTERVAL_S = ENV_PREFIX + "HEALTH_INTERVAL_S"
+ENV_HEALTH_MISS_THRESHOLD = ENV_PREFIX + "HEALTH_MISS_THRESHOLD"
+ENV_AUTO_REPAIR = ENV_PREFIX + "AUTO_REPAIR"
 
 
 @dataclass(frozen=True)
@@ -160,6 +165,21 @@ ENV_REGISTRY: tuple[EnvVar, ...] = (
     EnvVar(ENV_ADVERTISE_HOST, "str", None,
            "Reachable address put in actor refs and bulk and direct-sync endpoints "
            "(default: the bind address, or the hostname when binding 0.0.0.0 or ::)."),
+    EnvVar(ENV_VOLUME_ID, "str", None,
+           "Force a spawned storage volume's id (repair's replacement of a dead volume)."),
+    # --- replication, reclaims and the health supervisor
+    EnvVar(ENV_RECLAIM_DELAYS, "str", None,
+           "Comma-separated backoff delays, seconds, of the controller's stale-copy reclaim "
+           "drainer (default 1,5,15,60; a malformed value falls back to it)."),
+    EnvVar(ENV_HEALTH_INTERVAL_S, "float", 2.0,
+           "Seconds between the controller's heartbeats to every volume (<= 0: no "
+           "supervisor, so no quarantine and no auto-repair)."),
+    EnvVar(ENV_HEALTH_MISS_THRESHOLD, "int", 3,
+           "Consecutive missed heartbeats that quarantine a volume; as many answered ones "
+           "reinstate it through probation."),
+    EnvVar(ENV_AUTO_REPAIR, "bool", True,
+           "A quarantine re-replicates every key the volume held that keeps a healthy copy "
+           "onto healthy volumes, volume to volume (off: until repair())."),
     # --- faults and retries
     EnvVar(ENV_PREFIX + "FAULTPOINTS", "str", None,
            "Fault points armed at start: name=action[:count=N][:prob=P][:delay_ms=D];..."),
@@ -268,6 +288,46 @@ class RetryPolicy:
         if self.delays is not None and attempt >= len(self.delays):
             return False
         return time.monotonic() < deadline
+
+
+DEFAULT_RECLAIM_DELAYS = (1.0, 5.0, 15.0, 60.0)
+
+
+def reclaim_policy() -> RetryPolicy:
+    """The reclaim drainer's schedule: ``TORCHSTORE_TORCH_RECLAIM_DELAYS``,
+    else 1, 5, 15, 60 s. The schedule is the attempt budget (no deadline:
+    a slow volume makes each attempt's RPC wait out its own timeout, which
+    is what the long tail is for). A malformed value falls back to the
+    default and never raises: a drainer that died on it would leave its
+    volume's reclaims wedged."""
+    raw = os.environ.get(ENV_RECLAIM_DELAYS)
+    if raw:
+        try:
+            return RetryPolicy.from_delays(raw.split(","), deadline_s=float("inf"))
+        except ValueError:
+            pass
+    return RetryPolicy.from_delays(DEFAULT_RECLAIM_DELAYS, deadline_s=float("inf"))
+
+
+def _lenient(read, name: str, default):
+    try:
+        return read(name, default)
+    except ValueError:
+        return default
+
+
+def health_interval_s() -> float:
+    """Seconds between the supervisor's heartbeats (<= 0: no supervisor)."""
+    return _lenient(_env_float, ENV_HEALTH_INTERVAL_S, 2.0)
+
+
+def health_miss_threshold() -> int:
+    """Consecutive misses that quarantine a volume (at least 1)."""
+    return max(1, _lenient(_env_int, ENV_HEALTH_MISS_THRESHOLD, 3))
+
+
+def auto_repair_enabled() -> bool:
+    return _env_bool(ENV_AUTO_REPAIR, True)
 
 
 def bind_host() -> str:

@@ -21,10 +21,22 @@ version with its tier split and leases; ``tier_sweep`` (and a background
 sweeper every ``TORCHSTORE_TORCH_TIER_SWEEP_INTERVAL_S``) runs each
 volume's spill pass with the pinned groups and folds the reported spills
 and fault-ins into the index; ``rebuild_index`` recovers the index from the
-volumes' manifests after a restart of a durable store. The relay,
-control, autoscale and mirror engines of the reference are not part of
-this port yet. The controller never sees tensor bytes: only
-``Request.meta_only()`` copies.
+volumes' manifests after a restart of a durable store.
+
+Replication and healing: a full overwrite (``notify_put_batch(supersede=
+True)``) detaches every other copy of what it wrote, and the index
+reclaims detached copies in the background, conditional on their write
+generation. ``check_volumes`` diagnoses every volume (``ok``, ``wedged:
+...``, ``dead: ...`` or ``quarantined: ...``); the health supervisor pings
+every volume each ``TORCHSTORE_TORCH_HEALTH_INTERVAL_S`` and runs the ok ->
+quarantined -> probation -> ok state machine (one placement-epoch bump per
+sweep that moved any volume, a flight-recorder dump per quarantine), and a
+quarantine starts an auto-repair pass that copies the volume's keys onto
+healthy volumes (``TORCHSTORE_TORCH_AUTO_REPAIR``). ``volume_health``
+reads the supervisor's view; ``replace_volume`` swaps a repair's fresh
+volume in for a dead one. The relay, control, autoscale and mirror engines
+of the reference are not part of this port yet. The controller never sees
+tensor bytes: only ``Request.meta_only()`` copies.
 """
 
 from __future__ import annotations
@@ -34,7 +46,13 @@ import time
 from typing import Any, Optional
 
 from torchstore_tpu_torch import faults, tiering
-from torchstore_tpu_torch.config import ENV_TIER_SWEEP_INTERVAL_S, _env_float
+from torchstore_tpu_torch.config import (
+    ENV_TIER_SWEEP_INTERVAL_S,
+    _env_float,
+    auto_repair_enabled,
+    health_interval_s,
+    health_miss_threshold,
+)
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.observability import recorder as obs_recorder
@@ -50,6 +68,19 @@ _LEASE_BLOCKED_DELETES = obs_metrics.counter(
     "ts_lease_blocked_deletes_total",
     "Delete requests refused because a cohort lease pins the version",
 )
+_VOLUME_HEALTH = obs_metrics.gauge(
+    "ts_volume_health",
+    "Supervisor view of each volume: 1 healthy, 0.5 probation, 0 quarantined",
+)
+_QUARANTINES = obs_metrics.counter(
+    "ts_quarantines_total",
+    "Volumes moved to quarantine by the health supervisor",
+)
+# Seconds the supervisor waits for a volume's ping, at most: one interval,
+# clamped to [0.5, 5].
+PING_TIMEOUT_BOUNDS = (0.5, 5.0)
+# Seconds a quarantine's post-mortem waits for each volume's ring.
+FLIGHT_FETCH_S = 2.0
 
 
 class Controller(Actor):
@@ -62,7 +93,7 @@ class Controller(Actor):
         self.strategy = None
         self.volume_refs: dict[str, ActorRef] = {}
         self.volume_hostnames: dict[str, str] = {}
-        self.core = IndexCore()
+        self.core = IndexCore(self)
         # Bumped on every structural placement change: one cheap RPC lets a
         # consumer validate a whole cached transfer plan.
         self._placement_epoch = 0
@@ -78,11 +109,46 @@ class Controller(Actor):
         self._tier_interval = _env_float(ENV_TIER_SWEEP_INTERVAL_S, 2.0)
         self._tier_task: Optional[asyncio.Task] = None
         self._tasks: set = set()
+        # The health supervisor: per volume {"state": ok | probation |
+        # quarantined, "misses", "oks"}; one heartbeat task, started by
+        # init and cancelled at teardown.
+        self._vol_health: dict[str, dict] = {}
+        self._health_interval = health_interval_s()
+        self._miss_threshold = health_miss_threshold()
+        self._auto_repair = auto_repair_enabled()
+        self._health_task: Optional[asyncio.Task] = None
+        self._health_tasks: set = set()
+        # Volumes with an auto-repair pass in flight (a flapping volume must
+        # not stack passes), and the report of each volume's last pass.
+        self._repairing: set[str] = set()
+        self._repair_reports: dict[str, dict] = {}
         obs_recorder.recorder().arm_exit_dump()
 
     def _bump_epoch(self) -> int:
         self._placement_epoch += 1
         return self._placement_epoch
+
+    # ---- what the index core reads of its host -----------------------------
+
+    def quarantined_ids(self) -> set:
+        return {vid for vid, h in self._vol_health.items() if h["state"] == "quarantined"}
+
+    async def on_structural(self) -> int:
+        return self._bump_epoch()
+
+    # The reclaim state lives in the core; these views keep it reachable
+    # from a controller built directly (tests).
+    @property
+    def _pending_reclaims(self) -> dict:
+        return self.core._pending_reclaims
+
+    @property
+    def _reclaim_tasks(self) -> set:
+        return self.core._reclaim_tasks
+
+    @property
+    def _reclaim_running(self) -> set:
+        return self.core._reclaim_running
 
     @endpoint
     async def init(self, strategy, volume_refs: list[ActorRef]) -> dict[str, Any]:
@@ -98,7 +164,12 @@ class Controller(Actor):
                 raise ValueError(f"duplicate volume id {vid!r}; check strategy env wiring")
             self.volume_refs[vid] = ref
             self.volume_hostnames[vid] = info["hostname"]
+        self._vol_health = {vid: {"state": "ok", "misses": 0, "oks": 0}
+                            for vid in self.volume_refs}
+        for vid in self.volume_refs:
+            _VOLUME_HEALTH.set(1, volume=vid)
         self._start_tier_sweeper()
+        self._start_supervisor()
         return {"volume_ids": sorted(self.volume_refs), "hostnames": self.volume_hostnames}
 
     @endpoint
@@ -108,7 +179,8 @@ class Controller(Actor):
     @endpoint
     async def get_volume_map(self) -> dict[str, dict]:
         return {
-            vid: {"ref": ref, "hostname": self.volume_hostnames[vid]}
+            vid: {"ref": ref, "hostname": self.volume_hostnames[vid],
+                  "health": self._vol_health.get(vid, {}).get("state", "ok")}
             for vid, ref in self.volume_refs.items()
         }
 
@@ -136,11 +208,17 @@ class Controller(Actor):
         write_gens: Optional[dict[str, dict[str, int]]] = None,
         watermark: Optional[tuple] = None,
         unchanged: Optional[dict] = None,
+        supersede: bool = False,
     ) -> int:
         """Index ``metas`` as stored on ``volume_id`` (one id or a list),
         with each volume's write generations, and detach them from
         ``detach_volume_ids`` (replicas whose landing failed); returns the
-        placement epoch.
+        placement epoch. ``supersede``: the put landed on every replica the
+        strategy chose, a full overwrite, so every other volume indexed for
+        these metas holds superseded bytes and is detached in the same step
+        (a partial writer, such as ``replicate_to``, leaves it off). Every
+        detached copy is reclaimed in the background, conditional on its
+        write generation.
 
         ``watermark``: ``(stream_key, version)`` of a layer-streamed
         publish. Every meta's key is watermarked at ``version`` in the same
@@ -162,7 +240,8 @@ class Controller(Actor):
         async with self.core.cond():
             if unchanged:
                 self._check_unchanged(unchanged)  # before anything is indexed
-            if self.core.apply_put_batch(metas, volume_ids, detach_volume_ids, write_gens):
+            if self.core.apply_put_batch(metas, volume_ids, detach_volume_ids, write_gens,
+                                         supersede=supersede):
                 self._bump_epoch()
             if watermark is None:
                 self.core.bump_locked(keys)
@@ -584,11 +663,16 @@ class Controller(Actor):
 
     @endpoint
     async def stats(self, include_volumes: bool = False) -> dict:
-        """The index summary (op counters, keys, indexed bytes), the volume
-        count and the live leases; with ``include_volumes`` each volume's
+        """The index summary (op counters, keys, indexed bytes, pending
+        reclaims per volume), the volume count, the live leases, the
+        supervisor's view and each volume's last auto-repair (keys, bytes,
+        seconds in its pulls, the rungs they took, its start, the moment of
+        the quarantine, as a wall-clock time, and its wall seconds); with ``include_volumes`` each volume's
         ``stats`` too (an ``error`` string for one that does not answer)."""
         out = {**self.core.summary(), "num_volumes": len(self.volume_refs),
                "active_leases": len(self._leases),
+               "volume_health": {vid: dict(h) for vid, h in self._vol_health.items()},
+               "auto_repairs": {vid: dict(r) for vid, r in self._repair_reports.items()},
                "metrics": obs_metrics.metrics_snapshot()}
         if include_volumes:
 
@@ -601,6 +685,184 @@ class Controller(Actor):
             results = await asyncio.gather(*(one(v, r) for v, r in self.volume_refs.items()))
             out["volumes"] = dict(results)
         return out
+
+    # ---- health: diagnosis, the supervisor, auto-repair, replacement -------
+
+    @endpoint
+    async def check_volumes(self, timeout: float = 5.0) -> dict[str, str]:
+        """Ping every volume: volume id -> ``ok``, ``wedged: ...`` (alive
+        but no answer within ``timeout``: stopped, deadlocked or
+        overloaded; may recover), ``dead: ...`` (unreachable) or
+        ``quarantined: ...`` (answers, but the supervisor has not
+        reinstated it yet: clients keep avoiding it meanwhile)."""
+
+        async def ping(vid: str, ref: ActorRef) -> tuple[str, str]:
+            try:
+                await asyncio.wait_for(ref.ping(), timeout=timeout)
+            except asyncio.TimeoutError:
+                return vid, (f"wedged: no ping response within {timeout:.0f}s (process alive "
+                             "but stuck: stopped, deadlocked or overloaded; may recover)")
+            except Exception as exc:  # noqa: BLE001 - reported, not raised
+                return vid, f"dead: {type(exc).__name__}"
+            if self._vol_health.get(vid, {}).get("state") == "quarantined":
+                return vid, "quarantined: skipped by placement until reinstated"
+            return vid, "ok"
+
+        return dict(await asyncio.gather(*(ping(v, r) for v, r in self.volume_refs.items())))
+
+    def _start_supervisor(self) -> None:
+        """(Re)start the heartbeat loop; idempotent across inits; off when
+        the interval is <= 0."""
+        if self._health_task is not None:
+            self._health_task.cancel()
+            self._health_task = None
+        if self._health_interval > 0:
+            self._health_task = spawn_logged(self._health_loop(), name="controller.health",
+                                             tasks=self._health_tasks, log=logger)
+
+    async def _health_loop(self) -> None:
+        while True:
+            await asyncio.sleep(self._health_interval)
+            await self._health_sweep()
+
+    async def _health_sweep(self) -> None:
+        """One heartbeat round. Per volume: ok (or probation) ->
+        quarantined after ``_miss_threshold`` consecutive misses;
+        quarantined -> probation on the first answered ping -> ok after
+        ``_miss_threshold`` consecutive answers. One placement-epoch bump
+        per sweep that moved any volume (clients drop their plans and
+        locations and re-read the health map); a quarantine dumps the
+        flight recorder and starts auto-repair."""
+        lo, hi = PING_TIMEOUT_BOUNDS
+        timeout = min(max(self._health_interval, lo), hi)
+
+        async def ping(vid: str, ref: ActorRef) -> tuple[str, bool]:
+            try:
+                await asyncio.wait_for(ref.ping(), timeout=timeout)
+                return vid, True
+            except Exception:  # noqa: BLE001 - any failure is a miss
+                return vid, False
+
+        results = await asyncio.gather(*(ping(v, r) for v, r in self.volume_refs.items()))
+        changed = False
+        for vid, ok in results:
+            h = self._vol_health.setdefault(vid, {"state": "ok", "misses": 0, "oks": 0})
+            state = h["state"]
+            if ok:
+                h["misses"] = 0
+                if state == "quarantined":
+                    h["state"], h["oks"] = "probation", 1
+                    _VOLUME_HEALTH.set(0.5, volume=vid)
+                    changed = True
+                    obs_recorder.record("health", f"probation/{vid}")
+                    logger.warning("volume %s answered pings again: probation (1/%d stable "
+                                   "rounds to reinstate)", vid, self._miss_threshold)
+                elif state == "probation":
+                    h["oks"] += 1
+                    if h["oks"] >= self._miss_threshold:
+                        h["state"] = "ok"
+                        _VOLUME_HEALTH.set(1, volume=vid)
+                        changed = True
+                        obs_recorder.record("health", f"reinstated/{vid}")
+                        logger.warning("volume %s reinstated after %d stable rounds",
+                                       vid, h["oks"])
+                continue
+            h["oks"] = 0
+            h["misses"] += 1
+            if state == "quarantined" or h["misses"] < self._miss_threshold:
+                continue
+            h["state"] = "quarantined"
+            _VOLUME_HEALTH.set(0, volume=vid)
+            _QUARANTINES.inc(volume=vid)
+            changed = True
+            obs_recorder.record("health", f"quarantine/{vid}", misses=h["misses"])
+            logger.warning("volume %s QUARANTINED after %d missed heartbeats; placement skips "
+                           "it%s", vid, h["misses"],
+                           "; auto-repair starting" if self._auto_repair else "")
+            # The merged post-mortem of the moment a volume went dark, off
+            # the sweep's path. The reference also abandons the volume's
+            # drain here (A12's autoscale engine) and re-parents relay trees
+            # around it (A11.1); neither is ported.
+            spawn_logged(self._dump_flight(f"quarantine:{vid}"), name="controller.flight_dump",
+                         tasks=self._health_tasks, log=logger)
+            if self._auto_repair:
+                self._start_auto_repair(vid)
+        if changed:
+            # The reference also pushes the quarantine set to its index
+            # shards here (A10); this index lives in the controller.
+            self._bump_epoch()
+
+    async def _dump_flight(self, trigger: str) -> Optional[str]:
+        """A merged post-mortem: this controller's ring and that of every
+        volume that answers within FLIGHT_FETCH_S (the one the trigger is
+        about usually does not). Never fails the fleet."""
+
+        async def one(vid: str, ref: ActorRef) -> list:
+            try:
+                events = await asyncio.wait_for(ref.flight_record.call_one(),
+                                                timeout=FLIGHT_FETCH_S)
+            except Exception:  # noqa: BLE001 - unreachable: its ring is lost
+                return []
+            for event in events:
+                event.setdefault("process", f"volume:{vid}")
+            return events
+
+        gathered = await asyncio.gather(*(one(v, r) for v, r in self.volume_refs.items()))
+        return obs_recorder.dump_postmortem(trigger, [e for es in gathered for e in es])
+
+    def _start_auto_repair(self, volume_id: str) -> None:
+        if volume_id in self._repairing:
+            return
+        self._repairing.add(volume_id)
+        obs_recorder.record("health", f"auto_repair/{volume_id}")
+        spawn_logged(self._auto_repair_volume(volume_id), name="controller.auto_repair",
+                     tasks=self._health_tasks, log=logger)
+
+    async def _auto_repair_volume(self, volume_id: str) -> None:
+        """Copy every key the quarantined volume held that keeps a healthy
+        copy onto healthy volumes (``IndexCore.auto_repair_pass``)."""
+        try:
+            healthy = [vid for vid, h in self._vol_health.items()
+                       if h["state"] == "ok" and vid in self.volume_refs]
+            started, t0 = time.time(), time.monotonic()
+            report = await self.core.auto_repair_pass(volume_id, healthy)
+            report.update(started_at=started, wall_s=time.monotonic() - t0)
+            self._repair_reports[volume_id] = report
+            obs_recorder.record("health", f"auto_repaired/{volume_id}", keys=report["keys"],
+                                nbytes=report["bytes"])
+            if report["keys"]:
+                logger.warning("auto-repair of quarantined volume %s: re-replicated %d key(s) "
+                               "(%d bytes) onto healthy volumes", volume_id, report["keys"],
+                               report["bytes"])
+        finally:
+            self._repairing.discard(volume_id)
+
+    @endpoint
+    async def volume_health(self) -> dict[str, dict]:
+        """The supervisor's view: {volume_id: {"state": ok | probation |
+        quarantined, "misses", "oks"}}."""
+        return {vid: dict(h) for vid, h in self._vol_health.items()}
+
+    @endpoint
+    async def replace_volume(self, volume_id: str, new_ref: ActorRef,
+                             hostname: str) -> dict[str, Any]:
+        """Swap a fresh volume in for the dead ``volume_id`` (repair). Its
+        index entries are detached (the replacement starts empty); returns
+        what it held: ``recoverable`` {key: [TensorSlice, ...] or None (a
+        whole value)} that another volume still serves, and ``lost``, the
+        keys with no copy left (now out of the index, so reads fail loudly
+        as missing). The reference also swaps the ref into its index shards
+        (A10)."""
+        if volume_id not in self.volume_refs:
+            raise ValueError(f"unknown volume {volume_id!r}")
+        self.volume_refs[volume_id] = new_ref
+        self.volume_hostnames[volume_id] = hostname
+        result = await self.core.detach_volume(volume_id)
+        # A fresh process: the supervisor judges it from scratch.
+        self._vol_health[volume_id] = {"state": "ok", "misses": 0, "oks": 0}
+        _VOLUME_HEALTH.set(1, volume=volume_id)
+        self._bump_epoch()
+        return result
 
     # ---- fault injection --------------------------------------------------
 
@@ -630,6 +892,11 @@ class Controller(Actor):
         if self._tier_task is not None:
             self._tier_task.cancel()
             self._tier_task = None
+        for task in list(self._health_tasks):
+            task.cancel()
+        self._health_task = None
+        self._health_tasks.clear()
+        self._repairing.clear()
         self._leases.clear()
         results = await asyncio.gather(
             *(ref.reset.call_one() for ref in self.volume_refs.values()),

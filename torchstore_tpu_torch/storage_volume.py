@@ -26,8 +26,19 @@ anything is served, into pooled segments as a put lands. A demotion drops
 the memory copy as a same-layout re-put does: a segment leased to a reader
 retires (readers attach after the serve), never unlinked under it.
 Resident bytes count each entry's tensor bytes once, in a segment or a
-plain tensor; pooled spares are not entries. The one-sided planes and the
-health and repair endpoints are later work.
+plain tensor; pooled spares are not entries.
+
+Replication and repair: ``delete_batch_if`` is the controller's
+conditional reclaim of a detached copy (deleted only while its write
+generation is not newer than the stale one), ``write_gens`` the first phase
+of a reclaim whose generation the controller never learned, and
+``pull_from`` a copy from another volume with no client involved (the data
+plane of auto-repair): over the bulk rung when it is on, else RPC frames,
+landed in pooled segments. ``TORCHSTORE_TORCH_VOLUME_ID`` forces the id (a
+repair's replacement takes the dead volume's). ``flight_record`` hands the
+controller this process's recorder ring for a quarantine's post-mortem.
+The one-sided planes (A10), relay hops (A11.1) and the traffic ledger's
+peer cells (A12) are later work.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from typing import Any, Optional
 import torch
 
 from torchstore_tpu_torch import faults, native
-from torchstore_tpu_torch.config import ENV_STORAGE_DIR
+from torchstore_tpu_torch.config import ENV_STORAGE_DIR, ENV_VOLUME_ID, default_config
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.observability import recorder as obs_recorder
@@ -67,7 +78,8 @@ class ShardedEntry(dict):
 
 class StorageVolume(Actor):
     def __init__(self, strategy, storage_dir: Optional[str] = None) -> None:
-        self.volume_id = str(strategy.get_volume_id())
+        # A repair's replacement adopts the dead volume's id.
+        self.volume_id = os.environ.get(ENV_VOLUME_ID) or str(strategy.get_volume_id())
         self.store: dict[str, Any] = {}
         self.ctx = TransportContext()
         self._write_gens: dict[str, int] = {}
@@ -269,6 +281,142 @@ class StorageVolume(Actor):
             self.ctx.delete_key(key)
         self._publish_residency()
         return deleted
+
+    @endpoint
+    async def delete_batch_if(self, items: list[tuple[str, int]]) -> dict[str, Any]:
+        """The controller's reclaim of detached copies: each ``(key,
+        stale_gen)`` is deleted only while the key's write generation is not
+        newer than ``stale_gen`` (a put that landed after the detach keeps
+        its bytes: ``kept_fresh``, with its generation in ``kept_gens`` so
+        the controller can check again). No await between the check and the
+        delete, so no put slips in between. A key with no recorded
+        generation is deleted: its bytes predate this process's puts. A
+        segment a reader holds a lease on retires under it. Returns
+        ``{"removed", "kept_fresh", "kept_gens"}``."""
+        removed: list[str] = []
+        kept_fresh: list[str] = []
+        kept_gens: dict[str, int] = {}
+        cache = self.ctx.peek(shared_memory.ShmServerCache)
+        for key, stale_gen in items:
+            current = self._write_gens.get(key)
+            if current is not None and current > stale_gen:
+                kept_fresh.append(key)
+                kept_gens[key] = current
+                continue
+            entry = self.store.pop(key, None)
+            spilled = self._tier is not None and self._tier.discard(key)
+            if entry is not None or spilled:
+                removed.append(key)
+            self._resident_bytes -= entry_nbytes(entry)
+            if self._durable is not None:
+                self._durable.delete(key)
+            self._write_gens.pop(key, None)
+            if cache is not None:
+                cache.retire_key(key)
+            self.ctx.delete_key(key)
+        self._publish_residency()
+        return {"removed": removed, "kept_fresh": kept_fresh, "kept_gens": kept_gens}
+
+    @endpoint
+    async def pull_from(self, src, metas: list[Request], src_hostname: str = "",
+                        src_volume: str = "", relay: bool = False) -> dict[str, Any]:
+        """Copy ``metas`` from the volume at ActorRef ``src`` into this one,
+        with no client involved (auto-repair's data plane). Over the bulk
+        rung when it is on (striped above its threshold), else RPC frames;
+        never shared memory (this process serves that rung). Tensors land in
+        segments of this volume's pool (new ones, made on the landing pool's
+        threads, when none fits), received into them in place, and become
+        entries as a put's would: a segment a reader leases retires under
+        the lease. Returns ``{"write_gens": fresh generations, "rung",
+        "bytes", "seconds", "alloc_s"}`` (``alloc_s``: the part spent
+        taking and making segments, before any byte moved). ``relay=True`` (a broadcast relay hop) is
+        ROADMAP A11.1 and raises."""
+        if relay:
+            raise NotImplementedError(
+                "pull_from(relay=True) is a broadcast relay hop: the relay is not ported "
+                "yet (ROADMAP A11.1)"
+            )
+        from torchstore_tpu_torch.strategy import StorageVolumeRef
+        from torchstore_tpu_torch.transport.factory import (
+            TransportType,
+            bulk_available,
+            create_transport_buffer,
+        )
+
+        t0 = time.perf_counter()
+        if self._tier is not None:
+            # As in put: a sharded pull lands shard by shard, so a spilled
+            # entry comes back first and keeps its other shards.
+            await self._tier_fault_in([m for m in metas if m.tensor_slice is not None], "pull")
+        config = default_config()
+        src_ref = StorageVolumeRef(actor=src, volume_id=src_volume, transport_context=self.ctx,
+                                   hostname=src_hostname)
+        rung = TransportType.BULK if bulk_available(src_ref, config) else TransportType.RPC
+        requests = [meta.meta_only() for meta in metas]
+        cache = (self.ctx.get_cache(shared_memory.ShmServerCache)
+                 if shared_memory.is_available() else None)
+        segs: dict[int, tuple] = {}
+        cold: list[tuple[int, TensorMeta]] = []
+        for idx, req in enumerate(requests):
+            if req.is_object or req.tensor_meta is None:
+                continue
+            shape = (req.tensor_slice.local_shape if req.tensor_slice is not None
+                     else req.tensor_meta.shape)
+            tmeta = TensorMeta(shape=tuple(shape), dtype=req.tensor_meta.dtype)
+            dest = Request(key=req.key, tensor_slice=req.tensor_slice, tensor_meta=tmeta)
+            requests[idx] = dest
+            if cache is None or not tmeta.nbytes:
+                dest.destination_view = torch.empty(tmeta.shape, dtype=tmeta.torch_dtype)
+                continue
+            seg = cache.take_free(tmeta.nbytes)
+            if seg is None:
+                cold.append((idx, tmeta))
+                continue
+            cache.note_reuse(seg)
+            segs[idx] = (seg, tmeta)
+        made = await asyncio.gather(*(landing.run_in_pool(shared_memory.ShmSegment.create,
+                                                          tmeta.nbytes, config=config)
+                                      for _, tmeta in cold))
+        for (idx, tmeta), seg in zip(cold, made):
+            cache.counts["created"] += 1
+            segs[idx] = (seg, tmeta)
+        for idx, (seg, tmeta) in segs.items():
+            requests[idx].destination_view = seg.view(tmeta)
+        alloc_s = time.perf_counter() - t0
+        buffer = create_transport_buffer(src_ref, config, force=rung)
+        try:
+            results = await buffer.get_from_storage_volume(src_ref, requests)
+        except BaseException:
+            for seg, _ in segs.values():
+                seg.unlink()
+            raise
+        for meta in metas:
+            self._supersede(meta)
+        values = dict(enumerate(results))
+        for idx, (seg, tmeta) in segs.items():
+            meta = metas[idx]
+            coords = meta.tensor_slice.coordinates if meta.tensor_slice is not None else None
+            cache.put(meta.key, coords, seg, tmeta, 0, values[idx])
+        self._store_values(metas, values)
+        keys = {meta.key for meta in metas}
+        if self._durable is not None:
+            self._durable.store(metas, values)
+        if self._tier is not None:
+            for key in keys:
+                self._tier.discard(key)
+            self._tier.touch(keys)
+        self._publish_residency()
+        nbytes = sum(t.numel() * t.element_size() for t in results if isinstance(t, torch.Tensor))
+        obs_recorder.record("volume_op", "pull_from", keys=len(keys), nbytes=nbytes,
+                            src=src_volume, rung=rung.value)
+        return {"write_gens": self._bump_write_gens(metas), "rung": rung.value,
+                "bytes": nbytes, "seconds": time.perf_counter() - t0, "alloc_s": alloc_s}
+
+    @endpoint
+    async def flight_record(self) -> list:
+        """This process's flight-recorder ring, oldest first (the controller
+        merges it into a quarantine's post-mortem)."""
+        return obs_recorder.snapshot()
 
     # ---- the spill tier ------------------------------------------------------
 

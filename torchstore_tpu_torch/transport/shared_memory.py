@@ -111,6 +111,17 @@ def _pid_alive(pid: int) -> bool:
         return True
 
 
+def owner_pid(name: str) -> Optional[int]:
+    """The pid a ``tst_shm_*`` segment name carries (its creator, or the
+    volume that adopted it), or None for another name."""
+    if not name.startswith(PREFIX):
+        return None
+    try:
+        return int(name[len(PREFIX) :].split("_")[0])
+    except ValueError:
+        return None
+
+
 def reap_orphaned_segments() -> int:
     """Unlink ``tst_shm_*`` segments whose creating process is gone."""
     reaped = 0
@@ -119,11 +130,8 @@ def reap_orphaned_segments() -> int:
     except OSError:
         return 0
     for name in names:
-        if not name.startswith(PREFIX):
-            continue
-        try:
-            pid = int(name[len(PREFIX) :].split("_")[0])
-        except ValueError:
+        pid = owner_pid(name)
+        if pid is None:
             continue
         if not _pid_alive(pid):
             try:
@@ -702,6 +710,17 @@ class ShmClientCache(TransportCache):
         for name, seg in list(self.segments.items()):
             if not seg.busy and not os.path.exists(ShmSegment.path(name)):
                 self._drop(name)
+
+    def forget_dead(self) -> int:
+        """Drop the attachments of segments whose owning process is gone (a
+        killed volume's): no read may go through them again, and their
+        mappings would keep the pages after the reaper unlinks them.
+        Returns how many went."""
+        gone = [name for name in self.segments
+                if (pid := owner_pid(name)) is not None and not _pid_alive(pid)]
+        for name in gone:
+            self._drop(name)
+        return len(gone)
 
     def _drop(self, name: str) -> None:
         self._pre_attached.pop(name, None)
