@@ -185,7 +185,9 @@ depth:
                   regenerated source at its version, K1 launches per
                   publish and put = the planner's chunks with no cast
                   outside the kernel, no segment, process, tier or
-                  storage file left;
+                  storage file left, and ts_quarantines_total 0 in every
+                  store (the supervisor at its defaults: the spill and
+                  durable writes run off the volume's event loop);
 16. healing     - replication, repair and the health supervisor at full
                   Llama-3-8B width and depth (291 tensors, fp32 on the
                   card, bf16 on the wire, bf16 targets on the card), at
@@ -207,9 +209,20 @@ depth:
                   replaces nothing, and after SIGCONT a get; (g) at 2
                   layers, replication 1: the killed volume's keys raise
                   ActorDiedError carrying the controller's diagnosis
-                  (dead), and repair() reports them lost. Gates: every
-                  target bit-equal to the bf16 cast of its source, no cast
-                  outside K1, no process and no segment left;
+                  (dead), and repair() reports them lost; (h) at 4 layers,
+                  a fresh store of 3 volumes at replication 2 and a
+                  trainer that re-puts from the card every 2.5 s with a
+                  new fill each round, from before a SIGKILL of volume 0
+                  until auto-repair reports done, its pull held open by an
+                  8 s volume.get delay on the surviving source: no error
+                  reaches the trainer, one quarantine, the pull ran, and
+                  once the loop stopped and the healthy volumes' reclaims
+                  drained every healthy copy of every key, read through a
+                  reader pinned to its volume, is bit-equal to the last
+                  put (skipped_moved, the pull's seconds and the re-puts
+                  made during it printed). Gates: every target bit-equal
+                  to the bf16 cast of its source, no cast outside K1, no
+                  process and no segment left;
 17. runtime     - the runtime's foundations, in four legs: (a) start-up:
                   initialize + shutdown twice under the forkserver (the
                   default) and twice under TORCHSTORE_TORCH_MP_CONTEXT=spawn,
@@ -714,6 +727,45 @@ def _publish_row(torch, staging, gen, dev) -> dict:
     }
 
 
+def _stop_children(grace_s: float = 5.0) -> list:
+    """Stop what the run started and left running: the forkserver helper
+    the store's actors start from, which would leave only after this
+    process exits, and any other child of this process still alive but
+    the resource tracker, which the interpreter stops at its exit. Returns
+    the pids it stopped."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = getattr(resource_tracker._resource_tracker, "_pid", None)
+    me, left = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except OSError:
+            continue
+        if int(ppid) == me and int(name) != tracker:
+            left.append(int(name))
+            if state != "Z":
+                os.kill(int(name), signal.SIGTERM)
+    deadline = time.monotonic() + grace_s
+    for pid in left:
+        while True:
+            try:
+                done, _ = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                break  # not ours to reap, or reaped already
+            if done or time.monotonic() > deadline:
+                if not done:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                break
+            time.sleep(0.05)
+    return left
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -791,6 +843,7 @@ def main() -> int:
         if res.get("ok") is False:
             print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
             return 1
+    emit({"children_stopped": _stop_children()})
     emit(
         {
             "ok": True,
@@ -4458,6 +4511,12 @@ async def _volume_stats(client) -> dict:
             "controller_metrics": stats["metrics"], "resident_bytes": vol["resident_bytes"]}
 
 
+async def _quarantines(client) -> float:
+    """Volumes the store's supervisor has quarantined so far."""
+    stats = await client.controller.stats.call_one()
+    return _series_total(stats["metrics"], "ts_quarantines_total")
+
+
 async def _stop_keeping_files(tst, store_name: str) -> None:
     """A restart's first half: the store's processes stop (each volume
     releases its segments), without the teardown that would reset the
@@ -4662,6 +4721,7 @@ async def _tiering_path(torch, staging, layers: int, dev, tier_dir: str, storage
                      and leg["cast_fallbacks"] == 0 and (not cuda or leg["launches"] == chunks))
         legs["e_release"] = leg
         emit({"tiering_leg": "e_release", **leg})
+        quarantines = {"tier_store": await _quarantines(tst.client(TIER_STORE))}
     finally:
         await tst.shutdown(TIER_STORE)
     out["tier_files_left"] = [os.path.join(d, f) for d, _, fs in os.walk(tier_dir) for f in fs]
@@ -4679,6 +4739,7 @@ async def _tiering_path(torch, staging, layers: int, dev, tier_dir: str, storage
         put_launches = staging.cast_kernel.launches - launched
         put_fallbacks = staging.cast_kernel.fallbacks - fell
         files = sum(len(fs) for _, _, fs in os.walk(storage_dir))
+        quarantines["durable_put"] = await _quarantines(tst.client(TIER_DURABLE_STORE))
         await _stop_keeping_files(tst, TIER_DURABLE_STORE)
         t0 = time.perf_counter()
         await tst.initialize(store_name=TIER_DURABLE_STORE, storage_dir=storage_dir,
@@ -4695,6 +4756,7 @@ async def _tiering_path(torch, staging, layers: int, dev, tier_dir: str, storage
         sync()
         get_s = time.perf_counter() - t0
         bad = _tier_mismatches(torch, targets, shapes, TIER_VERSIONS, dev)
+        quarantines["recovered"] = await _quarantines(dclient)
     finally:
         if TIER_DURABLE_STORE in tst.api._stores:
             await tst.shutdown(TIER_DURABLE_STORE)
@@ -4717,10 +4779,14 @@ async def _tiering_path(torch, staging, layers: int, dev, tier_dir: str, storage
     out.update({"legs": {k: v["ok"] for k, v in legs.items()},
                 "launches": staging.cast_kernel.launches,
                 "cast_fallbacks": staging.cast_kernel.fallbacks,
+                "ts_quarantines_total": quarantines,
                 "processes_left": alive, "segments_left": leaked[:5],
                 "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if cuda else 0})
+    # The supervisor runs at its defaults: a busy volume writing to disk
+    # must go on answering its pings (the writes run off its event loop).
     out["ok"] = (all(v["ok"] for v in legs.values()) and not alive and not leaked
-                 and not out["tier_files_left"] and staging.cast_kernel.fallbacks == 0)
+                 and not out["tier_files_left"] and staging.cast_kernel.fallbacks == 0
+                 and sum(quarantines.values()) == 0)
     return out
 
 
@@ -4754,6 +4820,19 @@ HEAL_SEED = 5151
 HEAL_STORE = "healing"
 HEAL_WEDGE_STORE = "healing_wedge"
 HEAL_R1_STORE = "healing_r1"
+HEAL_LIVE_STORE = "healing_live"
+HEAL_LIVE_LAYERS = 4  # leg (h): a trainer re-putting through the kill and the auto-repair
+# The surviving source serves the auto-repair's read this late, so the pull
+# is still in flight while the re-puts land on its target.
+HEAL_LIVE_GET_DELAY_MS = 8000
+# The trainer's step between two puts. The kill lands in one, so the
+# supervisor quarantines the victim (about 1.3 s) while it still holds every
+# key, and auto-repair has them all to copy.
+HEAL_LIVE_STEP_S = 2.5
+HEAL_LIVE_LIMIT_S = 120.0  # a hard stop; the leg is planned to take under 60 s
+# Leg (h)'s reclaim schedule (the default is 1, 5, 15, 60 s): its gate reads
+# the copies once the reclaims on the healthy volumes drained.
+HEAL_LIVE_ENV = {"TORCHSTORE_TORCH_RECLAIM_DELAYS": "0.5,1,2,4"}
 HEAL_KEY = "heal"
 HEAL_VOLUMES = 3
 HEAL_REPLICATION = 2
@@ -4820,13 +4899,15 @@ async def _wait_until(predicate, limit_s: float = HEAL_WAIT_S, every_s: float = 
     return None
 
 
-async def _heal_store(tst, store_name: str, num_volumes: int, replication: int):
+async def _heal_store(tst, store_name: str, num_volumes: int, replication: int,
+                      env: dict | None = None):
     """A store of ``num_volumes`` volumes under the phase's supervisor
-    settings (they ride the controller's spawn environment)."""
+    settings and ``env`` (they ride the controller's spawn environment)."""
     from torchstore_tpu_torch.config import StoreConfig
 
-    saved = {k: os.environ.get(k) for k in HEAL_ENV}
-    os.environ.update(HEAL_ENV)
+    env = {**HEAL_ENV, **(env or {})}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         await tst.initialize(num_storage_volumes=num_volumes, store_name=store_name,
                              strategy=tst.LocalRankStrategy(replication=replication),
@@ -4841,7 +4922,8 @@ async def _heal_store(tst, store_name: str, num_volumes: int, replication: int):
 
 
 async def _healing_path(torch, staging, layers: int, dev, cfg=None,
-                        side_layers: int = HEAL_SIDE_LAYERS) -> dict:
+                        side_layers: int = HEAL_SIDE_LAYERS,
+                        live_layers: int = HEAL_LIVE_LAYERS) -> dict:
     """Replicated puts that survive a volume's death, at Llama-3-8B width
     (fp32 weights on the card, bf16 on the wire, bf16 targets on the
     card), through the port's entry points, on 3 volumes at replication
@@ -4850,8 +4932,11 @@ async def _healing_path(torch, staging, layers: int, dev, cfg=None,
     supervisor's quarantine and auto-repair back to 2 healthy copies; (e)
     repair(); (f) a wedged (SIGSTOPped) volume reported, not replaced;
     (g) replication 1: a killed volume's keys raise with the controller's
-    diagnosis and repair reports them lost. Every target is held bit for
-    bit against the plain cast of its source."""
+    diagnosis and repair reports them lost; (h) a trainer re-putting the
+    same keys every round through a kill and the auto-repair that follows,
+    its pull slowed on the source, at ``live_layers``: every healthy copy
+    ends bit-equal to the last put. Every target is held bit for bit
+    against the plain cast of its source."""
     import signal
 
     import torchstore_tpu_torch as tst
@@ -5088,6 +5173,20 @@ async def _healing_path(torch, staging, layers: int, dev, cfg=None,
         emit({"healing_leg": "g_replication_1", **leg})
     finally:
         await tst.shutdown(HEAL_R1_STORE)
+    del side, side_targets
+
+    # (h) a trainer re-putting through a kill and the auto-repair.
+    emit({"reduced": {"healing_live_layers": live_layers, "of": LAYERS}})
+    live_cfg = __import__("dataclasses").replace(cfg, num_layers=live_layers)
+    live_gen = torch.Generator(device=dev)
+    live_gen.manual_seed(HEAL_SEED + 2)
+    live = _model_state(torch, live_cfg, live_layers, live_gen, dev)
+    leg = await asyncio.wait_for(
+        _live_repair_leg(torch, tst, live, live_layers, put_all, pids, dead_pids),
+        HEAL_LIVE_LIMIT_S)
+    legs["h_live_repair"] = leg
+    emit({"healing_leg": "h_live_repair", **leg})
+    del live
 
     await asyncio.sleep(0.5)
     alive = [p.pid for p in multiprocessing.active_children() if p.pid in pids]
@@ -5098,9 +5197,144 @@ async def _healing_path(torch, staging, layers: int, dev, cfg=None,
                 "processes_left": alive, "segments_left": leaked[:5],
                 "dead_volume_segments_left": [n for n in leaked if owner_pid(n) in dead_pids][:5],
                 "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if cuda else 0})
-    out["ok"] = (all(v["ok"] for v in legs.values()) and len(legs) == 7 and not alive
+    out["ok"] = (all(v["ok"] for v in legs.values()) and len(legs) == 8 and not alive
                  and not leaked and staging.cast_kernel.fallbacks == 0)
     return out
+
+
+async def _copies_bit_equal(torch, client, keys: list, want: dict) -> dict:
+    """Read every healthy copy of every key through a reader pinned to its
+    volume alone; ``{"copies": {key: count}, "mismatched": [(key, vid)]}``
+    against ``want`` ({store key: bf16 tensor on the host})."""
+    located = await client.controller.locate_volumes.call_one(keys)
+    readers: dict = {}
+    mismatched = []
+    try:
+        for key in keys:
+            for vid, info in sorted(located[key].items()):
+                reader = readers.get(vid)
+                if reader is None:
+                    reader = readers[vid] = type(client)(client.controller, client.config)
+                    await reader.get(key)  # its first read settles its epoch
+                reader._loc_cache[key] = {vid: info}
+                got = await reader.get(key)
+                if not torch.equal(got.view(torch.int16), want[key].view(torch.int16)):
+                    mismatched.append((key, vid))
+                del got
+    finally:
+        for reader in readers.values():
+            reader.close()
+    return {"copies": {k: len(v) for k, v in located.items()}, "mismatched": mismatched}
+
+
+async def _live_repair_leg(torch, tst, live: dict, layers: int, put_all, pids: set,
+                           dead_pids: set) -> dict:
+    """Leg (h): 3 volumes at replication 2; a trainer loop re-puts
+    ``live`` (a new fill each round, added on the card) every
+    ``HEAL_LIVE_STEP_S`` from before the SIGKILL of volume 0 (in a step,
+    right after a put) until the supervisor's auto-repair reports done,
+    while a delay on the surviving source holds the repair's pull open.
+    Gates: no error reaches the trainer, one quarantine, the auto-repair's
+    pull ran, and once the loop stopped and the reclaims drained, every
+    healthy copy of every key is bit-equal to the last value put (a put
+    landing on the pull's target during the read keeps its bytes:
+    ``skipped_moved``)."""
+    from torchstore_tpu_torch.state_dict_utils import _store_key
+
+    bf16 = torch.bfloat16
+    t_leg = time.perf_counter()
+    cuda = next(iter(live.values())).is_cuda
+    client = await _heal_store(tst, HEAL_LIVE_STORE, HEAL_VOLUMES, HEAL_REPLICATION,
+                               env=HEAL_LIVE_ENV)
+    pids |= {p.pid for p in multiprocessing.active_children()}
+    rounds: list = []
+    errors: list = []
+    stop = asyncio.Event()
+    round_done = asyncio.Event()
+    task = None
+
+    async def trainer():
+        while not stop.is_set():
+            for t in live.values():
+                t.add_(1.0)  # the next round's weights
+            t0 = time.time()
+            try:
+                step = await put_all(HEAL_LIVE_STORE, live)
+            except Exception as exc:  # noqa: BLE001 - a gate, reported below
+                errors.append(repr(exc)[:400])
+                return
+            rounds.append({"start": t0, "end": time.time(), "put_s": step["put_s"],
+                           "launches": step["launches"], "chunks": step["chunks"],
+                           "cast_fallbacks": step["cast_fallbacks"]})
+            round_done.set()
+            await asyncio.sleep(HEAL_LIVE_STEP_S)  # the training step
+
+    try:
+        vmap = await client.controller.get_volume_map.call_one()
+        victim, source = "0", "1"  # client id 0 puts on volumes 0 and 1
+        task = asyncio.ensure_future(trainer())
+        await round_done.wait()  # the loop runs before the kill
+        await tst.inject_fault("volume.get", "delay", count=1, delay_ms=HEAL_LIVE_GET_DELAY_MS,
+                               scope=source, store_name=HEAL_LIVE_STORE)
+        proc = _volume_process(tst, HEAL_LIVE_STORE, vmap[victim]["ref"])
+        dead_pids.add(proc.pid)
+        proc.kill()
+        t_kill = time.time()
+        proc.join(10)
+
+        async def auto_repaired():
+            return (await client.controller.stats.call_one())["auto_repairs"].get(victim)
+
+        report = await _wait_until(auto_repaired, HEAL_LIVE_LIMIT_S)
+        stop.set()
+        await task
+        live_keys = {_store_key(HEAL_KEY, k): k for k in live}
+
+        async def drained():  # the dead volume's reclaims never run
+            stats = await client.controller.stats.call_one()
+            pending = {v: n for v, n in stats.get("pending_reclaims", {}).items() if v != victim}
+            return stats if not pending else None
+
+        cstats = await _wait_until(drained, HEAL_LIVE_LIMIT_S)
+        want = {key: live[k].to(bf16).cpu() for key, k in live_keys.items()}
+        read = await _copies_bit_equal(torch, client, sorted(live_keys), want)
+        del want
+        health = await tst.volume_health(HEAL_LIVE_STORE)
+    finally:
+        stop.set()
+        if task is not None and not task.done():
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        await tst.shutdown(HEAL_LIVE_STORE)
+    report = report or {}
+    start, wall = report.get("started_at"), report.get("wall_s", 0.0)
+    during = [r for r in rounds if start and r["start"] < start + wall and r["end"] > start]
+    leg = {"layers": layers, "tensors": len(live),
+           "wire_bytes": 2 * sum(t.numel() for t in live.values()),
+           "get_delay_ms": HEAL_LIVE_GET_DELAY_MS, "step_s": HEAL_LIVE_STEP_S,
+           "env": HEAL_LIVE_ENV,
+           "rounds": len(rounds), "round_put_s": [r["put_s"] for r in rounds],
+           "puts_after_kill": sum(r["start"] > t_kill for r in rounds),
+           "reputs_during_pull": len(during), "errors": errors,
+           "quarantines": _series_total((cstats or {}).get("metrics", {}),
+                                        "ts_quarantines_total"),
+           "auto_repair": report, "skipped_moved": report.get("skipped_moved"),
+           "pull_s": report.get("seconds"),
+           "quarantine_s_from_kill": start - t_kill if start else None,
+           "copies_per_key": sorted(set(read["copies"].values())),
+           "mismatched_copies": read["mismatched"][:5],
+           "victim_state": health.get(victim, {}).get("state"),
+           "launches": sum(r["launches"] for r in rounds),
+           "put_chunks": sum(r["chunks"] for r in rounds),
+           "cast_fallbacks": sum(r["cast_fallbacks"] for r in rounds),
+           "leg_s": time.perf_counter() - t_leg}
+    leg["ok"] = (not errors and cstats is not None and leg["quarantines"] == 1
+                 and leg["victim_state"] == "quarantined"
+                 and sum(report.get("rungs", {}).values()) >= 1
+                 and leg["copies_per_key"] == [HEAL_REPLICATION] and not read["mismatched"]
+                 and leg["cast_fallbacks"] == 0
+                 and (not cuda or leg["launches"] == leg["put_chunks"]))
+    return leg
 
 
 def phase_healing(torch, staging) -> dict:
@@ -5187,8 +5421,8 @@ def phase_kernels(results: dict) -> dict:
                   if "spmd" in results else "")
                + ("; on tiering: the channel's publishes v0..v4 and the durable put"
                   if "tiering" in results else "")
-               + ("; on healing: the replicated put and the wedge and replication-1 legs' puts"
-                  if "healing" in results else ""),
+               + ("; on healing: the replicated put, the wedge and replication-1 legs' puts "
+                  "and leg (h)'s re-puts" if "healing" in results else ""),
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"

@@ -76,3 +76,13 @@ def test_import_leaves_no_jax_or_reference_module():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("name", ["test_torch_chaos.py", "test_torch_soak.py"])
+def test_chaos_and_soak_twins_stand_alone(name):
+    """The chaos and soak twins hold the port to the reference's invariants
+    without running the reference: they import nothing of it, and count
+    none of its shared-memory segments."""
+    path = ROOT / "tests" / name
+    assert forbidden_imports(path) == []
+    assert "ts_shm_" not in path.read_text()

@@ -9,7 +9,10 @@ off. Each scenario runs through both packages (the JAX store off shared
 memory) and the health states, placements and bytes read back are
 compared. Then the port's own: a volume answers pings while a bulk pull
 runs, ``pull_from`` lands in the volume's pool and refuses relay hops,
-and the reclaim schedule's parsing."""
+the reclaim schedule's parsing, and the two port-only repairs: a put
+that lands on an auto-repair's target during its pull keeps its bytes
+(through both packages, the reference's stale result recorded), and a
+volume whose disk writes are slow is never quarantined."""
 
 import asyncio
 import pickle
@@ -322,3 +325,229 @@ async def test_pull_from_lands_in_the_pool_and_refuses_relay_hops():
             got = await client.get_batch({"w": None})
     torch.testing.assert_close(got["w"], want, rtol=0, atol=0)
     assert shm.get("live_segments", 0) >= 1
+
+
+# ---- repairs: a put during an auto-repair pull; disk writes off the loop ----
+
+PULL_DELAY_MS = 3000  # the source serves the auto-repair's read this late
+SRC_PUT_DELAY_MS = 5000  # and lands the racing put later still
+
+
+async def _copies(pkg: Pkg, name: str, key: str) -> dict:
+    """What each healthy replica of ``key`` serves, read through a client
+    pinned to that replica alone."""
+    client = pkg.mod.client(name)
+    located = (await client.controller.locate_volumes.call_one([key]))[key]
+    out = {}
+    for vid in sorted(located):
+        reader = type(client)(client.controller, client._config)
+        await reader.get(key)  # the reader's first read settles its epoch
+        reader._loc_cache[key] = {vid: located[vid]}
+        out[vid] = to_np(await reader.get(key)).tolist()
+        if hasattr(reader, "close"):
+            reader.close()
+    return out
+
+
+async def _put_during_pull(pkg: Pkg, name: str) -> dict:
+    old, new = np.full(1024, 1.0, np.float32), np.full(1024, 2.0, np.float32)
+    await pkg.mod.put("k", pkg.wrap(old), store_name=name)
+    client = pkg.mod.client(name)
+    victim, src = sorted((await client.controller.locate_volumes.call_one(["k"]))["k"])
+    (tgt,) = set(client._volume_refs) - {victim, src}
+    # The source serves the auto-repair's read late and takes the racing
+    # put's bytes later still: the pull reads the old value while the put
+    # has landed on the target.
+    await pkg.mod.inject_fault("volume.get", "delay", count=1, delay_ms=PULL_DELAY_MS,
+                               scope=src, store_name=name)
+    await pkg.mod.inject_fault("volume.put", "delay", count=1, delay_ms=SRC_PUT_DELAY_MS,
+                               scope=src, store_name=name)
+    await pkg.kill(name, victim)
+
+    async def quarantined():
+        return (await pkg.mod.volume_health(name))[victim]["state"] == "quarantined"
+
+    await wait_for(quarantined, what=f"quarantine of {victim}")
+    src_ref = client._volume_refs[src].actor
+
+    async def pulling():  # the source's get delay fired: the read is in flight
+        return not any(f["name"] == "volume.get" for f in await src_ref.list_faults.call_one())
+
+    await wait_for(pulling, what="the auto-repair pull")
+    await client.placement_epoch()
+    if client._volumes_stale:
+        await client._refresh_health()
+    await pkg.mod.put("k", pkg.wrap(new), store_name=name)  # lands on src and tgt
+
+    async def settled():
+        stats = await client.controller.stats.call_one()
+        return not stats.get("pending_reclaims") and stats
+
+    stats = await wait_for(settled, what="reclaims to drain")
+    return {"victim": victim, "src": src, "tgt": tgt, "copies": await _copies(pkg, name, "k"),
+            "skipped_moved": stats.get("auto_repairs", {}).get(victim, {}).get("skipped_moved")}
+
+
+async def test_put_during_auto_repair_pull_keeps_its_bytes(fast_health, monkeypatch):
+    """Kill one of three volumes; while auto-repair pulls its key from the
+    survivor, a put of the same key lands on the pull's target. Every
+    healthy copy then serves the put's value: the pull drops what it read
+    for a key whose write generation moved during the read, and the
+    controller neither indexes nor reclaims it (``skipped_moved``).
+
+    The reference runs the same schedule: its pull stores the old value
+    over the put's on the target, under the put's metadata, and its
+    reclaim skips the key because the put indexed it there. Recorded, not
+    ground truth: in a run on the CPU its target served 1.0 and its source
+    2.0; in another its client had not seen the quarantine, so the put
+    went to the dead volume and the survivor alone (ROADMAP Queue C, the
+    port-only repair of the stale pull)."""
+    for prefix in ("TORCHSTORE_TORCH_", "TORCHSTORE_TPU_"):
+        monkeypatch.setenv(prefix + "RECLAIM_DELAYS", "0.05,0.1,0.2,0.4")
+    port, ref = await both(_put_during_pull)
+    new = [2.0] * 1024
+    assert port["copies"] == {port["src"]: new, port["tgt"]: new}
+    assert port["skipped_moved"] == 1
+    # The reference's copies hold values that were put; which ones is its
+    # own (recorded in the docstring), not this test's ground truth.
+    assert all(copy in ([1.0] * 1024, new) for copy in ref["copies"].values())
+
+
+async def test_slow_disk_writes_never_quarantine_the_volume(monkeypatch, tmp_path):
+    """A durable put and a spill whose file writes each take 2 s, under a
+    supervisor at 0.25 s and 2 misses: the writes run on the landing
+    pool's threads, so the volume's loop answers every ping (no
+    quarantine), and every key reads back bit-equal, the spilled one
+    faulted in. The volume is colocated, so the slowed write is this
+    process's."""
+    from torchstore_tpu_torch.storage_utils import file_store
+
+    monkeypatch.setenv("TORCHSTORE_TORCH_HEALTH_INTERVAL_S", "0.25")
+    monkeypatch.setenv("TORCHSTORE_TORCH_HEALTH_MISS_THRESHOLD", "2")
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_ENABLED", "1")
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_DIR", str(tmp_path / "tier"))
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_BUDGET_BYTES", str(8 * 1024))
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_HIGH_PCT", "0.5")
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_LOW_PCT", "0.25")
+    monkeypatch.setenv("TORCHSTORE_TORCH_TIER_SWEEP_INTERVAL_S", "0")
+    persist = file_store.FileBackedStore._persist_file
+    slowed = []
+
+    def slow_persist(path, fname, t):
+        slowed.append(fname)
+        time.sleep(2.0)
+        return persist(path, fname, t)
+
+    monkeypatch.setattr(file_store.FileBackedStore, "_persist_file", staticmethod(slow_persist))
+    gen = torch.Generator().manual_seed(11)
+    want = {"c/v0/w": torch.randn(1024, generator=gen), "c/v1/w": torch.randn(1024, generator=gen)}
+    name = "tst_slow_disk"
+    with anyio.fail_after(60):
+        await tst.initialize(store_name=name, colocated=True, storage_dir=str(tmp_path / "dur"))
+        try:
+            await tst.put("c/v0/w", want["c/v0/w"], store_name=name)  # a slowed durable put
+            await tst.put("c/v1/w", want["c/v1/w"], store_name=name)
+            swept = await tst.tier_sweep(store_name=name)  # slowed spills
+            got = {k: await tst.get(k, store_name=name) for k in want}
+            stats = await tst.client(name).controller.stats.call_one(include_volumes=True)
+            health = await tst.volume_health(name)
+        finally:
+            await tst.shutdown(name)
+    assert sum(v.get("spilled", 0) for v in swept.values()) >= 1
+    assert len(slowed) >= 3  # two durable puts and at least one spill
+    quarantines = sum(s["value"] for s in
+                      stats["metrics"].get("ts_quarantines_total", {}).get("series", []))
+    assert quarantines == 0 and all(h["state"] == "ok" for h in health.values())
+    for key, tensor in want.items():
+        torch.testing.assert_close(got[key], tensor, rtol=0, atol=0)
+
+
+# ---- the index's side of a pull that raced a put (one controller, fakes) ----
+
+
+class _PullEndpoint:
+    def __init__(self, fn):
+        self.fn = fn
+
+    def effective_timeout(self):
+        return 30.0
+
+    def with_timeout(self, _timeout):
+        return self
+
+    async def call_one(self, *args, **kwargs):
+        return await self.fn(*args, **kwargs)
+
+
+class _PullTarget:
+    """A target volume whose pull_from runs ``during`` (the race), then
+    reports the pulled key stored at generation 30, or moved."""
+
+    def __init__(self, during=None, moved=False):
+        self.pull_from = _PullEndpoint(self._pull)
+        self.during, self.moved = during, moved
+
+    async def _pull(self, src, metas, **kw):
+        if self.during is not None:
+            await self.during()
+        keys = [m.key for m in metas]
+        return {"write_gens": {} if self.moved else {k: 30 for k in keys},
+                "moved": keys if self.moved else [], "rung": "rpc", "bytes": 0,
+                "seconds": 0.0, "alloc_s": 0.0}
+
+
+def _race_controller(target: _PullTarget) -> tuple:
+    from torchstore_tpu_torch.controller import Controller
+    from torchstore_tpu_torch.transport.types import Request, TensorMeta
+
+    c = Controller()
+    c.volume_refs = {"v0": object(), "v1": object(), "v2": target}
+    c.volume_hostnames = {}
+    req = Request.from_tensor("k", torch.ones(4))
+    req.tensor_meta = TensorMeta(shape=(4,), dtype="float32")
+    return c, req.meta_only()
+
+
+async def _repair_race(target: _PullTarget) -> tuple:
+    c, meta = target.controller, target.meta
+    await c.notify_put_batch([meta], ["v0", "v1"], write_gens={"v0": {"k": 10}, "v1": {"k": 10}})
+    report = await c.core.auto_repair_pass("v0", ["v1", "v2"])
+    return c, report
+
+
+def _put_b(target: _PullTarget):
+    async def put():  # a put that landed on v2 (gen 20) before the pull stored (30)
+        await target.controller.notify_put_batch(
+            [target.meta], ["v2", "v1"], write_gens={"v2": {"k": 20}, "v1": {"k": 21}},
+            supersede=True)  # as every client put
+    return put
+
+
+@pytest.mark.parametrize("case", ["moved", "notify_during_pull", "notify_after_pull"])
+async def test_index_never_serves_a_pull_that_replaced_a_put(case):
+    """The three orders of an auto-repair pull and a put of the same key on
+    its target: the target kept the put's bytes (``moved``: neither
+    indexed nor reclaimed), or the pull's store replaced them, the put's
+    notify landing before or after the pull returned. In the last two the
+    target's entry is detached and the pulled copy reclaimed at its
+    generation, so the index never lists the target under the put's
+    metadata."""
+    target = _PullTarget(moved=case == "moved")
+    target.controller, target.meta = _race_controller(target)
+    if case == "notify_during_pull":
+        target.during = _put_b(target)
+    try:
+        c, report = await _repair_race(target)
+        if case == "notify_after_pull":
+            assert c.core.index.get("k")["v2"].pulled_gen == 30
+            await _put_b(target)()
+        infos = c.core.index.get("k")
+        pending = dict(c._pending_reclaims.get("v2", {}))
+    finally:
+        c.core.teardown()
+    if case == "moved":
+        assert report["skipped_moved"] == 1 and report["keys"] == 0
+        assert set(infos) == {"v0", "v1"} and pending == {}
+    else:
+        assert set(infos) == {"v1"} and infos["v1"].write_gen == 21
+        assert pending == {"k": 30}

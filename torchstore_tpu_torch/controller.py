@@ -829,7 +829,7 @@ class Controller(Actor):
             report.update(started_at=started, wall_s=time.monotonic() - t0)
             self._repair_reports[volume_id] = report
             obs_recorder.record("health", f"auto_repaired/{volume_id}", keys=report["keys"],
-                                nbytes=report["bytes"])
+                                nbytes=report["bytes"], skipped_moved=report["skipped_moved"])
             if report["keys"]:
                 logger.warning("auto-repair of quarantined volume %s: re-replicated %d key(s) "
                                "(%d bytes) onto healthy volumes", volume_id, report["keys"],

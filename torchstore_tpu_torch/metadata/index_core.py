@@ -96,6 +96,9 @@ class StorageInfo:
     # Capacity tier of this replica's bytes: tiering.RESIDENT (memory) or
     # tiering.TIERED (on the volume's disk; the next get faults it in).
     tier: str = tiering.RESIDENT
+    # The write generation of an auto-repair copy indexed here (0: none);
+    # a put's notify that lands under it finds its bytes replaced.
+    pulled_gen: int = 0
 
     @classmethod
     def from_meta(cls, meta: Request) -> "StorageInfo":
@@ -374,6 +377,16 @@ class IndexCore:
             for vid in volume_ids:
                 gen = (write_gens or {}).get(vid, {}).get(meta.key, 0)
                 old = infos.get(vid)
+                if meta.tensor_slice is None and old is not None and gen and old.pulled_gen > gen:
+                    # An auto-repair pull stored its copy here after this
+                    # put landed (its read of the source came before the
+                    # put reached it): the volume holds the pull's bytes,
+                    # not this put's. Detach it; the pulled copy is
+                    # reclaimed.
+                    stale_gens.setdefault(vid, {})[meta.key] = old.pulled_gen
+                    del infos[vid]
+                    structural = True
+                    continue
                 if meta.tensor_slice is None:
                     new = StorageInfo.from_meta(meta)
                     new.write_gen = gen
@@ -410,6 +423,8 @@ class IndexCore:
                     stale_gens.setdefault(vid, {})[meta.key] = prev.write_gen
                     self.detach_meta(meta, vid)
                     structural = True
+            if not infos:
+                self.index.pop(meta.key, None)  # its one copy was a pull's
         for vid, keys in stale_gens.items():
             self.schedule_reclaim(vid, keys)
         return structural
@@ -629,6 +644,7 @@ class IndexCore:
             self._merge(infos, volume_id, meta)
             info = infos[volume_id]
             info.write_gen = max(info.write_gen, write_gens.get(meta.key, 0))
+            info.pulled_gen = max(info.pulled_gen, write_gens.get(meta.key, 0))
             touched.add(meta.key)
         return touched
 
@@ -651,10 +667,19 @@ class IndexCore:
         A key overwritten or deleted while its copy was in flight (its
         source's write generation moved) is not indexed: the extra copy is
         reclaimed on the target instead, so a repaired replica never serves
-        stale bytes under fresh metadata. Returns ``{"keys", "bytes",
-        "seconds", "alloc_s", "rungs"}``: keys and bytes indexed, seconds in
-        the pulls and the part of them spent making segments, pulls by rung."""
-        out = {"keys": 0, "bytes": 0, "seconds": 0.0, "alloc_s": 0.0, "rungs": {}}
+        stale bytes under fresh metadata. A key a put wrote on the target
+        while the pull read it comes back ``moved`` (the target kept the
+        put's bytes): neither indexed nor reclaimed. A put that reached
+        the target before the pull's snapshot had its bytes replaced by
+        the pull's: its entry there is detached and the copy reclaimed,
+        here when its notify came first, in ``apply_put_batch``
+        (``pulled_gen``) when it comes later. Returns ``{"keys",
+        "bytes", "seconds", "alloc_s", "rungs", "skipped_moved"}``: keys and
+        bytes indexed, seconds in the pulls and the part of them spent
+        making segments, pulls by rung, keys the target kept a put's bytes
+        for."""
+        out = {"keys": 0, "bytes": 0, "seconds": 0.0, "alloc_s": 0.0, "rungs": {},
+               "skipped_moved": 0}
         if not healthy:
             return out
         plan: dict[tuple[str, str], list] = {}
@@ -708,8 +733,32 @@ class IndexCore:
                 rung = result.get("rung", "rpc")
                 out["rungs"][rung] = out["rungs"].get(rung, 0) + 1
                 fresh = []
+                moved = set(result.get("moved", ()))
+                out["skipped_moved"] += len(moved)
+                pulled_gens = result.get("write_gens", {})
+                overwritten: set = set()
                 for key, kmetas, src_gen, nbytes in batch:
+                    if key in moved:
+                        # A put landed on the target during the read: the
+                        # target holds the put's bytes, which its notify
+                        # indexes; nothing was stored, nothing to reclaim.
+                        continue
                     infos = self.index.get(key)
+                    mine = infos.get(tgt) if infos else None
+                    if mine is not None:
+                        # A put's notify indexed the target meanwhile. Its
+                        # landing there came before the pull's snapshot
+                        # (else the key had moved), so the pull's store
+                        # replaced the put's bytes: detach the entry and
+                        # reclaim the pulled copy.
+                        if (mine.object_type != ObjectType.TENSOR_SLICE
+                                and mine.write_gen < pulled_gens.get(key, 0)):
+                            del infos[tgt]
+                            if not infos:
+                                del self.index[key]
+                            self.schedule_reclaim(tgt, {key: pulled_gens[key]})
+                            overwritten.add(key)
+                        continue
                     cur = infos.get(src) if infos else None
                     if cur is None or cur.write_gen != src_gen:
                         # Overwritten or deleted mid-copy: the pulled bytes
@@ -718,7 +767,10 @@ class IndexCore:
                         continue
                     fresh.extend(kmetas)
                     out["bytes"] += nbytes
-                touched = self.merge_copies(tgt, fresh, result.get("write_gens", {}))
+                touched = self.merge_copies(tgt, fresh, pulled_gens)
+                if overwritten:
+                    await self.host.on_structural()
+                    await self.bump(overwritten)
                 if touched:
                     out["keys"] += len(touched)
                     _AUTO_REPAIRS.inc(len(touched))

@@ -102,7 +102,8 @@ class StorageVolume(Actor):
         from torchstore_tpu_torch.tiering import spill as tiering_spill
 
         self._tier = tiering_spill.SpillTier(self.volume_id) if tiering_spill.enabled() else None
-        # Serializes spills and fault-ins (cold paths; a warm get never takes it).
+        # Serializes spills, fault-ins and every disk write or delete (cold
+        # paths; a warm get never takes it).
         self._tier_lock = asyncio.Lock()
         self._publish_residency()
         # An unclean exit (faults or errors recorded) leaves its last events.
@@ -144,18 +145,14 @@ class StorageVolume(Actor):
         for meta in metas:
             self._supersede(meta)
         values = await maybe_await(buffer.handle_put_request(self.ctx, metas, self._existing(metas)))
-        keys = {meta.key for meta in metas}
         self._store_values(metas, values)
-        if self._durable is not None:
-            self._durable.store(metas, values)
-        if self._tier is not None:
-            # Fresh bytes are resident: a disk copy is stale from now on.
-            for key in keys:
-                self._tier.discard(key)
-            self._tier.touch(keys)
+        gens = self._bump_write_gens(metas)
+        stale = self._tier_landed({meta.key for meta in metas})
         self._publish_residency()
         obs_recorder.record("volume_op", "put", keys=len(metas))
-        return {"reply": buffer.put_reply(), "write_gens": self._bump_write_gens(metas)}
+        reply = buffer.put_reply()
+        await self._persist(metas, values, stale)
+        return {"reply": reply, "write_gens": gens}
 
     def _store_values(self, metas: list[Request], values: dict[int, Any]) -> None:
         """Make landed values the entries of their keys (a shard under its
@@ -169,6 +166,81 @@ class StorageVolume(Actor):
             else:
                 self.store.setdefault(meta.key, ShardedEntry())[ts.coordinates] = (ts, values[idx])
         self._resident_bytes += self._key_bytes(keys) - before
+
+    def _tier_landed(self, keys: set) -> list[str]:
+        """Fresh bytes of ``keys`` are resident: a disk copy is stale from
+        now on. Returns the keys whose spilled files ``_persist`` deletes."""
+        if self._tier is None:
+            return []
+        stale = [key for key in keys if self._tier.discard(key)]
+        self._tier.touch(keys)
+        return stale
+
+    # ---- disk writes, off the event loop -----------------------------------
+    #
+    # Every write or delete of the durable directory and the spill tier's
+    # files runs on the landing pool's threads, so the loop goes on
+    # answering pings (an fsync of a large tensor takes seconds). Each runs
+    # under the tier lock, entered with no await after the memory change it
+    # mirrors: the lock wakes its waiters in arrival order, so the files
+    # change in the order the entries did, and ``manifest`` (under the
+    # lock too) never reads a store a thread is writing.
+
+    def _lease_segments(self, keys) -> list[str]:
+        """Read leases on the segments behind ``keys``' entries, held while
+        a pool thread copies them to disk: a re-put meanwhile retires them
+        instead of pooling them for its landing."""
+        cache = self.ctx.peek(shared_memory.ShmServerCache)
+        names: list[str] = []
+        if cache is not None:
+            for key in keys:
+                for entry in cache.by_key.get(key, {}).values():
+                    cache.grant(entry.seg.name)
+                    names.append(entry.seg.name)
+        return names
+
+    def _release_segments(self, names: list[str]) -> None:
+        cache = self.ctx.peek(shared_memory.ShmServerCache)
+        if cache is not None:
+            for name in names:
+                cache.release(name)
+
+    async def _persist(self, metas: list[Request], values: dict[int, Any],
+                       stale_spilled: list[str] = ()) -> None:
+        """The disk half of a landing: delete the spilled files it made
+        stale, and write the durable copy of ``metas``."""
+        durable = self._durable is not None and bool(metas)
+        if not durable and not stale_spilled:
+            return
+        names = self._lease_segments({meta.key for meta in metas}) if durable else []
+        try:
+            async with self._tier_lock:
+                await landing.run_in_pool(self._write_files, metas if durable else [], values,
+                                          list(stale_spilled))
+        finally:
+            self._release_segments(names)
+
+    def _write_files(self, metas: list[Request], values: dict[int, Any],
+                     stale_spilled: list[str]) -> None:
+        for key in stale_spilled:
+            self._tier.disk.delete(key)
+        if metas:
+            self._durable.store(metas, values)
+
+    async def _drop_files(self, keys: list[str], spilled: list[str]) -> None:
+        """The disk half of a delete: the durable copies of ``keys`` and the
+        spilled files of ``spilled``."""
+        durable = keys if self._durable is not None else []
+        if not durable and not spilled:
+            return
+        async with self._tier_lock:
+            await landing.run_in_pool(self._delete_files, durable, spilled)
+
+    def _delete_files(self, keys: list[str], spilled: list[str]) -> None:
+        for key in keys:
+            self._durable.delete(key)
+        for key in spilled:
+            self._tier.disk.delete(key)
 
     def _bump_write_gens(self, metas: list[Request]) -> dict[str, int]:
         """A new generation per key: above the last, and a timestamp in
@@ -269,17 +341,19 @@ class StorageVolume(Actor):
         """Idempotent: missing keys are ignored so cleanup retries are safe.
         A key's disk copies (spilled, durable) go with it."""
         deleted = 0
+        spilled_keys: list[str] = []
         for key in keys:
             entry = self.store.pop(key, None)
             spilled = self._tier is not None and self._tier.discard(key)
+            if spilled:
+                spilled_keys.append(key)
             if entry is not None or spilled:
                 deleted += 1
             self._resident_bytes -= entry_nbytes(entry)
-            if self._durable is not None:
-                self._durable.delete(key)
             self._write_gens.pop(key, None)
             self.ctx.delete_key(key)
         self._publish_residency()
+        await self._drop_files(list(keys), spilled_keys)
         return deleted
 
     @endpoint
@@ -296,6 +370,8 @@ class StorageVolume(Actor):
         removed: list[str] = []
         kept_fresh: list[str] = []
         kept_gens: dict[str, int] = {}
+        dropped: list[str] = []
+        spilled_keys: list[str] = []
         cache = self.ctx.peek(shared_memory.ShmServerCache)
         for key, stale_gen in items:
             current = self._write_gens.get(key)
@@ -305,16 +381,18 @@ class StorageVolume(Actor):
                 continue
             entry = self.store.pop(key, None)
             spilled = self._tier is not None and self._tier.discard(key)
+            if spilled:
+                spilled_keys.append(key)
             if entry is not None or spilled:
                 removed.append(key)
             self._resident_bytes -= entry_nbytes(entry)
-            if self._durable is not None:
-                self._durable.delete(key)
+            dropped.append(key)
             self._write_gens.pop(key, None)
             if cache is not None:
                 cache.retire_key(key)
             self.ctx.delete_key(key)
         self._publish_residency()
+        await self._drop_files(dropped, spilled_keys)
         return {"removed": removed, "kept_fresh": kept_fresh, "kept_gens": kept_gens}
 
     @endpoint
@@ -327,10 +405,14 @@ class StorageVolume(Actor):
         segments of this volume's pool (new ones, made on the landing pool's
         threads, when none fits), received into them in place, and become
         entries as a put's would: a segment a reader leases retires under
-        the lease. Returns ``{"write_gens": fresh generations, "rung",
-        "bytes", "seconds", "alloc_s"}`` (``alloc_s``: the part spent
-        taking and making segments, before any byte moved). ``relay=True`` (a broadcast relay hop) is
-        ROADMAP A11.1 and raises."""
+        the lease. A key a put wrote here while the read was in flight
+        (its write generation moved) keeps the put's bytes: the pulled copy
+        is dropped and the key listed in ``moved``. Returns
+        ``{"write_gens": fresh generations of the keys stored, "moved",
+        "rung", "bytes", "seconds", "alloc_s"}`` (``alloc_s``: the part
+        spent taking and making segments, before any byte moved).
+        ``relay=True`` (a broadcast relay hop) is ROADMAP A11.1 and
+        raises."""
         if relay:
             raise NotImplementedError(
                 "pull_from(relay=True) is a broadcast relay hop: the relay is not ported "
@@ -383,6 +465,9 @@ class StorageVolume(Actor):
         for idx, (seg, tmeta) in segs.items():
             requests[idx].destination_view = seg.view(tmeta)
         alloc_s = time.perf_counter() - t0
+        # A put that lands here while the read is in flight moves its key's
+        # write generation: its bytes are newer than the source's, and stay.
+        gens_before = {meta.key: self._write_gens.get(meta.key) for meta in metas}
         buffer = create_transport_buffer(src_ref, config, force=rung)
         try:
             results = await buffer.get_from_storage_volume(src_ref, requests)
@@ -390,26 +475,33 @@ class StorageVolume(Actor):
             for seg, _ in segs.values():
                 seg.unlink()
             raise
+        # No await from this check to the store below.
+        moved = sorted({key for key, gen in gens_before.items()
+                        if self._write_gens.get(key) != gen})
+        keep = [idx for idx, meta in enumerate(metas) if meta.key not in moved]
+        for idx in set(segs) - set(keep):
+            segs.pop(idx)[0].unlink()
+        metas = [metas[idx] for idx in keep]
+        values = {new: results[idx] for new, idx in enumerate(keep)}
         for meta in metas:
             self._supersede(meta)
-        values = dict(enumerate(results))
-        for idx, (seg, tmeta) in segs.items():
-            meta = metas[idx]
-            coords = meta.tensor_slice.coordinates if meta.tensor_slice is not None else None
-            cache.put(meta.key, coords, seg, tmeta, 0, values[idx])
+        for new, idx in enumerate(keep):
+            if idx in segs:
+                seg, tmeta = segs[idx]
+                meta = metas[new]
+                coords = meta.tensor_slice.coordinates if meta.tensor_slice is not None else None
+                cache.put(meta.key, coords, seg, tmeta, 0, values[new])
         self._store_values(metas, values)
+        gens = self._bump_write_gens(metas)
         keys = {meta.key for meta in metas}
-        if self._durable is not None:
-            self._durable.store(metas, values)
-        if self._tier is not None:
-            for key in keys:
-                self._tier.discard(key)
-            self._tier.touch(keys)
+        stale = self._tier_landed(keys)
         self._publish_residency()
-        nbytes = sum(t.numel() * t.element_size() for t in results if isinstance(t, torch.Tensor))
+        nbytes = sum(t.numel() * t.element_size() for t in values.values()
+                     if isinstance(t, torch.Tensor))
         obs_recorder.record("volume_op", "pull_from", keys=len(keys), nbytes=nbytes,
-                            src=src_volume, rung=rung.value)
-        return {"write_gens": self._bump_write_gens(metas), "rung": rung.value,
+                            src=src_volume, rung=rung.value, moved=len(moved))
+        await self._persist(metas, values, stale)
+        return {"write_gens": gens, "moved": moved, "rung": rung.value,
                 "bytes": nbytes, "seconds": time.perf_counter() - t0, "alloc_s": alloc_s}
 
     @endpoint
@@ -487,21 +579,32 @@ class StorageVolume(Actor):
         return True
 
     async def _tier_demote_key(self, key: str) -> bool:
-        """Demote one resident key to disk (the caller holds the tier lock);
-        True when its memory copy went. A failed spill leaves the entry
-        resident and served."""
+        """Demote one resident key to disk (the caller holds the tier lock),
+        its files written on a landing-pool thread; True when its memory
+        copy went. A failed spill leaves the entry resident and served."""
         try:
             # Inside the failure domain: a raise aborts this key's demotion.
             await faults.afire("volume.spill")
             entry = self.store.get(key)
             if entry is None:
                 return False
-            self._tier.spill(key, entry)
+            names = self._lease_segments([key])
+            t0 = time.perf_counter()
+            try:
+                nbytes = await landing.run_in_pool(self._tier.write, key, entry)
+            finally:
+                self._release_segments(names)
         except asyncio.CancelledError:
             raise
         except Exception:  # noqa: BLE001 - a failed spill keeps the entry served
             logger.exception("spill of %r failed; the entry stays resident", key)
             return False
+        if self.store.get(key) is not entry:
+            # A put or a delete replaced the entry during the write: the
+            # disk copy is stale, and the resident bytes stay served.
+            await landing.run_in_pool(self._tier.disk.delete, key)
+            return False
+        self._tier.spilled_in(key, nbytes, time.perf_counter() - t0)
         self._resident_bytes -= entry_nbytes(self.store.pop(key))
         cache = self.ctx.peek(shared_memory.ShmServerCache)
         if cache is not None:
@@ -544,9 +647,10 @@ class StorageVolume(Actor):
         would find (the durable directory's, and the spill tier's, whose
         bytes live only there), each with the live ``write_gen`` when this
         process wrote the key: the controller's ``rebuild_index`` reads it."""
-        items = self._durable.manifest() if self._durable is not None else []
-        if self._tier is not None:
-            items += self._tier.manifest(exclude={item["meta"].key for item in items})
+        async with self._tier_lock:  # no thread is writing the stores
+            items = self._durable.manifest() if self._durable is not None else []
+            if self._tier is not None:
+                items += self._tier.manifest(exclude={item["meta"].key for item in items})
         for item in items:
             gen = self._write_gens.get(item["meta"].key)
             if gen is not None:
@@ -614,10 +718,11 @@ class StorageVolume(Actor):
     async def reset(self) -> None:
         """Forget everything, the durable and spilled copies included."""
         await self._clear()
-        if self._durable is not None:
-            self._durable.reset()
-        if self._tier is not None:
-            self._tier.reset()
+        async with self._tier_lock:
+            if self._durable is not None:
+                self._durable.reset()
+            if self._tier is not None:
+                self._tier.reset()
 
     async def on_stop(self) -> None:
         """Release the memory tier; the files stay for a volume started
@@ -639,7 +744,7 @@ class StorageVolume(Actor):
 
     def _entry(self, key: str, spilled_ok: bool = False) -> Any:
         entry = self.store.get(key)
-        if entry is None and spilled_ok and self._tier is not None:
+        if entry is None and spilled_ok and self._tier is not None and key in self._tier.spilled:
             entry = self._tier.disk.kv.get(key)
         if entry is None:
             raise KeyError(f"key {key!r} not found on volume {self.volume_id}")

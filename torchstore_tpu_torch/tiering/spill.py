@@ -151,23 +151,27 @@ class SpillTier:
 
     # ---- disk half -------------------------------------------------------
 
-    def spill(self, key: str, entry: Any) -> int:
+    def write(self, key: str, entry: Any) -> int:
         """Persist one resident entry to disk (crash-safe); returns its
-        bytes. The caller drops the memory copy only after this returns: a
-        failure leaves the entry resident and served."""
+        bytes. Runs on a landing-pool thread, under the volume's tier lock;
+        ``spilled_in`` records it once the caller has checked, on its event
+        loop, that the entry was not replaced meanwhile. A failure leaves
+        the entry resident and served."""
         from torchstore_tpu_torch.storage_utils.file_store import entry_requests
 
-        t0 = time.perf_counter()
         metas, values = entry_requests(key, entry)
         self.disk.store(metas, values)
-        nbytes = self._nbytes(self.disk.kv.get(key))
+        return self._nbytes(self.disk.kv.get(key))
+
+    def spilled_in(self, key: str, nbytes: int, seconds: float) -> None:
+        """Bookkeeping once ``write``'s copy is the key's: the next get of
+        ``key`` faults it back in."""
         self.spilled[key] = nbytes
         self.counts["spills"] += 1
         self.counts["spill_bytes"] += nbytes
-        self.counts["spill_s"] += time.perf_counter() - t0
+        self.counts["spill_s"] += seconds
         _SPILLS.inc(volume=self.volume_id)
         obs_recorder.record("tier", "spill", key=key, nbytes=nbytes, volume=self.volume_id)
-        return nbytes
 
     def load(self, key: str) -> tuple[list[Request], dict[int, Any]]:
         """(metas, file-mapped values) of a spilled entry, to land back in
@@ -191,12 +195,11 @@ class SpillTier:
                             reason=reason)
 
     def discard(self, key: str) -> bool:
-        """Drop a stale disk copy (the key was written or deleted in
-        memory); idempotent."""
-        existed = self.spilled.pop(key, None) is not None
-        if existed:
-            self.disk.delete(key)
-        return existed
+        """Forget a stale disk copy (the key was written or deleted in
+        memory); idempotent. True when one was spilled: the volume then
+        deletes its files (``disk.delete``) under its tier lock, in the
+        order of its memory changes."""
+        return self.spilled.pop(key, None) is not None
 
     def manifest(self, exclude: Optional[set] = None) -> list[dict]:
         """The spilled entries' manifest: their bytes live only here, so an
