@@ -5,17 +5,19 @@
 
 Phases, each printing one JSON line. Widths are always full; so the whole
 run stays well inside its 1200 s limit, reshard, quant, channel, tiering,
-runtime (legs b and d) and bulk run at 12 of the 32 layers
-(``TIME_CAP_LAYERS``, each listed under ``reduced``), where earlier slices
-ran them at full depth; main, direct_device, healing and spmd keep full
+runtime (legs b and d), bulk and healing (legs a-e) run at 12 of the 32
+layers (``TIME_CAP_LAYERS``, each listed under ``reduced``), where earlier
+slices ran them at full depth; main, direct_device and spmd keep full
 depth:
 
 1. device       - the card, its power limit, /dev/shm and host memory;
 2. build        - nvcc builds csrc/cast.cu, csrc/flash_attention.cu (the
                   simt flash kernel) and csrc/flash_attention_sm90.cu (the
                   Hopper flash kernel) from the checkout, all at once, and
-                  prints each library's ptxas registers and spills; fails if
-                  the sm90 kernel spills or ptxas ignored its setmaxnreg;
+                  prints each library's ptxas registers and spills, and
+                  each sm90 instance's (bf16 and fp16, d 64, 128 and 256,
+                  both modes); fails if an sm90 instance spills, one is
+                  missing, or ptxas ignored a setmaxnreg;
 3. parity       - the grouped cast kernel against its plain version on the
                   card, bit for bit outside NaN (NaN positions equal), for
                   every covered dtype pair: single tensors (groups of one) at
@@ -107,21 +109,29 @@ depth:
                   (K3), against their plain versions on the card: Llama-3-8B
                   attention width, MHA, d = 64, 72 and 256, lengths 1 to 8192
                   and ragged ones, batch up to 4, a packed qkv projection
-                  view, fp32 and bf16, causal and not. Each case names the
-                  variant ``sm90_eligible`` picked; the sm90 cases are held
-                  against the blockwise plain version and against the fp32
-                  one with SDPA's error as the yardstick;
+                  view, fp32 and bf16, causal and not, and fp16 on d 64, 72
+                  and 256, a ragged case and the packed view. Each case
+                  names the variant ``sm90_eligible`` picked (bf16 and fp16
+                  at d 64, 128 and 256 on sm90, the rest on simt); the sm90
+                  cases are held against the blockwise plain version at the
+                  kernel's own k-tile and against the fp32 one with SDPA's
+                  error as the yardstick;
 10. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
-                  (and K2 at 4096) on the sm90 kernel, and at 8192 on the
-                  simt kernel, beside their bound (the bf16 tensor-core rate
-                  for sm90, the fp32 CUDA-core rate for simt's fp32 math),
-                  the plain versions and SDPA (on fp32 copies of the inputs
-                  beside simt);
+                  (and K2 at 4096, and K2 in fp16) on the sm90 kernel, and
+                  at 8192 on the simt kernel, beside their bound (the bf16
+                  tensor-core rate for sm90, the fp32 CUDA-core rate for
+                  simt's fp32 math), the plain versions and SDPA (on fp32
+                  copies of the inputs beside simt); then at Gemma-7B
+                  attention width (h=16, hk=16, d=256, bf16, 8192 tokens)
+                  K2, K2 causal-diagonal and K3 causal on the sm90 kernel and
+                  on the simt kernel forced (the route d = 256 took before),
+                  each beside the bf16 bound, the plain version and SDPA;
 11. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
-                  Llama-3-8B attention width: a bf16 path (forward at 8192,
-                  forward and backward at 4096) and an fp32 forward path at
-                  2048, held against the einsum body and the plain version;
-                  K2's and K3's launches per variant on each path;
+                  Llama-3-8B attention width and again at Gemma-7B's: a bf16
+                  path (forward at 8192, forward and backward at 4096) and
+                  an fp32 forward path at 2048, held against the einsum body
+                  and the plain version; K2's and K3's launches per variant
+                  on each path (bf16: sm90 only, at both widths);
 12. model       - the RL loop at Llama-3-8B width (depth cut): a learner
                   trains two steps and publishes with direct=True (cast
                   launches equal to the planner's chunk count; the device
@@ -189,9 +199,10 @@ depth:
                   store (the supervisor at its defaults: the spill and
                   durable writes run off the volume's event loop);
 16. healing     - replication, repair and the health supervisor at full
-                  Llama-3-8B width and depth (291 tensors, fp32 on the
+                  Llama-3-8B width (the port Llama's tensors, fp32 on the
                   card, bf16 on the wire, bf16 targets on the card), at
-                  the depth a printed plan of host and card memory allows:
+                  the depth a printed plan of host and card memory allows,
+                  at most TIME_CAP_LAYERS:
                   3 volumes at replication 2, 1 GiB segment pools, the
                   supervisor at 0.5 s and 3 misses: (a) put_state_dict,
                   K1 launches = the planner's chunks, every key on exactly
@@ -357,10 +368,10 @@ L2_BYTES = 50 * 2**20
 
 
 # Depth of the phases that measure the paths of earlier slices again
-# (reshard, quant, channel, tiering, runtime, bulk): each still drives its
-# path and holds K1 against the plain version, at this many layers, so the
-# whole script stays well inside its 1200 s limit with main, direct_device,
-# healing and spmd at full depth. Widths never change.
+# (reshard, quant, channel, tiering, runtime, bulk, healing): each still
+# drives its path and holds K1 against the plain version, at this many
+# layers, so the whole script stays inside its 1200 s limit with main,
+# direct_device and spmd at full depth. Widths never change.
 TIME_CAP_LAYERS = 12
 
 
@@ -445,9 +456,45 @@ def phase_build(staging, flash) -> dict:
             "warnings": [line.strip() for line in log if "warning" in line.lower()][:8],
         }
     sm90 = out["flash_sm90"]
-    sm90["setmaxnreg_ignored"] = any("C7508" in w or "setmaxnreg ignored" in w
-                                     for w in sm90["warnings"])
-    out["ok"] = sm90["spill_bytes"] == 0 and not sm90["setmaxnreg_ignored"]
+    instances = _ptxas_instances(flash.stats_kernel.libs["sm90"].build_log.splitlines())
+    sm90["instances"] = instances
+    sm90["setmaxnreg_ignored"] = any(i["setmaxnreg_ignored"] for i in instances.values())
+    # Every (type, head_dim, mode) instance: no spill, setmaxnreg honoured.
+    want = len(flash.SM90_DTYPES) * len(flash.SM90_HEAD_DIMS) * 2
+    out["ok"] = (sm90["spill_bytes"] == 0 and not sm90["setmaxnreg_ignored"]
+                 and len(instances) == want
+                 and all(i["spill_bytes"] == 0 for i in instances.values()))
+    return out
+
+
+def _ptxas_instances(log: list) -> dict:
+    """Per entry function of the sm90 library's ``ptxas -v`` log, named
+    ``<type>_d<head_dim>_<stats|o>``: its registers at entry, its spill
+    bytes and whether ptxas ignored a setmaxnreg in it (C7508)."""
+    import re
+
+    out, cur = {}, None
+    for line in log:
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            dtype = "bf16" if "__nv_bfloat16" in name else "fp16" if "__half" in name else "?"
+            d = re.search(r"Li(\d+)E", name)
+            stats = re.search(r"Lb([01])E", name)
+            label = (f"{dtype}_d{d.group(1) if d else '?'}_"
+                     f"{'stats' if stats and stats.group(1) == '1' else 'o'}")
+            cur = out.setdefault(label, {"registers": None, "spill_bytes": 0,
+                                         "setmaxnreg_ignored": False})
+            continue
+        if cur is None:
+            continue
+        cur["spill_bytes"] += sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                                             line))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            cur["registers"] = int(used.group(1))
+        if "C7508" in line or "setmaxnreg ignored" in line:
+            cur["setmaxnreg_ignored"] = True
     return out
 
 
@@ -2532,47 +2579,62 @@ FLASH_CASES = (
     ("8b-sq1000-sk1537-b4", 4, 1000, 1537, HEADS, KV_HEADS, HEAD_DIM),
     ("packed-8b-2048", 1, 2048, 2048, HEADS, KV_HEADS, HEAD_DIM),
 )
+# The cases that run in fp16 too (beside fp32 and bf16): d 64, 72 and 256,
+# one ragged Llama-3-8B case and the packed view.
+FLASH_FP16_CASES = ("mha-d64-1025", "mha-d256-sq1024-sk1000", "gqa-d256-4096", "gqa-d72-300",
+                    "8b-sq1000-sk1537", "packed-8b-2048")
 FLASH_TOL = {
     "stats": "m, l: |got - want| <= 1e-5 + 1e-4 |want|; acc the same after dividing "
-             "got and want by want's l (fp32 and bf16 inputs)",
+             "got and want by want's l (fp32, bf16 and fp16 inputs)",
     "o_fp32": "|got - want| <= 1e-5 + 1e-4 |want|",
     "o_bf16": "|got - want| <= 1e-5 + 2 bf16 ulps of want",
-    "sm90_vs_blockwise": "against stats_blockwise_reference (the same arithmetic: bf16 p, "
-                         "block_k 128): m, l as 'stats'; acc (on o's scale) within "
-                         "1e-5 + 1e-4 |want| + flip, o within 1e-5 + 2 bf16 ulps + flip, "
-                         "where flip = 2**-6 max_k |v_kd| / l: the two fp32 p differ in "
-                         "their last bits (q.k^T summed in another order) and can round to "
-                         "adjacent bf16 values, one bf16 ulp (<= 2**-7 p) per term; flip "
-                         "allows two such terms at the row's largest weight (p <= 1). "
-                         "'strict_outside' counts acc values outside 1e-5 + 1e-4 |want|",
+    "o_fp16": "|got - want| <= 1e-5 + 2 fp16 ulps of want (11 significant bits)",
+    "sm90_vs_blockwise": "against stats_blockwise_reference (the same arithmetic: p rounded "
+                         "to the input type, block_k = the kernel's own k-tile at that d: 128 "
+                         "at d 64 and 128, 64 at d 256): m, l as 'stats'; acc (on o's scale) "
+                         "within 1e-5 + 1e-4 |want| + flip, o within 1e-5 + 2 ulps of the "
+                         "input type + flip, where flip = 2 u max_k |v_kd| / l with u = 2**-7 "
+                         "(bf16) or 2**-10 (fp16): the two fp32 p differ in their last bits "
+                         "(q.k^T summed in another order) and can round to adjacent values, "
+                         "one ulp (<= u p) per term; flip allows two such terms at the row's "
+                         "largest weight (p <= 1). 'strict_outside' counts acc values outside "
+                         "1e-5 + 1e-4 |want|",
     "sm90_vs_fp32": "against the fp32 plain version, with SDPA (is_causal, enable_gqa) on "
-                    "the same inputs as the yardstick: the kernel's o and acc/l each have "
-                    "a worst error <= 2x SDPA's worst error against attention_reference; "
-                    "m, l as 'stats' (both sum the fp32 p). bf16 p before P.V, as in "
-                    "SDPA's own kernels, is the rounding the fp32 version does not make",
+                    "the same inputs (of the same type) as the yardstick: the kernel's o and "
+                    "acc/l each have a worst error <= 2x SDPA's worst error against "
+                    "attention_reference; m, l as 'stats' (both sum the fp32 p). p rounded to "
+                    "the input type before P.V, as in SDPA's own kernels, is the rounding the "
+                    "fp32 version does not make",
 }
 SDPA_YARDSTICK = 2.0  # the sm90 kernel's worst error may be this multiple of SDPA's
-# The timed shapes: b, s, h, hk, d (bf16).
+# The timed shapes: b, s, h, hk, d (bf16): Llama-3-8B attention width, and
+# Gemma-7B's (h = hk = 16, d = 256: torchstore_tpu_torch/models/llama.py).
 FLASH_TIMED = (1, 8192, HEADS, KV_HEADS, HEAD_DIM)
 FLASH_TIMED_SHORT = 4096  # the ring phase's backward length
+GEMMA_HEADS = (16, 16, 256)
+FLASH_TIMED_GEMMA = (1, 8192, *GEMMA_HEADS)
+# Significant bits of each 16-bit type: one ulp of x is 2**(e - bits) for
+# x = f 2**e, 0.5 <= |f| < 1, so at most 2**(1 - bits) |x|.
+SIG_BITS = {"bfloat16": 8, "float16": 11}
 
 
-def _bf16_ulp(torch, x):
-    """One bf16 ulp of each value of ``x`` (8 significant bits)."""
+def _ulp(torch, x, dtype):
+    """One ulp of ``dtype`` (bf16 or fp16) at each value of ``x``."""
     _, exp = torch.frexp(x.float())
-    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - SIG_BITS[str(dtype)[6:]])
 
 
 def _within(torch, got, want, rtol=1e-4, atol=1e-5, ulps=None, extra=None) -> dict:
     """Worst error of ``got`` against ``want`` and the count of values
-    outside the tolerance: atol + rtol |want|, or ``ulps`` bf16 ulps (plus
-    ``atol``), plus the tensor ``extra`` where given."""
+    outside the tolerance: atol + rtol |want|, or ``ulps`` ulps of got's
+    16-bit type (plus ``atol``), plus the tensor ``extra`` where given."""
+    dtype = got.dtype
     got, want = got.float(), want.float()
     err = (got - want).abs()
     if ulps is None:
         allowed = atol + rtol * want.abs()
     else:
-        allowed = atol + ulps * _bf16_ulp(torch, want)
+        allowed = atol + ulps * _ulp(torch, want, dtype)
     if extra is not None:
         allowed = allowed + extra
     bad = int((err > allowed).sum().item()) + int((~torch.isfinite(got)).sum().item())
@@ -2613,17 +2675,20 @@ def _reset_flash_counts(flash, counts=None) -> None:
 
 
 def _flip_allowance(torch, v, l, h):
-    """2**-6 max_k |v_kd| / l per (b, h, sq, d): two bf16 roundings of p
-    that went to adjacent values, at a weight p <= 1 (FLASH_TOL)."""
+    """2 u max_k |v_kd| / l per (b, h, sq, d), u = 2**(1 - bits) of v's
+    type: two roundings of p to adjacent values, at a weight p <= 1
+    (FLASH_TOL)."""
+    u = 2.0 ** (1 - SIG_BITS[str(v.dtype)[6:]])
     vmax = v.float().abs().amax(dim=1).repeat_interleave(h // v.shape[2], dim=1)  # (b, h, d)
-    return 2.0**-6 * vmax[:, :, None, :] / l[..., None]
+    return 2 * u * vmax[:, :, None, :] / l[..., None]
 
 
 def _check_sm90(torch, flash, q, k, v, causal, got, o) -> dict:
     """The two comparisons of an sm90 case: against the blockwise plain
-    version, and against the fp32 one with SDPA as the yardstick."""
+    version at the kernel's own k-tile, and against the fp32 one with SDPA
+    as the yardstick."""
     h = q.shape[2]
-    bw = flash.stats_blockwise_reference(q, k, v, causal, 128)
+    bw = flash.stats_blockwise_reference(q, k, v, causal, flash.SM90_BLOCK_K[q.shape[3]])
     n = bw[2][..., None]
     flip = _flip_allowance(torch, v, bw[2], h)
     res = {"bw_acc": _within(torch, got[0] / n, bw[0] / n, extra=flip)}
@@ -2657,12 +2722,20 @@ def phase_flash_parity(torch, flash) -> dict:
     gen.manual_seed(2)
     cases = []
     worst = {f"{mode}_{variant}": 0.0 for mode in ("stats", "o") for variant in ("sm90", "simt")}
+    worst.update({"stats_sm90_d256": 0.0, "o_sm90_d256": 0.0, "stats_sm90_fp16": 0.0,
+                  "o_sm90_fp16": 0.0})
+    fp16_s = 0.0
     for label, b, sq, sk, h, hk, d in FLASH_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = [torch.float32, torch.bfloat16]
+        if label in FLASH_FP16_CASES:
+            dtypes.append(torch.float16)
+        for dtype in dtypes:
+            t_case = time.perf_counter()
             q, k, v = _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype,
                            packed=label.startswith("packed"))
+            variant = "sm90" if flash.sm90_eligible(q, k, v) else "simt"
             # Every case's strides pass TMA's rule, so dtype and d decide.
-            variant = "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+            rule = "sm90" if dtype != torch.float32 and d in flash.SM90_HEAD_DIMS else "simt"
             for causal in (False, True):
                 before = _flash_counts(flash)
                 got = flash.stats_kernel(q, k, v, causal)
@@ -2686,25 +2759,33 @@ def phase_flash_parity(torch, flash) -> dict:
                     res.update({n: _within(torch, g, w) for n, g, w in zip("ml", got[1:], want[1:])})
                     del want, l_want
                     o_want = flash.attention_reference(q, k, v, causal)
-                    if dtype == torch.bfloat16:
-                        res["o"] = _within(torch, o, o_want, atol=1e-5, ulps=2)
-                    else:
+                    if dtype == torch.float32:
                         res["o"] = _within(torch, o, o_want)
+                    else:
+                        res["o"] = _within(torch, o, o_want, atol=1e-5, ulps=2)
                     del o_want
                     err_stats = max(res["m"]["max_abs_err"], res["l"]["max_abs_err"],
                                     res["acc"]["raw_max_abs_err"])
                     err_o = res["o"]["max_abs_err"]
                 del got, o
                 ok = all(r["outside"] == 0 for r in res.values()) and ran == {
-                    "flash_stats": [variant], "flash": [variant]}
-                worst[f"stats_{variant}"] = max(worst[f"stats_{variant}"], err_stats)
-                worst[f"o_{variant}"] = max(worst[f"o_{variant}"], err_o)
+                    "flash_stats": [variant], "flash": [variant]} and variant == rule
+                keys = [variant]
+                if variant == "sm90" and d == 256:
+                    keys.append("sm90_d256")
+                if variant == "sm90" and dtype == torch.float16:
+                    keys.append("sm90_fp16")
+                for key in keys:
+                    worst[f"stats_{key}"] = max(worst[f"stats_{key}"], err_stats)
+                    worst[f"o_{key}"] = max(worst[f"o_{key}"], err_o)
                 cases.append({
                     "case": f"{label} {str(dtype)[6:]} {'causal' if causal else 'full'}",
                     "variant": variant, "launched": ran, "ok": ok, **res,
                 })
             del q, k, v
             torch.cuda.empty_cache()
+            if dtype == torch.float16:
+                fp16_s += time.perf_counter() - t_case
     _reset_flash_counts(flash)  # comparison launches are not path launches
     failed = [c for c in cases if not c["ok"]]
     rows = []
@@ -2723,6 +2804,8 @@ def phase_flash_parity(torch, flash) -> dict:
         "ok": not failed,
         "cases": len(cases),
         "sm90_cases": sum(c["variant"] == "sm90" for c in cases),
+        "fp16_cases": sum(" float16 " in c["case"] for c in cases),
+        "fp16_seconds": fp16_s,
         "failed": failed[:10],
         "worst": worst,
         "tolerance": FLASH_TOL,
@@ -2753,11 +2836,16 @@ def phase_flash_timing(torch, flash) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     b, s, h, hk, d = FLASH_TIMED
-    # Two input sets of 96 MB each: every call reads memory that is not in L2.
-    inputs = {n: [_qkv(torch, gen, dev, b, n, n, h, hk, d, torch.bfloat16) for _ in range(2)]
-              for n in (s, FLASH_TIMED_SHORT)}
+    bf16, fp16 = torch.bfloat16, torch.float16
+    # (tokens, h, hk, d, dtype) of each input set. Two sets of each, 96 MB a
+    # set at Llama-3-8B width and 192 MB at Gemma-7B's: every call reads
+    # memory that is not in L2.
+    shapes = {"8b": (s, h, hk, d, bf16), "8b_4096": (FLASH_TIMED_SHORT, h, hk, d, bf16),
+              "8b_fp16": (s, h, hk, d, fp16), "gemma": (FLASH_TIMED_GEMMA[1], *GEMMA_HEADS, bf16)}
+    inputs = {key: [_qkv(torch, gen, dev, b, n, n, hh, kh, dd, dt) for _ in range(2)]
+              for key, (n, hh, kh, dd, dt) in shapes.items()}
     # The same values in fp32, for SDPA beside the simt kernel's fp32 math.
-    inputs32 = [[t.float() for t in qkv] for qkv in inputs[s]]
+    inputs32 = [[t.float() for t in qkv] for qkv in inputs["8b"]]
     before = _flash_counts(flash)
 
     def stats(causal, variant=None):
@@ -2766,28 +2854,54 @@ def phase_flash_timing(torch, flash) -> dict:
     def attention(causal, variant=None):
         return lambda q, k, v: flash.attention_kernel(q, k, v, causal, _variant=variant)
 
+    def stats_plain(causal):
+        return lambda q, k, v: flash.stats_reference(q, k, v, causal)
+
+    def attention_plain(causal):
+        return lambda q, k, v: flash.attention_reference(q, k, v, causal)
+
     sdpa = lambda causal: lambda q, k, v: _sdpa(torch, q, k, v, causal)  # noqa: E731
-    # name: (tokens, causal, stats mode, variant, kernel, plain, library). The
-    # simt rows time the kernel and SDPA on fp32 copies of its inputs (the
-    # library call doing the kernel's fp32 math); plain is the sm90 row's.
+    # name: (input set, causal, stats mode, variant, kernel, plain, library).
+    # The Llama-width simt rows time the kernel against the fp32 CUDA-core
+    # bound and SDPA on fp32 copies of its inputs (the library call doing
+    # the kernel's fp32 math); the Gemma-width simt rows (the route d = 256
+    # took before the sm90 kernel took it) stand beside the bf16 bound and
+    # SDPA in bf16, as their sm90 twins do. A row without a plain version
+    # reports its twin's (the same inputs).
     plan = {
-        "flash_stats": (s, False, True, "sm90", stats(False),
-                        lambda q, k, v: flash.stats_reference(q, k, v, False), sdpa(False)),
-        "flash_stats_causal_diag": (
-            s, True, True, "sm90", stats(True),
-            lambda q, k, v: flash.stats_reference(q, k, v, True), sdpa(True)),
-        "flash_causal": (s, True, False, "sm90", attention(True),
-                         lambda q, k, v: flash.attention_reference(q, k, v, True), sdpa(True)),
-        "flash_stats_4096": (
-            FLASH_TIMED_SHORT, False, True, "sm90", stats(False),
-            lambda q, k, v: flash.stats_reference(q, k, v, False), sdpa(False)),
-        "flash_stats_simt": (s, False, True, "simt", stats(False, "simt"), None, sdpa(False)),
-        "flash_stats_causal_diag_simt": (s, True, True, "simt", stats(True, "simt"), None,
+        "flash_stats": ("8b", False, True, "sm90", stats(False), stats_plain(False), sdpa(False)),
+        "flash_stats_causal_diag": ("8b", True, True, "sm90", stats(True), stats_plain(True),
+                                    sdpa(True)),
+        "flash_causal": ("8b", True, False, "sm90", attention(True), attention_plain(True),
+                         sdpa(True)),
+        "flash_stats_4096": ("8b_4096", False, True, "sm90", stats(False), stats_plain(False),
+                             sdpa(False)),
+        "flash_stats_simt": ("8b", False, True, "simt", stats(False, "simt"), None, sdpa(False)),
+        "flash_stats_causal_diag_simt": ("8b", True, True, "simt", stats(True, "simt"), None,
                                          sdpa(True)),
-        "flash_causal_simt": (s, True, False, "simt", attention(True, "simt"), None, sdpa(True)),
+        "flash_causal_simt": ("8b", True, False, "simt", attention(True, "simt"), None,
+                              sdpa(True)),
+        "flash_stats_fp16": ("8b_fp16", False, True, "sm90", stats(False), stats_plain(False),
+                             sdpa(False)),
+        "gemma_flash_stats": ("gemma", False, True, "sm90", stats(False), stats_plain(False),
+                              sdpa(False)),
+        "gemma_flash_stats_causal_diag": ("gemma", True, True, "sm90", stats(True),
+                                          stats_plain(True), sdpa(True)),
+        "gemma_flash_causal": ("gemma", True, False, "sm90", attention(True),
+                               attention_plain(True), sdpa(True)),
+        "gemma_flash_stats_simt": ("gemma", False, True, "simt", stats(False, "simt"), None,
+                                   sdpa(False)),
+        "gemma_flash_stats_causal_diag_simt": ("gemma", True, True, "simt", stats(True, "simt"),
+                                               None, sdpa(True)),
+        "gemma_flash_causal_simt": ("gemma", True, False, "simt", attention(True, "simt"), None,
+                                    sdpa(True)),
     }
     rows = {}
-    for name, (n, causal, is_stats, variant, kernel, plain, library) in plan.items():
+    gemma_s = 0.0
+    for name, (key, causal, is_stats, variant, kernel, plain, library) in plan.items():
+        t_row = time.perf_counter()
+        n, rh, rhk, rd, dtype = shapes[key]
+        fp32_math = variant == "simt" and key == "8b"
         fns = {"kernel": kernel, "library": library}
         order = ["kernel", "library", "library", "kernel"]
         if plain is not None:
@@ -2797,33 +2911,39 @@ def phase_flash_timing(torch, flash) -> dict:
         mode = flash.stats_kernel if is_stats else flash.attention_kernel
         launched = mode.launches_by_variant[variant]
         for x in order:  # in turns; each reports the better of its two runs
-            fp32_library = x == "library" and variant == "simt"
+            on32 = x == "library" and fp32_math
             runs[x].append(_time_ms(torch, lambda qkv: fns[x](*qkv),
-                                    inputs32 if fp32_library else inputs[n], iters=5))
-        bound = flash_bound(b, n, n, h, hk, d, causal, 2, is_stats,
-                            FP32_FLOP_PER_S if variant == "simt" else BF16_FLOP_PER_S)
+                                    inputs32 if on32 else inputs[key], iters=5))
+        bound = flash_bound(b, n, n, rh, rhk, rd, causal, 2, is_stats,
+                            FP32_FLOP_PER_S if fp32_math else BF16_FLOP_PER_S)
         ms = min(runs["kernel"])
         twin = name[:-len("_simt")] if variant == "simt" else name
         rows[name] = {
-            "shape": {"b": b, "sq": n, "sk": n, "h": h, "hk": hk, "d": d, "dtype": "bfloat16"},
+            "shape": {"b": b, "sq": n, "sk": n, "h": rh, "hk": rhk, "d": rd,
+                      "dtype": str(dtype)[6:]},
             "causal": causal,
             "variant": variant,
             "ran_on_variant": mode.launches_by_variant[variant] > launched,
             "ms": ms,
             "plain_ms": min(runs["plain"]) if plain is not None else rows[twin]["plain_ms"],
             "library_ms": min(runs["library"]),
-            "library": ("SDPA" + (" on fp32 copies of the inputs" if variant == "simt" else "")
+            "library": ("SDPA" + (" on fp32 copies of the inputs" if fp32_math else "")
                         + ", " + ("causal" if causal else "not causal")
                         + (", computes o, not (acc, m, l)" if is_stats else "")),
             "runs_ms": runs,
             **bound,
+            "bound_rate": "fp32 CUDA cores" if fp32_math else "16-bit tensor cores",
             "share_of_bound": bound["bound_ms"] / ms,
             "tflop_per_s": bound["flop"] / ms / 1e9,
         }
+        if variant == "simt" and key == "gemma":
+            rows[name]["sm90_speedup"] = ms / rows[twin]["ms"]
         torch.cuda.empty_cache()
+        if key == "gemma":
+            gemma_s += time.perf_counter() - t_row
     _reset_flash_counts(flash, before)
     ok = all(r["ran_on_variant"] for r in rows.values())
-    return {"phase": "flash_timing", "ok": ok, "rows": rows,
+    return {"phase": "flash_timing", "ok": ok, "rows": rows, "gemma_seconds": gemma_s,
             "peaks": {"bf16_flop_per_s": BF16_FLOP_PER_S, "fp32_flop_per_s": FP32_FLOP_PER_S,
                       "hbm_bytes_per_s": HBM_BYTES_PER_S}}
 
@@ -2981,8 +3101,15 @@ def phase_ring(torch, flash) -> dict:
     )
     try:
         res = _ring_path(torch, flash, dev, fwd_seq=8192, bwd_seq=4096)
+        # Gemma-7B attention width: its bf16 calls run on the sm90 kernel's
+        # d = 256 instance.
+        t0 = time.perf_counter()
+        gemma = _ring_path(torch, flash, dev, fwd_seq=8192, bwd_seq=4096, heads=GEMMA_HEADS)
+        gemma["seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
+    res["gemma"] = gemma
+    res["ok"] = res["ok"] and gemma["ok"]
     res["phase"] = "ring"
     return res
 
@@ -5343,6 +5470,7 @@ def phase_healing(torch, staging) -> dict:
     emit({"healing_plan": plan})
     if layers < LAYERS:
         emit({"reduced": {"healing_layers": layers, "of": LAYERS}, **plan})
+    layers = time_capped("healing_layers", layers)
     torch.cuda.reset_peak_memory_stats(dev)
     res = asyncio.run(_healing_path(torch, staging, layers, dev))
     res["phase"] = "healing"
@@ -5352,11 +5480,13 @@ def phase_healing(torch, staging) -> dict:
 
 def phase_kernels(results: dict) -> dict:
     """One entry per ported kernel, and per (mode, variant) of the flash
-    kernels. The cast's times are the timing phase's measured publish row
-    (cast_group over the 291 tensors of the Llama-3-8B state dict), its
-    launches those of the main phase's run (five casting steps). The flash
-    kernels' are one call at FLASH_TIMED (flash_timing), their launches
-    those of the ring phase's paths (bf16: sm90, fp32: simt)."""
+    kernels, the sm90 kernel's d = 256 instance apart. The cast's times are
+    the timing phase's measured publish row (cast_group over the 291 tensors
+    of the Llama-3-8B state dict), its launches those of the main phase's
+    run (five casting steps). The flash kernels' are one call at FLASH_TIMED
+    (FLASH_TIMED_GEMMA for d = 256; flash_timing), their launches those of
+    the ring phase's paths (bf16: sm90, Gemma-width bf16: sm90 at d = 256,
+    fp32: simt)."""
     needed = ("parity", "timing", "main", "flash_parity", "flash_timing", "ring")
     missing = [p for p in needed if p not in results]
     if missing:
@@ -5426,25 +5556,33 @@ def phase_kernels(results: dict) -> dict:
     }]
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"
-    b, s, h, hk, d = FLASH_TIMED
-    per = f"one call, b={b} sq=sk={s} h={h} hk={hk} d={d} bf16"
     sources = {"sm90": "torchstore_tpu_torch/csrc/flash_attention_sm90.cu",
                "simt": "torchstore_tpu_torch/csrc/flash_attention.cu"}
-    # launches: the sm90 kernel's on the ring phase's bf16 path, the simt
-    # kernel's on its fp32 path.
-    path_launches = {"sm90": ring["launches"], "simt": ring["fp32_launches"]}
-    for variant in ("sm90", "simt"):
-        suffix = "" if variant == "sm90" else "_simt"
+    # (entry suffix, variant, timing row prefix and suffix, worst-error key,
+    # launches). Launches: the sm90 kernel's d 64/128 instances on the ring
+    # phase's bf16 Llama-width path, its d = 256 instance on the Gemma-width
+    # one, the simt kernel's on the fp32 path.
+    flavours = (
+        ("sm90", "sm90", "", "", "sm90", ring["launches"], FLASH_TIMED,
+         "launches from the bf16 ring path"),
+        ("simt", "simt", "", "_simt", "simt", ring["fp32_launches"], FLASH_TIMED,
+         "launches from the fp32 ring path"),
+        ("sm90_d256", "sm90", "gemma_", "", "sm90_d256", ring["gemma"]["launches"],
+         FLASH_TIMED_GEMMA, "launches from the Gemma-7B-width bf16 ring path"),
+    )
+    for suffix, variant, prefix, row_suffix, err_key, launches, shape, origin in flavours:
+        b, s, h, hk, d = shape
+        per = f"one call, b={b} sq=sk={s} h={h} hk={hk} d={d} bf16"
         for name, row_key, err in (("flash_stats", "flash_stats", "stats"),
                                    ("flash", "flash_causal", "o")):
-            row = ftiming[row_key + suffix]
+            row = ftiming[prefix + row_key + row_suffix]
             entries.append({
-                "name": f"{name}_{variant}",
+                "name": f"{name}_{suffix}",
                 "route": "cuda",
                 "source": sources[variant],
                 "replaces": "torchstore_tpu/ops/flash_attention.py:205",
-                "launches": path_launches[variant][name][variant],
-                "max_abs_err": fparity["worst"][f"{err}_{variant}"],
+                "launches": launches[name][variant],
+                "max_abs_err": fparity["worst"][f"{err}_{err_key}"],
                 "parity": within,
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -5452,8 +5590,7 @@ def phase_kernels(results: dict) -> dict:
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 "library": row["library"],
-                "per": per + (", causal" if row["causal"] else ", not causal")
-                + ("; launches from the fp32 ring path" if variant == "simt" else ""),
+                "per": per + (", causal" if row["causal"] else ", not causal") + "; " + origin,
             })
     print(json.dumps({"kernels": entries}), flush=True)
     ok = (parity["ok"] and fparity["ok"] and ring["ok"] and all(e["launches"] for e in entries)

@@ -9,14 +9,16 @@ machine with the card:
 
 Without a card every test skips. Tolerances as chip_smoke.py's
 flash_parity phase: m, l and o within 1e-5 + 1e-4 |want| (o in bf16 within
-1e-5 + 2**-7 |want|, about two bf16 ulps), acc the same after dividing by
-the plain version's l (acc sums sk terms whose magnitudes add up to ~l).
-The grouped cast is bit-equal to ``x.to()`` outside NaN, NaN positions equal.
-Calls that ``sm90_eligible`` sends to the sm90 kernel are held against its
-arithmetic twin ``stats_blockwise_reference`` with the same bounds plus
-``flip_allowance``: both round an fp32 p to bf16, and where the two p differ
-in their last bits they can round to adjacent values (one bf16 ulp, at most
-2**-7 p_j |v_j| / l in o); the allowance covers two such terms at p <= 1.
+1e-5 + 2**-7 |want|, about two bf16 ulps; in fp16 1e-5 + 2**-10 |want|),
+acc the same after dividing by the plain version's l (acc sums sk terms
+whose magnitudes add up to ~l). The grouped cast is bit-equal to ``x.to()``
+outside NaN, NaN positions equal. Calls that ``sm90_eligible`` sends to the
+sm90 kernel are held against its arithmetic twin
+``stats_blockwise_reference`` (at the kernel's own k-tile,
+``SM90_BLOCK_K[d]``) with the same bounds plus ``flip_allowance``: both
+round an fp32 p to the input type, and where the two p differ in their last
+bits they can round to adjacent values (one ulp, at most 2**-7 p_j |v_j| / l
+in o in bf16, 2**-10 in fp16); the allowance covers two such terms at p <= 1.
 """
 
 import importlib
@@ -44,10 +46,15 @@ def qkv(seed, b, sq, sk, h, hk, d, dtype, device):
             for s in shapes]
 
 
+# The relative spacing of each 16-bit type: one ulp of x is at most this times |x|.
+REL_ULP = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+
+
 def flip_allowance(v, l, h):
-    """2**-6 max_k |v_kd| / l per (b, h, sq, d) (see the module docstring)."""
+    """2 ulps (relative) of v's type times max_k |v_kd| / l per (b, h, sq, d)
+    (see the module docstring)."""
     vmax = v.float().abs().amax(dim=1).repeat_interleave(h // v.shape[2], dim=1)
-    return 2.0**-6 * vmax[:, :, None, :] / l[..., None]
+    return 2 * REL_ULP[v.dtype] * vmax[:, :, None, :] / l[..., None]
 
 
 def counts():
@@ -66,9 +73,9 @@ def run_and_check(q, k, v, causal, dtype):
     for b_, a_ in zip(before, after):
         assert a_ == {**b_, variant: b_[variant] + 1}
     if variant == "sm90":
-        want_acc, want_m, want_l = fa.stats_blockwise_reference(q, k, v, causal, 128)
+        want_acc, want_m, want_l = fa.stats_blockwise_reference(q, k, v, causal)
         flip = flip_allowance(v, want_l, q.shape[2])
-        want_o = fa.attention_blockwise_reference(q, k, v, causal, 128)
+        want_o = fa.attention_blockwise_reference(q, k, v, causal)
     else:
         want_acc, want_m, want_l = fa.stats_reference(q, k, v, causal)
         flip = torch.zeros((), device=q.device)
@@ -79,7 +86,7 @@ def run_and_check(q, k, v, causal, dtype):
     torch.testing.assert_close(m, want_m, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(l, want_l, rtol=1e-4, atol=1e-5)
     assert o.dtype == dtype and o.shape == q.shape
-    rtol = 1e-4 if dtype == torch.float32 else 2.0**-7
+    rtol = REL_ULP.get(dtype, 1e-4)
     o_err = (o.float() - want_o.float()).abs()
     allowed = 1e-5 + rtol * want_o.float().abs() + (flip.transpose(1, 2) if flip.dim() else flip)
     assert bool((o_err <= allowed).all()), float(o_err.max())
@@ -87,7 +94,7 @@ def run_and_check(q, k, v, causal, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("shape", [(1, 200, 333, 8, 2, 64), (2, 130, 130, 4, 4, 256),
                                    (1, 77, 40, 6, 3, 72)])
@@ -95,12 +102,13 @@ def test_kernel_matches_plain_version_on_cuda(cuda, shape, causal, dtype):
     b, sq, sk, h, hk, d = shape
     q, k, v = qkv(9, b, sq, sk, h, hk, d, dtype, cuda)
     variant = run_and_check(q, k, v, causal, dtype)
-    assert variant == ("sm90" if dtype == torch.bfloat16 and d == 64 else "simt")
+    assert variant == ("sm90" if dtype in fa.SM90_DTYPES and d in fa.SM90_HEAD_DIMS else "simt")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", [(1, 200, 333, 8, 2, 128), (2, 130, 130, 4, 4, 64)])
+@pytest.mark.parametrize("shape", [(1, 200, 333, 8, 2, 128), (2, 130, 130, 4, 4, 64),
+                                   (1, 200, 333, 8, 2, 256)])
 def test_sm90_matches_blockwise_reference_on_cuda(cuda, shape, causal):
     b, sq, sk, h, hk, d = shape
     q, k, v = qkv(10, b, sq, sk, h, hk, d, torch.bfloat16, cuda)

@@ -3,17 +3,23 @@
 On the CPU both public ops take their plain versions; these tests hold them
 against the JAX package's Pallas kernel in interpret mode (as its own tests
 run it), on the same numpy inputs. Tolerances: rtol/atol 2e-5 on the fp32
-stats and fp32 outputs, as tests/test_ring_attention.py uses (two fp32
-implementations summing in other orders); one bf16 ulp (rtol 2**-7) on the
-bf16 output, since both round an fp32 value that may differ in its last
-bits; 3e-5 on gradients, as the reference's ring gradient test. The sm90
-kernel's plain twin, ``stats_blockwise_reference``, rounds p to bf16 before
-P.V; its tolerance is derived in ``test_blockwise_reference_matches_reference``.
+stats (from fp32, bf16 or fp16 inputs) and fp32 outputs, as
+tests/test_ring_attention.py uses (two fp32 implementations summing in other
+orders); one ulp of the output type on a bf16 (rtol 2**-7) or fp16 (rtol
+2**-10, atol 2**-24: one subnormal ulp) output, since both round an fp32
+value that may differ in its last bits; 3e-5 on gradients, as the
+reference's ring gradient test. The sm90 kernel's plain twin,
+``stats_blockwise_reference``, rounds p to q's dtype before P.V; its
+tolerance is derived in ``test_blockwise_reference_matches_reference`` and
+``test_blockwise_reference_fp16_matches_reference``.
 The CUDA kernels' own tests are in tests/test_torch_cuda.py (they need the
 card).
 """
 
+import ctypes
 import importlib
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +33,11 @@ ref = importlib.import_module("torchstore_tpu.ops.flash_attention")
 fa = importlib.import_module("torchstore_tpu_torch.ops.flash_attention")
 
 HEADS = {"mha": (4, 4), "gqa": (8, 2)}
-DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16),
+          "float16": (torch.float16, jnp.float16)}
+# One ulp of each 16-bit output type: (rtol, atol). fp16's atol is one ulp
+# of its subnormals (2**-24), where rtol alone would ask for less.
+OUT_ULP = {"bfloat16": dict(rtol=2.0**-7, atol=0), "float16": dict(rtol=2.0**-10, atol=2.0**-24)}
 
 
 def inputs(seed, b, s, h, hk, d, dtype="float32", sk=None):
@@ -40,6 +50,8 @@ def inputs(seed, b, s, h, hk, d, dtype="float32", sk=None):
     ]
     if dtype == "bfloat16":
         arrays = [a.astype(ml_dtypes.bfloat16).astype(np.float32) for a in arrays]
+    elif dtype == "float16":
+        arrays = [a.astype(np.float16).astype(np.float32) for a in arrays]
     return arrays
 
 
@@ -78,7 +90,7 @@ def test_normalized_matches_pallas_kernel(causal, heads, dtype):
     got = fa.flash_attention(*to_torch(arrays, dtype), causal=causal)
     assert fa.attention_kernel.launches == before
     assert got.dtype == DTYPES[dtype][0] and tuple(got.shape) == want.shape
-    tol = dict(rtol=2e-5, atol=2e-5) if dtype == "float32" else dict(rtol=2.0**-7, atol=0)
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == "float32" else OUT_ULP[dtype]
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want, np.float32), **tol
     )
@@ -154,8 +166,8 @@ def test_kernel_refuses_unsupported_head_dims():
 
 
 def test_kernel_refuses_unsupported_dtype():
-    q, k, v = (t.half() for t in to_torch(inputs(0, 1, 8, 2, 2, 8), "float32"))
-    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+    q, k, v = (t.double() for t in to_torch(inputs(0, 1, 8, 2, 2, 8), "float32"))
+    with pytest.raises(TypeError, match="all bfloat16 or all float16"):
         fa.attention_kernel(q, k, v, False)
 
 
@@ -205,6 +217,82 @@ def test_blockwise_reference_matches_reference(causal, heads, block_k, lengths):
     assert np.any(np.abs(o - want_o) > 2e-5)  # the rounding is there
 
 
+@pytest.mark.parametrize("lengths", BLOCKWISE_LENGTHS)
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_blockwise_reference_fp16_matches_reference(causal, heads, block_k, lengths):
+    """The twin on fp16 inputs rounds p to fp16 (as the sm90 kernel does for
+    fp16 calls) and is held against the JAX package the same way. Rounding
+    to nearest moves a normal p_j by at most 2**-11 p_j and a subnormal one
+    (p_j < 2**-14) by at most 2**-25, so o moves by at most
+    2**-11 (P.|V|)_d / l + 2**-25 (sum_k |v_kd|) / l, plus 1e-5 for the
+    fp32 summation order."""
+    h, hk = HEADS[heads]
+    sq, sk = BLOCKWISE_LENGTHS[lengths]
+    arrays = inputs(17, 2, sq, h, hk, 16, "float16", sk=sk)
+    if lengths == "tiled":
+        want = ref.flash_attention_stats(*to_jax(arrays, "float16"), causal_diag=causal,
+                                         interpret=True)
+    else:
+        want = ref._stats_ref(*to_jax(arrays, "float32"), causal)
+    want_acc, want_m, want_l = (np.asarray(w) for w in want)
+    acc, m, l = fa.stats_blockwise_reference(*to_torch(arrays, "float16"), causal, block_k)
+    np.testing.assert_allclose(m.numpy(), want_m, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l.numpy(), want_l, rtol=2e-5, atol=2e-5)
+    o, want_o = acc.numpy() / l.numpy()[..., None], want_acc / want_l[..., None]
+    g = h // hk
+    v_sum = np.repeat(np.abs(arrays[2]).sum(axis=1), g, axis=1)  # (b, h, d)
+    bound = (1e-5 + 2.0**-11 * p_abs_v_over_l(arrays, causal)
+             + 2.0**-25 * v_sum[:, :, None, :] / want_l[..., None])
+    assert np.all(np.abs(o - want_o) <= bound), float(np.max(np.abs(o - want_o) - bound))
+    # The rounding is there: the unrounded twin sums the same tiles without it.
+    unrounded = fa.stats_blockwise_reference(*to_torch(arrays, "float16"), causal, block_k,
+                                             _round_p=False)
+    assert not torch.equal(acc, unrounded[0])
+
+
+@pytest.mark.parametrize("d", fa.SM90_HEAD_DIMS)
+def test_blockwise_reference_defaults_to_kernel_block_k(d):
+    """Without ``block_k`` the twin tiles k as the sm90 kernel does at this
+    head_dim (64 keys at d = 256, 128 below), so the chip checks hold each
+    instance against its own arithmetic."""
+    q, k, v = to_torch(inputs(18, 1, 40, 2, 2, d, "bfloat16", sk=300), "bfloat16")
+    got = fa.stats_blockwise_reference(q, k, v)
+    want = fa.stats_blockwise_reference(q, k, v, False, fa.SM90_BLOCK_K[d])
+    other = fa.stats_blockwise_reference(q, k, v, False, 192 - fa.SM90_BLOCK_K[d])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[0], other[0])
+    assert torch.equal(fa.attention_blockwise_reference(q, k, v),
+                       fa._normalize(want[0], want[2], q.dtype))
+
+
+def test_sm90_block_k_matches_kernel_source():
+    """SM90_BLOCK_K repeats the kernel's Tiling<D>::kBK."""
+    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_sm90.cu").read_text()
+    found = re.search(r"kBK = D == (\d+) \? (\d+) : (\d+);", src)
+    assert found is not None
+    at, then, other = (int(x) for x in found.groups())
+    assert {d: then if d == at else other for d in fa.SM90_HEAD_DIMS} == fa.SM90_BLOCK_K
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+            "int": ctypes.c_int, "int64_t": ctypes.c_int64, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("variant", ["simt", "sm90"])
+def test_ctypes_signature_matches_kernel_source(variant):
+    """Each library's argtypes follow its C entry point's parameter list."""
+    lib = fa._LIBS[variant]
+    src = lib.source.read_text()
+    found = re.search(r'extern "C" int ' + lib.symbol + r"\(([^)]*)\)", src)
+    assert found is not None
+    params = [" ".join(p.split()[:-1]) for p in found.group(1).split(",")]
+    params = [p.replace(" *", "*") for p in params]
+    assert [_C_TYPES[p] for p in params] == lib.argtypes
+
+
 @pytest.mark.parametrize("block_k", [64, 128])
 @pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -233,10 +321,10 @@ def _strided_d(b, s, h, hk, d):
     return tuple(x[..., ::2] for x in _contiguous(b, s, h, hk, 2 * d))
 
 
-def _seq_stride_4(b, s, h, hk, d):
+def _seq_stride_4(b, s, h, hk, d, dtype=torch.bfloat16):
     """Head dim 128 cut from rows of 132: the sequence stride is 132
     elements, not a multiple of 8."""
-    return tuple(x[..., :d] for x in _contiguous(b, s, h, hk, d + 4))
+    return tuple(x[..., :d] for x in _contiguous(b, s, h, hk, d + 4, dtype))
 
 
 ELIGIBILITY = {
@@ -245,9 +333,18 @@ ELIGIBILITY = {
     "packed-projection-view": (lambda: _packed(2, 64, 8, 2, 128), True),
     "fp32": (lambda: _contiguous(2, 64, 8, 2, 128, torch.float32), False),
     "d72": (lambda: _contiguous(2, 64, 8, 2, 72), False),
-    "d256": (lambda: _contiguous(2, 64, 8, 2, 256), False),
+    "d256": (lambda: _contiguous(2, 64, 8, 2, 256), True),
     "d-stride-2": (lambda: _strided_d(2, 64, 8, 2, 128), False),
     "seq-stride-not-8": (lambda: _seq_stride_4(2, 64, 1, 1, 128), False),
+    "fp16-d256": (lambda: _contiguous(1, 64, 16, 16, 256, torch.float16), True),
+    "fp16-d64": (lambda: _contiguous(2, 64, 8, 2, 64, torch.float16), True),
+    "fp16-d72": (lambda: _contiguous(2, 64, 8, 2, 72, torch.float16), False),
+    "fp16-seq-stride-not-8": (
+        lambda: _seq_stride_4(2, 64, 1, 1, 128, torch.float16), False),
+    "mixed-bf16-fp16": (
+        lambda: (*_contiguous(2, 64, 8, 2, 128)[:2],
+                 _contiguous(2, 64, 8, 2, 128, torch.float16)[2]),
+        False),
 }
 
 

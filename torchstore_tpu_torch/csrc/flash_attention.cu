@@ -6,7 +6,7 @@
 //     the unnormalized fp32 accumulator acc (b, h, sq, d) = sum_k exp(s - m) v,
 //     the running max m and denominator l (b, h, sq);
 //   EMIT_STATS = false (flash_attention): o = acc / max(l, 1e-30) in the input
-//     type, laid out (b, sq, h, d).
+//     type (fp32, bf16 or fp16), laid out (b, sq, h, d).
 // Scores are fp32 q.k^T / sqrt(d). ``causal`` masks row >= col in the call's
 // own coordinates (the ring's diagonal block, or whole-sequence causal) with
 // the reference's finite NEG_INF = -1e30, and skips k-tiles that lie wholly
@@ -15,9 +15,11 @@
 // Bound: operations. At the main path's shapes (b=1, h=32, hk=8, d=128,
 // sq = sk = 8192, bf16) the two products take 4 b h sq sk d = 1.1e12 FLOP
 // against ~0.2 GB of input and output, ~5000 FLOP per byte, far above the
-// card's ~295: only the tensor cores could reach the bound. This first
-// version does its math in fp32 on the CUDA cores, so it runs far below that
-// bound; wgmma, TMA and a pipelined ring of tiles are the next step.
+// card's ~295: only the tensor cores could reach the bound. bf16 and fp16
+// calls at head dims 64, 128 and 256 run on the tensor cores in
+// flash_attention_sm90.cu; this kernel takes the rest (fp32, other head dims,
+// strides TMA refuses) and does its math in fp32 on the CUDA cores, far below
+// the tensor-core bound.
 //
 // Design. The TPU ran a sequential grid (b*h, q-block, k-block) and carried
 // the softmax state in VMEM scratch across the k-blocks. Here one thread
@@ -43,6 +45,7 @@
 // CUDA error of the launch (0 on success) or one of the kBad* codes below.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,8 +78,10 @@ struct Params {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 template <int DMAX>
 constexpr int smem_floats() {
@@ -301,7 +306,7 @@ int dispatch_d(const Params& p, int b, cudaStream_t stream) {
 
 }  // namespace
 
-// kind: 0 fp32, 1 bf16 (q, k, v and, in the normalized mode, o).
+// kind: 0 fp32, 1 bf16, 2 fp16 (q, k, v and, in the normalized mode, o).
 extern "C" int tst_flash(const void* q, const void* k, const void* v, void* out, float* m,
                          float* l, int kind, int emit_stats, int causal, int b, int h, int hk,
                          int sq, int sk, int d, int64_t q_sb, int64_t q_ss, int64_t q_sh,
@@ -320,6 +325,9 @@ extern "C" int tst_flash(const void* q, const void* k, const void* v, void* out,
   if (kind == 1) {
     return emit_stats ? dispatch_d<__nv_bfloat16, true>(p, b, s)
                       : dispatch_d<__nv_bfloat16, false>(p, b, s);
+  }
+  if (kind == 2) {
+    return emit_stats ? dispatch_d<__half, true>(p, b, s) : dispatch_d<__half, false>(p, b, s);
   }
   return kBadKind;
 }

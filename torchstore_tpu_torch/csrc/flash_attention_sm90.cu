@@ -1,50 +1,60 @@
-// Blockwise (flash) attention for Hopper (sm_90a): bf16 wgmma, a TMA ring of
-// k/v tiles behind mbarriers, one producer and two consumer warpgroups.
+// Blockwise (flash) attention for Hopper (sm_90a): bf16 or fp16 wgmma, a TMA
+// ring of k/v tiles behind mbarriers, one producer and two consumer
+// warpgroups.
 //
 // Replaces the TPU kernel torchstore_tpu/ops/flash_attention.py::_kernel,
-// launched by _flash_call (pl.pallas_call, :205), for bf16 q/k/v with head
-// dim d in {64, 128}, in both of its modes:
+// launched by _flash_call (pl.pallas_call, :205), for bf16 or fp16 q/k/v
+// with head dim d in {64, 128, 256}, in both of its modes:
 //   EMIT_STATS = true  (flash_attention_stats, ring attention's per-hop body):
 //     the unnormalized fp32 accumulator acc (b, h, sq, d) = sum_k p v and the
 //     running max m and denominator l (b, h, sq), fp32;
-//   EMIT_STATS = false (flash_attention): o = acc / max(l, 1e-30) in bf16,
-//     laid out (b, sq, h, d).
+//   EMIT_STATS = false (flash_attention): o = acc / max(l, 1e-30) in the
+//     input type, laid out (b, sq, h, d).
 // Scores are fp32 q.k^T times 1/sqrt(d). ``causal`` masks row >= col in the
 // call's own coordinates with the reference's finite NEG_INF = -1e30;
 // columns past sk take no part in the max or the sum; rows past sq are never
 // stored; GQA maps q head i to kv head i / (h / hk) with no repeat. Other
 // shapes and types run on the fp32 kernel in flash_attention.cu.
 //
-// Bound: operations. At b=1, h=32, hk=8, d=128, sq = sk = 8192 the two
-// products take 4 b h sq sk d = 1.1e12 FLOP against ~0.24 GB of input and
-// output: ~5000 FLOP per byte, far above the card's ~295, so only the bf16
-// tensor cores (989 TFLOP/s) can approach the bound. What each choice does
-// about it:
-// - both products are wgmma.mma_async m64nNk16 bf16 with fp32 accumulators
-//   in registers: S = q.k^T reads q and k from shared memory (K-major); P.V
-//   reads p from registers (rounded to bf16, as FlashAttention-2/3 and
-//   PyTorch's SDPA do; l is summed from the fp32 p) and v from shared memory
-//   (MN-major, the transpose flag set). The CUDA cores keep only the online
-//   softmax: row max and sum over the 4 threads that share a row of the
-//   accumulator layout, exp2 on the special-function unit;
+// Bound: operations. At b=1, h=32, hk=8, d=128, sq = sk = 8192 (or h=16,
+// hk=16, d=256: the same h.d) the two products take 4 b h sq sk d = 1.1e12
+// FLOP against ~0.24 GB of input and output: ~5000 FLOP per byte, far above
+// the card's ~295, so only the 16-bit tensor cores (989 TFLOP/s) can
+// approach the bound. What each choice does about it:
+// - both products are wgmma.mma_async m64nNk16 in the input type with fp32
+//   accumulators in registers: S = q.k^T reads q and k from shared memory
+//   (K-major); P.V reads p from registers (rounded to the input type, as
+//   FlashAttention-2/3 and PyTorch's SDPA do; l is summed from the fp32 p)
+//   and v from shared memory (MN-major, the transpose flag set). The CUDA
+//   cores keep only the online softmax: row max and sum over the 4 threads
+//   that share a row of the accumulator layout, exp2 on the special-function
+//   unit;
 // - one elected producer thread issues TMA loads: q once, then k and v tiles
 //   into a ring of kStages stages, each with its own k-full and v-full
 //   barrier (q.k^T starts before v lands) and an empty barrier the 256
 //   consumer threads arrive on. The loads of tile t+1 overlap the math of
 //   tile t; the consumers spend no instructions or registers on copies;
-// - 128-byte swizzle everywhere: a 128-element bf16 row is 256 bytes, so a
-//   tile is two 64-column boxes, each the canonical swizzled layout wgmma's
+// - 128-byte swizzle everywhere: a 64-element row is 128 bytes, so a tile
+//   is d/64 boxes of 64 columns, each the canonical swizzled layout wgmma's
 //   descriptors read without bank conflicts;
-// - setmaxnreg moves registers from the producer (40) to the consumers
-//   (232): a consumer holds the 64 x 128 score tile and the 64 x d output
-//   accumulator (64 + 64 fp32 per thread at d = 128) without spills;
+// - the k tile follows d (Tiling<D>). At d 64 and 128 a tile holds 128 keys:
+//   S is m64n128k16, and a consumer holds the 64 x 128 score tile beside the
+//   64 x d output accumulator (64 + 64 fp32 a thread at d = 128) in the 232
+//   registers setmaxnreg gives it (the producer keeps 40). At d = 256 q (64
+//   KB) and two stages of 128-key k and v tiles (4 x 64 KB) would need 320
+//   KB of the 227 a block may use, and a thread would hold 128 + 64 fp32:
+//   so the tile holds 64 keys (q and the ring take 64 + 4 x 32 KB), S is
+//   m64n64k16 over 16 k-steps, P.V one m64n256k16 per 16 keys, and a
+//   consumer holds 128 + 32 fp32 in 240 registers (the producer keeps 24:
+//   128 x 24 + 256 x 240 = 64,512 of the SM's 65,536);
 // - two consumer warpgroups of 64 q rows each share every k/v tile (each tile
 //   is loaded once per 128 q rows), and their softmax and wgmma phases
 //   interleave on the SM;
 // - one CTA per (b*h, 128-row q-tile), heads fastest and the heaviest causal
 //   q-tiles first, so the last wave holds the lightest tiles; causal k-tiles
 //   wholly above a q-tile's last row are never loaded, and the mask runs only
-//   on tiles that cross the diagonal or the sk edge.
+//   on tiles that cross the diagonal or the sk edge (at 64-key tiles a
+//   128-row q-tile's diagonal crosses two or three of them).
 // TMA tensor maps are rank 4 over (d, s, h, b) with the tensor's own strides
 // (no transpose or copy), built on the host at each call with
 // cuTensorMapEncodeTiled fetched through cudaGetDriverEntryPoint (no -lcuda);
@@ -58,6 +68,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,11 +79,12 @@ constexpr float kNegInf = -1e30f;  // the reference's finite mask value
 constexpr float kFloor = 1e-30f;   // the reference's denominator floor
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBQ = 128;  // q rows per CTA: two consumer warpgroups of 64
-constexpr int kBK = 128;  // k rows per tile
 constexpr int kStages = 2;
 constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
 constexpr int kConsumers = 256;
-constexpr int kBox = kBK * 128;  // one 64-column box of 128 rows: 16 KB
+constexpr int kRowBytes = 128;  // one row of a 64-column box of 16-bit values
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
+constexpr int kBadKind = -1;
 constexpr int kBadHeadDim = -2;
 constexpr int kBadShape = -3;
 constexpr int kBadLayout = -4;     // alignment or strides TMA refuses
@@ -80,7 +92,7 @@ constexpr int kBadTensorMap = -5;  // cuTensorMapEncodeTiled refused the map
 constexpr int kNoDriver = -6;      // cuTensorMapEncodeTiled not found
 
 struct Params {
-  void* out;  // acc (b, h, sq, d) fp32, or o (b, sq, h, d) bf16
+  void* out;  // acc (b, h, sq, d) fp32, or o (b, sq, h, d) in the input type
   float* m;   // (b, h, sq), stats mode only
   float* l;
   int h, hk, sq, sk;
@@ -88,21 +100,58 @@ struct Params {
   float scale;
 };
 
+// Keys per k/v tile; flash_attention.py's SM90_BLOCK_K repeats it.
+template <int D>
+struct Tiling {
+  static constexpr int kBK = D == 256 ? 64 : 128;
+};
+
 // Shared memory, in bytes from a 1024-byte aligned base: q, then kStages k
-// tiles, kStages v tiles, then the barriers. A tile is D/64 boxes of kBox.
+// tiles, kStages v tiles, then the barriers. A q tile is D/64 boxes of kBQ
+// rows, a k or v tile D/64 boxes of kBK rows.
 template <int D>
 struct Layout {
-  static constexpr int kTile = (D / 64) * kBox;
+  static constexpr int kBK = Tiling<D>::kBK;
+  static constexpr int kQBox = kBQ * kRowBytes;
+  static constexpr int kKBox = kBK * kRowBytes;
+  static constexpr int kQTile = (D / 64) * kQBox;
+  static constexpr int kKTile = (D / 64) * kKBox;
   static constexpr int kQ = 0;
-  static constexpr int kK = kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kK = kQTile;
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBar = kV + kStages * kKTile;
   // barrier indices: q full, k full[s], v full[s], empty[s]
   static constexpr int kQFull = 0;
   static constexpr int kKFull = 1;
   static constexpr int kVFull = 1 + kStages;
   static constexpr int kEmpty = 1 + 2 * kStages;
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
+};
+static_assert(Layout<64>::kBytes <= kSmemLimit, "d = 64 exceeds shared memory");
+static_assert(Layout<128>::kBytes <= kSmemLimit, "d = 128 exceeds shared memory");
+static_assert(Layout<256>::kBytes <= kSmemLimit, "d = 256 exceeds shared memory");
+
+// The input type: its tensor-map type, its wgmma type and the packing of
+// two fp32 values into one 32-bit register (round to nearest).
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <>
+struct Elem<__half> {
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -181,50 +230,105 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// The wgmma forms. Each takes the accumulator d[0..N/2) of one thread (the
+// m64nN fp32 layout) as "+f" operands %0..%(N/2 - 1), then its inputs.
+#define TST_F8(i)                                                                             \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TST_ACC32 TST_F8(0), TST_F8(8), TST_F8(16), TST_F8(24)
+#define TST_ACC64 TST_ACC32, TST_F8(32), TST_F8(40), TST_F8(48), TST_F8(56)
+#define TST_ACC128 \
+  TST_ACC64, TST_F8(64), TST_F8(72), TST_F8(80), TST_F8(88), TST_F8(96), TST_F8(104), \
+      TST_F8(112), TST_F8(120)
+#define TST_REGS32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define TST_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define TST_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// D (64 x N, fp32) += A (64 x 16, smem, K-major) * B (N x 16, smem, K-major)^T;
+// scale_d = 0 overwrites D. TY is the input type's PTX name.
+#define TST_WGMMA_SS(N, TY, REGS, ACC, IA, IB, IS)                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " REGS ", %" IA \
+               ", %" IB ", p, 1, 1, 0, 0;\n}\n"                                             \
+               : ACC                                                                        \
+               : "l"(da), "l"(db), "r"(scale_d))
+
+// D (64 x N, fp32) += A (64 x 16, registers) * B (16 x N, smem, MN-major).
+#define TST_WGMMA_RS(N, TY, REGS, ACC, A0, A1, A2, A3, IB, IS)                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"                          \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " REGS ", {%" A0 \
+               ", %" A1 ", %" A2 ", %" A3 "}, %" IB ", p, 1, 1, 1;\n}\n"                   \
+               : ACC                                                                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  if constexpr (Elem<T>::kF16) {
+    TST_WGMMA_SS("128", "f16", TST_REGS64, TST_ACC64, "64", "65", "66");
+  } else {
+    TST_WGMMA_SS("128", "bf16", TST_REGS64, TST_ACC64, "64", "65", "66");
+  }
 }
 
-// D (64 x 128, fp32) += A (64 x 16, smem, K-major) * B (128 x 16, smem, K-major)^T.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  if constexpr (Elem<T>::kF16) {
+    TST_WGMMA_SS("64", "f16", TST_REGS32, TST_ACC32, "32", "33", "34");
+  } else {
+    TST_WGMMA_SS("64", "bf16", TST_REGS32, TST_ACC32, "32", "33", "34");
+  }
 }
 
-// D (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major).
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a, uint64_t db) {
+  if constexpr (Elem<T>::kF16) {
+    TST_WGMMA_RS("256", "f16", TST_REGS128, TST_ACC128, "128", "129", "130", "131", "132", "133");
+  } else {
+    TST_WGMMA_RS("256", "bf16", TST_REGS128, TST_ACC128, "128", "129", "130", "131", "132", "133");
+  }
+}
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (Elem<T>::kF16) {
+    TST_WGMMA_RS("128", "f16", TST_REGS64, TST_ACC64, "64", "65", "66", "67", "68", "69");
+  } else {
+    TST_WGMMA_RS("128", "bf16", TST_REGS64, TST_ACC64, "64", "65", "66", "67", "68", "69");
+  }
 }
 
-// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (Elem<T>::kF16) {
+    TST_WGMMA_RS("64", "f16", TST_REGS32, TST_ACC32, "32", "33", "34", "35", "36", "37");
+  } else {
+    TST_WGMMA_RS("64", "bf16", TST_REGS32, TST_ACC32, "32", "33", "34", "35", "36", "37");
+  }
 }
 
-template <int D, bool EMIT_STATS>
+template <typename T, int D, bool EMIT_STATS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = Layout<D>;
+  constexpr int kBK = L::kBK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + L::kBar;
@@ -252,29 +356,37 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x < 128) {
     // Producer warpgroup: one thread issues every load.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if constexpr (D == 256) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    }
     if (threadIdx.x == 0) {
       constexpr int kBoxes = D / 64;
-      mbar_expect_tx(bar(L::kQFull), L::kTile);
+      mbar_expect_tx(bar(L::kQFull), L::kQTile);
       for (int x = 0; x < kBoxes; ++x)
-        tma_load(base + L::kQ + x * kBox, &tm_q, bar(L::kQFull), 64 * x, q0, head, bi);
+        tma_load(base + L::kQ + x * L::kQBox, &tm_q, bar(L::kQFull), 64 * x, q0, head, bi);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         const uint32_t phase = (t / kStages) & 1;
         mbar_wait(bar(L::kEmpty + s), phase ^ 1);  // the first round passes at once
-        mbar_expect_tx(bar(L::kKFull + s), L::kTile);
+        mbar_expect_tx(bar(L::kKFull + s), L::kKTile);
         for (int x = 0; x < kBoxes; ++x)
-          tma_load(base + L::kK + s * L::kTile + x * kBox, &tm_k, bar(L::kKFull + s), 64 * x,
-                   t * kBK, kvh, bi);
-        mbar_expect_tx(bar(L::kVFull + s), L::kTile);
+          tma_load(base + L::kK + s * L::kKTile + x * L::kKBox, &tm_k, bar(L::kKFull + s),
+                   64 * x, t * kBK, kvh, bi);
+        mbar_expect_tx(bar(L::kVFull + s), L::kKTile);
         for (int x = 0; x < kBoxes; ++x)
-          tma_load(base + L::kV + s * L::kTile + x * kBox, &tm_v, bar(L::kVFull + s), 64 * x,
-                   t * kBK, kvh, bi);
+          tma_load(base + L::kV + s * L::kKTile + x * L::kKBox, &tm_v, bar(L::kVFull + s),
+                   64 * x, t * kBK, kvh, bi);
       }
     }
   } else {
     // Consumer warpgroups: wg 0 owns q rows 0..63 of the tile, wg 1 rows 64..127.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    if constexpr (D == 256) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    }
     const int wg = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128;
     const int quad = tid & 3;
@@ -282,21 +394,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row0 = q0 + 64 * wg + 16 * (tid / 32) + (tid % 32) / 4;
     const int wg_first_row = q0 + 64 * wg;
 
-    float s[64];
+    float s[kBK / 2];
     float o[D / 2];
-    uint32_t pa[32];
+    uint32_t pa[kBK / 4];
     float m_r[2] = {kNegInf, kNegInf};
     float l_r[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
-    const uint32_t q_base = base + L::kQ + wg * 64 * 128;
+    const uint32_t q_base = base + L::kQ + wg * 64 * kRowBytes;
     mbar_wait(bar(L::kQFull), 0);
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % kStages;
       const uint32_t phase = (t / kStages) & 1;
-      const uint32_t k_base = base + L::kK + st * L::kTile;
-      const uint32_t v_base = base + L::kV + st * L::kTile;
+      const uint32_t k_base = base + L::kK + st * L::kKTile;
+      const uint32_t v_base = base + L::kV + st * L::kKTile;
       const int k0 = t * kBK;
 
       // S = q k^T: D/16 k-steps of 16; each 64-column box holds 4.
@@ -306,9 +418,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-        wgmma_ss_n128(s, desc_sw128(q_base + off, 16, 1024), desc_sw128(k_base + off, 16, 1024),
-                      kk > 0);
+        const uint32_t col = (kk % 4) * 32;
+        const uint64_t dq = desc_sw128(q_base + (kk / 4) * L::kQBox + col, 16, 1024);
+        const uint64_t dk = desc_sw128(k_base + (kk / 4) * L::kKBox + col, 16, 1024);
+        if constexpr (kBK == 128) {
+          wgmma_ss_n128<T>(s, dq, dk, kk > 0);
+        } else {
+          wgmma_ss_n64<T>(s, dq, dk, kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -322,7 +439,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool diag = p.causal && k0 + kBK - 1 > wg_first_row;
       if (edge || diag) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kBK / 2; ++i) {
           const int r = (i >> 1) & 1;
           const int col = k0 + 8 * (i >> 2) + 2 * quad + (i & 1);
           float x = s[i] * p.scale;
@@ -336,7 +453,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kBK / 2; ++i) {
           s[i] *= p.scale;
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
         }
@@ -351,9 +468,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         corr[r] = ex2((m_r[r] - m_new) * kLog2e);
         m_r[r] = m_new;
       }
-      // p = exp(s - m) in fp32; l sums the fp32 p; P.V takes p in bf16.
+      // p = exp(s - m) in fp32; l sums the fp32 p; P.V takes p in T.
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kBK / 2; ++i) {
         const int r = (i >> 1) & 1;
         s[i] = ex2((s[i] - m_r[r]) * kLog2e);
         sum[r] += s[i];
@@ -365,11 +482,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         l_r[r] = l_r[r] * corr[r] + sum[r];
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      for (int i = 0; i < kBK / 4; ++i) pa[i] = Elem<T>::pack(s[2 * i], s[2 * i + 1]);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
-      // o += P V: 8 k-steps of 16 keys; v is MN-major (d contiguous).
+      // o += P V: kBK / 16 k-steps of 16 keys; v is MN-major (d contiguous),
+      // its 64-column boxes kKBox apart.
       mbar_wait(bar(L::kVFull + st), phase);
       __syncwarp();
       fence_regs(pa);
@@ -377,11 +495,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint64_t dv = desc_sw128(v_base + kk * 16 * 128, kBox, 1024);
-        if constexpr (D == 128) {
-          wgmma_rs_n128(o, pa + 4 * kk, dv);
+        const uint64_t dv = desc_sw128(v_base + kk * 16 * kRowBytes, L::kKBox, 1024);
+        if constexpr (D == 256) {
+          wgmma_rs_n256<T>(o, pa + 4 * kk, dv);
+        } else if constexpr (D == 128) {
+          wgmma_rs_n128<T>(o, pa + 4 * kk, dv);
         } else {
-          wgmma_rs_n64(o, pa + 4 * kk, dv);
+          wgmma_rs_n64<T>(o, pa + 4 * kk, dv);
         }
       }
       wgmma_commit();
@@ -409,12 +529,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       } else {
         const float denom = fmaxf(l_r[r], kFloor);
-        __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) +
-                             (((int64_t)bi * p.sq + row) * p.h + head) * D;
+        T* out = static_cast<T*>(p.out) + (((int64_t)bi * p.sq + row) * p.h + head) * D;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * quad) =
-              pack_bf16(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+              Elem<T>::pack(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
       }
     }
   }
@@ -443,16 +562,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A rank-4 (d, s, h, b) bf16 map with 64 x kBK boxes, 128-byte swizzle,
-// zero fill past the ends. Strides in elements.
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int s, int heads,
-              int b, int64_t sb, int64_t ss, int64_t sh) {
+// A rank-4 (d, s, h, b) map of 16-bit values with 64 x ``rows`` boxes,
+// 128-byte swizzle, zero fill past the ends. Strides in elements.
+bool make_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+              int d, int s, int heads, int b, int64_t sb, int64_t ss, int64_t sh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, kBK, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -462,47 +581,68 @@ bool tma_ok(const void* ptr, int64_t sb, int64_t ss, int64_t sh) {
          sb % 8 == 0 && ss % 8 == 0 && sh % 8 == 0;
 }
 
-template <int D, bool EMIT_STATS>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
-           int b, cudaStream_t stream) {
-  constexpr int bytes = Layout<D>::kBytes;
-  auto kernel = flash_sm90_kernel<D, EMIT_STATS>;
+struct Call {
+  const void *q, *k, *v;
+  int b, h, hk, sq, sk, d;
+  int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+};
+
+template <typename T, int D, bool EMIT_STATS>
+int launch(const Call& c, const Params& p, cudaStream_t stream) {
+  using L = Layout<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoDriver;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(encode, &tq, Elem<T>::kMap, c.q, D, c.sq, c.h, c.b, c.q_sb, c.q_ss, c.q_sh,
+                kBQ) ||
+      !make_map(encode, &tk, Elem<T>::kMap, c.k, D, c.sk, c.hk, c.b, c.k_sb, c.k_ss, c.k_sh,
+                L::kBK) ||
+      !make_map(encode, &tv, Elem<T>::kMap, c.v, D, c.sk, c.hk, c.b, c.v_sb, c.v_ss, c.v_sh,
+                L::kBK))
+    return kBadTensorMap;
+  auto kernel = flash_sm90_kernel<T, D, EMIT_STATS>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(b * p.h, (p.sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, bytes, stream>>>(tq, tk, tv, p);
+  const dim3 grid(c.b * p.h, (p.sq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool EMIT_STATS>
+int dispatch_d(const Call& c, const Params& p, cudaStream_t stream) {
+  if (c.d == 256) return launch<T, 256, EMIT_STATS>(c, p, stream);
+  if (c.d == 128) return launch<T, 128, EMIT_STATS>(c, p, stream);
+  return launch<T, 64, EMIT_STATS>(c, p, stream);
+}
+
+template <typename T>
+int dispatch_mode(const Call& c, const Params& p, bool emit_stats, cudaStream_t stream) {
+  return emit_stats ? dispatch_d<T, true>(c, p, stream) : dispatch_d<T, false>(c, p, stream);
 }
 
 }  // namespace
 
-// q (b, sq, h, d), k and v (b, sk, hk, d), bf16, unit d stride; strides in
-// elements. Size-1 dimensions must come with a valid stride (the caller
-// passes the contiguous one).
+// kind: 1 bf16, 2 fp16 (q, k, v and, in the normalized mode, o). q (b, sq,
+// h, d), k and v (b, sk, hk, d), unit d stride; strides in elements.
+// Size-1 dimensions must come with a valid stride (the caller passes the
+// contiguous one).
 extern "C" int tst_flash_sm90(const void* q, const void* k, const void* v, void* out, float* m,
-                              float* l, int emit_stats, int causal, int b, int h, int hk, int sq,
-                              int sk, int d, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                              int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                              int64_t v_ss, int64_t v_sh, float scale, void* stream) {
-  if (d != 64 && d != 128) return kBadHeadDim;
+                              float* l, int kind, int emit_stats, int causal, int b, int h,
+                              int hk, int sq, int sk, int d, int64_t q_sb, int64_t q_ss,
+                              int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                              int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
+                              void* stream) {
+  if (kind != 1 && kind != 2) return kBadKind;
+  if (d != 64 && d != 128 && d != 256) return kBadHeadDim;
   if (b <= 0 || h <= 0 || hk <= 0 || h % hk != 0 || sq <= 0 || sk <= 0 ||
       (sq + kBQ - 1) / kBQ > 65535)
     return kBadShape;
   if (!tma_ok(q, q_sb, q_ss, q_sh) || !tma_ok(k, k_sb, k_ss, k_sh) || !tma_ok(v, v_sb, v_ss, v_sh))
     return kBadLayout;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kNoDriver;
-  CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, q, d, sq, h, b, q_sb, q_ss, q_sh) ||
-      !make_map(encode, &tk, k, d, sk, hk, b, k_sb, k_ss, k_sh) ||
-      !make_map(encode, &tv, v, d, sk, hk, b, v_sb, v_ss, v_sh))
-    return kBadTensorMap;
+  const Call c{q, k, v, b, h, hk, sq, sk, d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   const Params p{out, m, l, h, hk, sq, sk, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128) {
-    return emit_stats ? launch<128, true>(tq, tk, tv, p, b, s)
-                      : launch<128, false>(tq, tk, tv, p, b, s);
-  }
-  return emit_stats ? launch<64, true>(tq, tk, tv, p, b, s) : launch<64, false>(tq, tk, tv, p, b, s);
+  return kind == 1 ? dispatch_mode<__nv_bfloat16>(c, p, emit_stats != 0, s)
+                   : dispatch_mode<__half>(c, p, emit_stats != 0, s);
 }

@@ -3,9 +3,11 @@
 Each kernel source under ``csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and bound
 with ``ctypes``. The library lands in ``_build/`` (git-ignored), named by
-the hash of the source and the flags, at first use; nothing is compiled or
-loaded when a module is imported. ``build_all`` starts several builds at
-once, one ``nvcc`` per source.
+the hash of the source and the flags, at first use, with the compiler's
+log beside it (``.log``: a later process that loads the built library reads
+the same ptxas report); nothing is compiled or loaded when a module is
+imported. ``build_all`` starts several builds at once, one ``nvcc`` per
+source.
 """
 
 from __future__ import annotations
@@ -98,7 +100,12 @@ class NvccLibrary:
                 self._proc = None
                 if rc != 0:
                     raise RuntimeError(f"nvcc failed ({rc}) building {self.source}:\n{out}")
+                log_tmp = self._tmp.with_suffix(".logtmp")
+                log_tmp.write_text(out)
+                os.replace(log_tmp, lib_path.with_suffix(".log"))
                 os.replace(self._tmp, lib_path)  # concurrent builds: the last rename wins
+            elif lib_path.with_suffix(".log").exists():
+                self.build_log = lib_path.with_suffix(".log").read_text()
             self.build_seconds = time.perf_counter() - self._t0
             fn = getattr(ctypes.CDLL(str(lib_path)), self.symbol)
             fn.argtypes = self.argtypes

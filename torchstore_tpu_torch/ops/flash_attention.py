@@ -14,13 +14,14 @@ tensor they take the plain versions, ``stats_reference`` and
 ``attention_reference``. Two kernels serve both modes (a compile-time stats
 flag in each), picked by one rule, ``sm90_eligible``:
 
-- ``csrc/flash_attention_sm90.cu`` (variant ``"sm90"``): bf16 q/k/v with
-  head_dim 64 or 128 whose strides TMA accepts. bf16 ``wgmma`` for both
-  products, p rounded to bf16 before P.V as FlashAttention and SDPA do;
+- ``csrc/flash_attention_sm90.cu`` (variant ``"sm90"``): bf16 or fp16
+  q/k/v with head_dim 64, 128 or 256 whose strides TMA accepts. ``wgmma``
+  in the input type for both products, p rounded to that type before P.V
+  as FlashAttention and SDPA do, over k-tiles of ``SM90_BLOCK_K[d]`` keys;
   ``stats_blockwise_reference`` repeats its arithmetic in plain PyTorch.
 - ``csrc/flash_attention.cu`` (variant ``"simt"``): every other call (fp32,
   other head dims up to 256 with d % 8 == 0, other strides), fp32 math on
-  the CUDA cores.
+  the CUDA cores; it reads fp32, bf16 and fp16.
 
 Both take any sequence lengths (they mask ragged edges); the JAX kernel
 needed tiling lengths. ``flash_stats_eligible`` keeps the JAX package's
@@ -44,13 +45,18 @@ NEG_INF = -1e30
 DENOM_FLOOR = 1e-30
 MAX_HEAD_DIM = 256
 
-_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # Error codes of the two kernels' entry points beside CUDA's own.
 _ERRORS = {
     -1: "input type", -2: "head_dim", -3: "shape", -4: "alignment or strides TMA refuses",
     -5: "tensor map refused", -6: "cuTensorMapEncodeTiled not found",
 }
-SM90_HEAD_DIMS = (64, 128)
+SM90_DTYPES = (torch.bfloat16, torch.float16)
+SM90_HEAD_DIMS = (64, 128, 256)
+# Keys per k-tile of the sm90 kernel at each head_dim (``Tiling<D>`` in the
+# .cu file): at d = 256 q and two stages of 128-key k and v tiles would not
+# fit in a block's shared memory.
+SM90_BLOCK_K = {64: 128, 128: 128, 256: 64}
 
 
 def _pick_block(s: int, cap: int = 256) -> "int | None":
@@ -115,15 +121,18 @@ def attention_reference(q, k, v, causal: bool = False):
     return _normalize(acc, l, q.dtype)
 
 
-def stats_blockwise_reference(q, k, v, causal_diag: bool = False, block_k: int = 128,
-                              *, _round_p: bool = True):
+def stats_blockwise_reference(q, k, v, causal_diag: bool = False,
+                              block_k: "int | None" = None, *, _round_p: bool = True):
     """Plain PyTorch that repeats the sm90 kernel's arithmetic: an online
-    softmax over k-tiles of ``block_k`` keys, ``l`` summed from the fp32
-    ``p``, ``p`` rounded to bf16 before P.V (``_round_p=False`` keeps it
-    fp32, which makes this ``stats_reference`` summed in another order), the
-    same masks. Returns ``(acc, m, l)`` like ``stats_reference``. The tests
-    and ``chip_smoke.py`` hold the kernel against it; no path uses it."""
+    softmax over k-tiles of ``block_k`` keys (by default the kernel's own,
+    ``SM90_BLOCK_K[d]``), ``l`` summed from the fp32 ``p``, ``p`` rounded to
+    q's dtype before P.V (``_round_p=False`` keeps it fp32, which makes this
+    ``stats_reference`` summed in another order), the same masks. Returns
+    ``(acc, m, l)`` like ``stats_reference``. The tests and
+    ``chip_smoke.py`` hold the kernel against it; no path uses it."""
     b, sq, h, d = q.shape
+    if block_k is None:
+        block_k = SM90_BLOCK_K.get(d, 128)
     sk, hk = k.shape[1], k.shape[2]
     g = h // hk
     scale = 1.0 / math.sqrt(d)
@@ -146,13 +155,14 @@ def stats_blockwise_reference(q, k, v, causal_diag: bool = False, block_k: int =
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         if _round_p:
-            p = p.to(torch.bfloat16).float()
+            p = p.to(q.dtype).float()
         acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, k0:k0 + block_k])
         m = m_new
     return acc, m, l
 
 
-def attention_blockwise_reference(q, k, v, causal: bool = False, block_k: int = 128):
+def attention_blockwise_reference(q, k, v, causal: bool = False,
+                                  block_k: "int | None" = None):
     """The normalized twin of ``stats_blockwise_reference``, in q's dtype."""
     acc, _, l = stats_blockwise_reference(q, k, v, causal, block_k)
     return _normalize(acc, l, q.dtype)
@@ -168,11 +178,12 @@ def _tma_strides(x: torch.Tensor) -> tuple:
 
 
 def sm90_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """The variant rule: the sm90 kernel takes bf16 q, k, v with head_dim 64
-    or 128, h % hk == 0, and what TMA accepts: 16-byte aligned base
-    pointers, a unit head_dim stride and every other stride a positive
-    multiple of 8 elements. Every other call runs on the simt kernel."""
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+    """The variant rule: the sm90 kernel takes bf16 or fp16 q, k, v (all of
+    one type) with head_dim 64, 128 or 256, h % hk == 0, and what TMA
+    accepts: 16-byte aligned base pointers, a unit head_dim stride and every
+    other stride a positive multiple of 8 elements. Every other call runs on
+    the simt kernel."""
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in SM90_DTYPES:
         return False
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         return False
@@ -186,23 +197,13 @@ def sm90_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     return True
 
 
+# Both entry points: q, k, v, out, m, l; kind, emit_stats, causal, b, h, hk,
+# sq, sk, d; the (b, s, h) strides of q, k, v; scale, stream.
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 9
+             + [ctypes.c_float, ctypes.c_void_p])
 _LIBS = {
-    "simt": NvccLibrary(
-        "flash_attention.cu",
-        "tst_flash",
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 9
-        + [ctypes.c_int64] * 9
-        + [ctypes.c_float, ctypes.c_void_p],
-    ),
-    "sm90": NvccLibrary(
-        "flash_attention_sm90.cu",
-        "tst_flash_sm90",
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 8
-        + [ctypes.c_int64] * 9
-        + [ctypes.c_float, ctypes.c_void_p],
-    ),
+    "simt": NvccLibrary("flash_attention.cu", "tst_flash", _ARGTYPES),
+    "sm90": NvccLibrary("flash_attention_sm90.cu", "tst_flash_sm90", _ARGTYPES),
 }
 
 
@@ -225,7 +226,7 @@ class FlashKernel:
         it."""
         if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KINDS:
             raise TypeError(
-                f"flash kernel takes q, k, v all float32 or all bfloat16, got "
+                f"flash kernel takes q, k, v all float32, all bfloat16 or all float16, got "
                 f"{q.dtype}, {k.dtype}, {v.dtype}"
             )
         if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -266,15 +267,13 @@ class FlashKernel:
         if lib.fn is None:
             lib.build()
         if variant == "sm90":
-            kind = ()
             strides = (*_tma_strides(q), *_tma_strides(k), *_tma_strides(v))
         else:
-            kind = (_KINDS[q.dtype],)
             strides = tuple(x.stride(i) for x in (q, k, v) for i in range(3))
         with torch.cuda.device(dev):
             err = lib.fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), *out_ptrs,
-                *kind, int(self.emit_stats), int(causal),
+                _KINDS[q.dtype], int(self.emit_stats), int(causal),
                 b, h, hk, sq, sk, d,
                 *strides,
                 1.0 / math.sqrt(d),
