@@ -12,11 +12,13 @@ depth:
 
 1. device       - the card, its power limit, /dev/shm and host memory;
 2. build        - nvcc builds csrc/cast.cu, csrc/flash_attention.cu (the
-                  simt flash kernel) and csrc/flash_attention_sm90.cu (the
-                  Hopper flash kernel) from the checkout, all at once, and
-                  prints each library's ptxas registers and spills, and
-                  each sm90 instance's (bf16 and fp16, d 64, 128 and 256,
-                  both modes); fails if an sm90 instance spills, one is
+                  simt flash kernel), csrc/flash_attention_sm90.cu (the
+                  Hopper flash kernel) and csrc/flash_attention_sm90_fp32.cu
+                  (its fp32 twin on the TF32 tensor cores, 3xTF32) from the
+                  checkout, all at once, and prints each library's ptxas
+                  registers and spills, and each tensor-core instance's
+                  (sm90: bf16 and fp16, d 64, 128 and 256; sm90_fp32: d 64
+                  and 128; both modes); fails if an instance spills, one is
                   missing, or ptxas ignored a setmaxnreg;
 3. parity       - the grouped cast kernel against its plain version on the
                   card, bit for bit outside NaN (NaN positions equal), for
@@ -111,17 +113,21 @@ depth:
                   and ragged ones, batch up to 4, a packed qkv projection
                   view, fp32 and bf16, causal and not, and fp16 on d 64, 72
                   and 256, a ragged case and the packed view. Each case
-                  names the variant ``sm90_eligible`` picked (bf16 and fp16
-                  at d 64, 128 and 256 on sm90, the rest on simt); the sm90
-                  cases are held against the blockwise plain version at the
-                  kernel's own k-tile and against the fp32 one with SDPA's
-                  error as the yardstick;
+                  names the variant ``flash_variant`` picked (bf16 and fp16
+                  at d 64, 128 and 256 on sm90, fp32 at d 64 and 128 on
+                  sm90_fp32, the rest on simt); the sm90 cases are held
+                  against the blockwise plain version at the kernel's own
+                  k-tile and against the fp32 one with SDPA's error as the
+                  yardstick, the sm90_fp32 and simt cases against the fp32
+                  plain version (sm90_fp32's error against its 3xTF32 twin
+                  printed beside it);
 10. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
                   (and K2 at 4096, and K2 in fp16) on the sm90 kernel, and
-                  at 8192 on the simt kernel, beside their bound (the bf16
-                  tensor-core rate for sm90, the fp32 CUDA-core rate for
-                  simt's fp32 math), the plain versions and SDPA (on fp32
-                  copies of the inputs beside simt); then at Gemma-7B
+                  the same calls in fp32 on the sm90_fp32 kernel and on the
+                  simt kernel forced, beside their bound (the bf16
+                  tensor-core rate for sm90, three passes at the TF32 rate
+                  for sm90_fp32, the fp32 CUDA-core rate for simt), the
+                  plain versions and SDPA on the same inputs; then at Gemma-7B
                   attention width (h=16, hk=16, d=256, bf16, 8192 tokens)
                   K2, K2 causal-diagonal and K3 causal on the sm90 kernel and
                   on the simt kernel forced (the route d = 256 took before),
@@ -131,7 +137,9 @@ depth:
                   path (forward at 8192, forward and backward at 4096) and
                   an fp32 forward path at 2048, held against the einsum body
                   and the plain version; K2's and K3's launches per variant
-                  on each path (bf16: sm90 only, at both widths);
+                  on each path (bf16: sm90 only, at both widths; fp32:
+                  sm90_fp32 only at Llama-3-8B width, simt only at Gemma-7B's
+                  d = 256);
 12. model       - the RL loop at Llama-3-8B width (depth cut): a learner
                   trains two steps and publishes with direct=True (cast
                   launches equal to the planner's chunk count; the device
@@ -364,6 +372,7 @@ CAST_SHAPES = {
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores (the simt flash kernel's math)
+TF32_FLOP_PER_S = 495e12  # dense TF32 tensor-core rate (the sm90_fp32 kernel's, 3 passes)
 L2_BYTES = 50 * 2**20
 
 
@@ -455,22 +464,26 @@ def phase_build(staging, flash) -> dict:
             "spill_bytes": sum(spills),
             "warnings": [line.strip() for line in log if "warning" in line.lower()][:8],
         }
-    sm90 = out["flash_sm90"]
-    instances = _ptxas_instances(flash.stats_kernel.libs["sm90"].build_log.splitlines())
-    sm90["instances"] = instances
-    sm90["setmaxnreg_ignored"] = any(i["setmaxnreg_ignored"] for i in instances.values())
-    # Every (type, head_dim, mode) instance: no spill, setmaxnreg honoured.
-    want = len(flash.SM90_DTYPES) * len(flash.SM90_HEAD_DIMS) * 2
-    out["ok"] = (sm90["spill_bytes"] == 0 and not sm90["setmaxnreg_ignored"]
-                 and len(instances) == want
-                 and all(i["spill_bytes"] == 0 for i in instances.values()))
+    # Every (type, head_dim, mode) instance of both tensor-core libraries:
+    # no spill, setmaxnreg honoured.
+    ok = True
+    for variant, want in (("sm90", len(flash.SM90_DTYPES) * len(flash.SM90_HEAD_DIMS) * 2),
+                          ("sm90_fp32", len(flash.SM90_FP32_HEAD_DIMS) * 2)):
+        lib = out[f"flash_{variant}"]
+        instances = _ptxas_instances(flash.stats_kernel.libs[variant].build_log.splitlines())
+        lib["instances"] = instances
+        lib["setmaxnreg_ignored"] = any(i["setmaxnreg_ignored"] for i in instances.values())
+        ok = ok and (lib["spill_bytes"] == 0 and not lib["setmaxnreg_ignored"]
+                     and len(instances) == want
+                     and all(i["spill_bytes"] == 0 for i in instances.values()))
+    out["ok"] = ok
     return out
 
 
 def _ptxas_instances(log: list) -> dict:
-    """Per entry function of the sm90 library's ``ptxas -v`` log, named
-    ``<type>_d<head_dim>_<stats|o>``: its registers at entry, its spill
-    bytes and whether ptxas ignored a setmaxnreg in it (C7508)."""
+    """Per entry function of a tensor-core flash library's ``ptxas -v``
+    log, named ``<type>_d<head_dim>_<stats|o>``: its registers at entry, its
+    spill bytes and whether ptxas ignored a setmaxnreg in it (C7508)."""
     import re
 
     out, cur = {}, None
@@ -478,7 +491,8 @@ def _ptxas_instances(log: list) -> dict:
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
             name = found.group(1)
-            dtype = "bf16" if "__nv_bfloat16" in name else "fp16" if "__half" in name else "?"
+            dtype = ("bf16" if "__nv_bfloat16" in name else "fp16" if "__half" in name
+                     else "fp32" if "fp32" in name else "?")
             d = re.search(r"Li(\d+)E", name)
             stats = re.search(r"Lb([01])E", name)
             label = (f"{dtype}_d{d.group(1) if d else '?'}_"
@@ -2599,6 +2613,12 @@ FLASH_TOL = {
                          "one ulp (<= u p) per term; flip allows two such terms at the row's "
                          "largest weight (p <= 1). 'strict_outside' counts acc values outside "
                          "1e-5 + 1e-4 |want|",
+    "sm90_fp32": "fp32 inputs at d 64/128 (the sm90_fp32 kernel, 3xTF32): held to 'stats' "
+                 "and 'o_fp32' against the fp32 plain version; beside it, reported and not "
+                 "gated, the worst errors of acc (on o's scale), m, l and o against its twin "
+                 "stats_blockwise_reference(split='tf32x3', _round_p=False) at the kernel's "
+                 "k-tile SM90_FP32_BLOCK_K[d] (the same TF32 roundings; the fp32 sums, of up "
+                 "to 8192 terms, in another order)",
     "sm90_vs_fp32": "against the fp32 plain version, with SDPA (is_causal, enable_gqa) on "
                     "the same inputs (of the same type) as the yardstick: the kernel's o and "
                     "acc/l each have a worst error <= 2x SDPA's worst error against "
@@ -2714,6 +2734,18 @@ def _check_sm90(torch, flash, q, k, v, causal, got, o) -> dict:
     return res
 
 
+def _check_tf32x3_twin(torch, flash, q, k, v, causal, got, o) -> dict:
+    """An sm90_fp32 case against its 3xTF32 twin at the kernel's k-tile:
+    the worst error of acc (on o's scale), m, l and o."""
+    tw = flash.stats_blockwise_reference(q, k, v, causal, _round_p=False, split="tf32x3")
+    n = tw[2][..., None]
+    res = {"acc": _within(torch, got[0] / n, tw[0] / n)["max_abs_err"]}
+    res.update({name: _within(torch, g, w)["max_abs_err"]
+                for name, g, w in zip("ml", got[1:], tw[1:])})
+    res["o"] = _within(torch, o, flash._normalize(tw[0], tw[2], q.dtype))["max_abs_err"]
+    return res
+
+
 def phase_flash_parity(torch, flash) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2721,7 +2753,8 @@ def phase_flash_parity(torch, flash) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     cases = []
-    worst = {f"{mode}_{variant}": 0.0 for mode in ("stats", "o") for variant in ("sm90", "simt")}
+    worst = {f"{mode}_{variant}": 0.0 for mode in ("stats", "o")
+             for variant in ("sm90", "sm90_fp32", "simt")}
     worst.update({"stats_sm90_d256": 0.0, "o_sm90_d256": 0.0, "stats_sm90_fp16": 0.0,
                   "o_sm90_fp16": 0.0})
     fp16_s = 0.0
@@ -2733,9 +2766,12 @@ def phase_flash_parity(torch, flash) -> dict:
             t_case = time.perf_counter()
             q, k, v = _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype,
                            packed=label.startswith("packed"))
-            variant = "sm90" if flash.sm90_eligible(q, k, v) else "simt"
+            variant = flash.flash_variant(q, k, v)
             # Every case's strides pass TMA's rule, so dtype and d decide.
-            rule = "sm90" if dtype != torch.float32 and d in flash.SM90_HEAD_DIMS else "simt"
+            if dtype != torch.float32:
+                rule = "sm90" if d in flash.SM90_HEAD_DIMS else "simt"
+            else:
+                rule = "sm90_fp32" if d in flash.SM90_FP32_HEAD_DIMS else "simt"
             for causal in (False, True):
                 before = _flash_counts(flash)
                 got = flash.stats_kernel(q, k, v, causal)
@@ -2767,6 +2803,9 @@ def phase_flash_parity(torch, flash) -> dict:
                     err_stats = max(res["m"]["max_abs_err"], res["l"]["max_abs_err"],
                                     res["acc"]["raw_max_abs_err"])
                     err_o = res["o"]["max_abs_err"]
+                twin = None
+                if variant == "sm90_fp32":
+                    twin = _check_tf32x3_twin(torch, flash, q, k, v, causal, got, o)
                 del got, o
                 ok = all(r["outside"] == 0 for r in res.values()) and ran == {
                     "flash_stats": [variant], "flash": [variant]} and variant == rule
@@ -2781,6 +2820,7 @@ def phase_flash_parity(torch, flash) -> dict:
                 cases.append({
                     "case": f"{label} {str(dtype)[6:]} {'causal' if causal else 'full'}",
                     "variant": variant, "launched": ran, "ok": ok, **res,
+                    **({"twin": twin} if twin else {}),
                 })
             del q, k, v
             torch.cuda.empty_cache()
@@ -2798,12 +2838,15 @@ def phase_flash_parity(torch, flash) -> dict:
             row.pop("outside")
         else:
             row.update({"acc": c["acc"]["max_abs_err"], "o": c["o"]["max_abs_err"]})
+        if c["variant"] == "sm90_fp32":
+            row["twin_max_abs_err"] = c["twin"]
         rows.append(row)
     return {
         "phase": "flash_parity",
         "ok": not failed,
         "cases": len(cases),
         "sm90_cases": sum(c["variant"] == "sm90" for c in cases),
+        "sm90_fp32_cases": sum(c["variant"] == "sm90_fp32" for c in cases),
         "fp16_cases": sum(" float16 " in c["case"] for c in cases),
         "fp16_seconds": fp16_s,
         "failed": failed[:10],
@@ -2814,18 +2857,19 @@ def phase_flash_parity(torch, flash) -> dict:
 
 
 def flash_bound(b, sq, sk, h, hk, d, causal, in_bytes, stats,
-                flop_per_s=BF16_FLOP_PER_S) -> dict:
+                flop_per_s=BF16_FLOP_PER_S, passes=1) -> dict:
     """Least time for one call: 4 b h sq sk d operations (halved when
-    causal, as benchmarks/flash_kernel_bench.py counts) at the peak of the
-    math the kernel does (the bf16 tensor cores for sm90, float32 CUDA
-    cores for simt), against each input read once and each output written
-    once at the HBM rate; the larger of the two."""
+    causal, as benchmarks/flash_kernel_bench.py counts), ``passes`` times
+    over (3 for the sm90_fp32 kernel's 3xTF32 split), at the peak of the
+    math the kernel does (the bf16 tensor cores for sm90, the TF32 ones for
+    sm90_fp32, float32 CUDA cores for simt), against each input read once
+    and each output written once at the HBM rate; the larger of the two."""
     flop = 4 * b * h * sq * sk * d / (2 if causal else 1)
     nbytes = in_bytes * (b * sq * h * d + 2 * b * sk * hk * d)
     nbytes += 4 * (b * h * sq * d + 2 * b * h * sq) if stats else in_bytes * b * sq * h * d
-    ops_ms, bytes_ms = flop / flop_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms, bytes_ms = passes * flop / flop_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {
-        "flop": flop, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+        "flop": flop, "passes": passes, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
     }
@@ -2844,8 +2888,10 @@ def phase_flash_timing(torch, flash) -> dict:
               "8b_fp16": (s, h, hk, d, fp16), "gemma": (FLASH_TIMED_GEMMA[1], *GEMMA_HEADS, bf16)}
     inputs = {key: [_qkv(torch, gen, dev, b, n, n, hh, kh, dd, dt) for _ in range(2)]
               for key, (n, hh, kh, dd, dt) in shapes.items()}
-    # The same values in fp32, for SDPA beside the simt kernel's fp32 math.
-    inputs32 = [[t.float() for t in qkv] for qkv in inputs["8b"]]
+    # The same values in fp32: the fp32 calls' inputs (sm90_fp32, the simt
+    # route forced, SDPA and the plain version beside them).
+    shapes["8b_fp32"] = (s, h, hk, d, torch.float32)
+    inputs["8b_fp32"] = [[t.float() for t in qkv] for qkv in inputs["8b"]]
     before = _flash_counts(flash)
 
     def stats(causal, variant=None):
@@ -2862,12 +2908,13 @@ def phase_flash_timing(torch, flash) -> dict:
 
     sdpa = lambda causal: lambda q, k, v: _sdpa(torch, q, k, v, causal)  # noqa: E731
     # name: (input set, causal, stats mode, variant, kernel, plain, library).
-    # The Llama-width simt rows time the kernel against the fp32 CUDA-core
-    # bound and SDPA on fp32 copies of its inputs (the library call doing
-    # the kernel's fp32 math); the Gemma-width simt rows (the route d = 256
-    # took before the sm90 kernel took it) stand beside the bf16 bound and
-    # SDPA in bf16, as their sm90 twins do. A row without a plain version
-    # reports its twin's (the same inputs).
+    # The Llama-width fp32 rows time the sm90_fp32 kernel against the
+    # 3xTF32 bound (three TF32 passes) and the simt route forced on the same
+    # fp32 inputs against the fp32 CUDA-core bound, SDPA on those inputs
+    # beside both; the Gemma-width simt rows (the route d = 256 took before
+    # the sm90 kernel took it) stand beside the bf16 bound and SDPA in bf16,
+    # as their sm90 twins do. A row without a plain version reports its
+    # twin's (the same inputs).
     plan = {
         "flash_stats": ("8b", False, True, "sm90", stats(False), stats_plain(False), sdpa(False)),
         "flash_stats_causal_diag": ("8b", True, True, "sm90", stats(True), stats_plain(True),
@@ -2876,10 +2923,17 @@ def phase_flash_timing(torch, flash) -> dict:
                          sdpa(True)),
         "flash_stats_4096": ("8b_4096", False, True, "sm90", stats(False), stats_plain(False),
                              sdpa(False)),
-        "flash_stats_simt": ("8b", False, True, "simt", stats(False, "simt"), None, sdpa(False)),
-        "flash_stats_causal_diag_simt": ("8b", True, True, "simt", stats(True, "simt"), None,
-                                         sdpa(True)),
-        "flash_causal_simt": ("8b", True, False, "simt", attention(True, "simt"), None,
+        "flash_stats_fp32": ("8b_fp32", False, True, "sm90_fp32", stats(False),
+                             stats_plain(False), sdpa(False)),
+        "flash_stats_causal_diag_fp32": ("8b_fp32", True, True, "sm90_fp32", stats(True),
+                                         stats_plain(True), sdpa(True)),
+        "flash_causal_fp32": ("8b_fp32", True, False, "sm90_fp32", attention(True),
+                              attention_plain(True), sdpa(True)),
+        "flash_stats_simt": ("8b_fp32", False, True, "simt", stats(False, "simt"), None,
+                             sdpa(False)),
+        "flash_stats_causal_diag_simt": ("8b_fp32", True, True, "simt", stats(True, "simt"),
+                                         None, sdpa(True)),
+        "flash_causal_simt": ("8b_fp32", True, False, "simt", attention(True, "simt"), None,
                               sdpa(True)),
         "flash_stats_fp16": ("8b_fp16", False, True, "sm90", stats(False), stats_plain(False),
                              sdpa(False)),
@@ -2901,7 +2955,6 @@ def phase_flash_timing(torch, flash) -> dict:
     for name, (key, causal, is_stats, variant, kernel, plain, library) in plan.items():
         t_row = time.perf_counter()
         n, rh, rhk, rd, dtype = shapes[key]
-        fp32_math = variant == "simt" and key == "8b"
         fns = {"kernel": kernel, "library": library}
         order = ["kernel", "library", "library", "kernel"]
         if plain is not None:
@@ -2911,13 +2964,18 @@ def phase_flash_timing(torch, flash) -> dict:
         mode = flash.stats_kernel if is_stats else flash.attention_kernel
         launched = mode.launches_by_variant[variant]
         for x in order:  # in turns; each reports the better of its two runs
-            on32 = x == "library" and fp32_math
-            runs[x].append(_time_ms(torch, lambda qkv: fns[x](*qkv),
-                                    inputs32 if on32 else inputs[key], iters=5))
-        bound = flash_bound(b, n, n, rh, rhk, rd, causal, 2, is_stats,
-                            FP32_FLOP_PER_S if fp32_math else BF16_FLOP_PER_S)
+            runs[x].append(_time_ms(torch, lambda qkv: fns[x](*qkv), inputs[key], iters=5))
+        if variant == "sm90_fp32":
+            rate, passes, bound_rate = TF32_FLOP_PER_S, 3, "TF32 tensor cores, 3 passes (3xTF32)"
+        elif dtype == torch.float32:
+            rate, passes, bound_rate = FP32_FLOP_PER_S, 1, "fp32 CUDA cores"
+        else:
+            rate, passes, bound_rate = BF16_FLOP_PER_S, 1, "16-bit tensor cores"
+        bound = flash_bound(b, n, n, rh, rhk, rd, causal, dtype.itemsize, is_stats, rate, passes)
         ms = min(runs["kernel"])
-        twin = name[:-len("_simt")] if variant == "simt" else name
+        twin = name
+        if variant == "simt":
+            twin = name[:-len("_simt")] + ("_fp32" if dtype == torch.float32 else "")
         rows[name] = {
             "shape": {"b": b, "sq": n, "sk": n, "h": rh, "hk": rhk, "d": rd,
                       "dtype": str(dtype)[6:]},
@@ -2927,25 +2985,28 @@ def phase_flash_timing(torch, flash) -> dict:
             "ms": ms,
             "plain_ms": min(runs["plain"]) if plain is not None else rows[twin]["plain_ms"],
             "library_ms": min(runs["library"]),
-            "library": ("SDPA" + (" on fp32 copies of the inputs" if fp32_math else "")
+            "library": ("SDPA" + (" on the same fp32 inputs" if dtype == torch.float32 else "")
                         + ", " + ("causal" if causal else "not causal")
                         + (", computes o, not (acc, m, l)" if is_stats else "")),
             "runs_ms": runs,
             **bound,
-            "bound_rate": "fp32 CUDA cores" if fp32_math else "16-bit tensor cores",
+            "bound_rate": bound_rate,
             "share_of_bound": bound["bound_ms"] / ms,
             "tflop_per_s": bound["flop"] / ms / 1e9,
         }
-        if variant == "simt" and key == "gemma":
-            rows[name]["sm90_speedup"] = ms / rows[twin]["ms"]
+        if variant == "simt":
+            # How much faster the tensor-core route is on the same inputs.
+            rows[name]["tensor_core_speedup"] = ms / rows[twin]["ms"]
+        if variant == "sm90_fp32":
+            rows[name]["library_over_kernel"] = rows[name]["library_ms"] / ms
         torch.cuda.empty_cache()
         if key == "gemma":
             gemma_s += time.perf_counter() - t_row
     _reset_flash_counts(flash, before)
     ok = all(r["ran_on_variant"] for r in rows.values())
     return {"phase": "flash_timing", "ok": ok, "rows": rows, "gemma_seconds": gemma_s,
-            "peaks": {"bf16_flop_per_s": BF16_FLOP_PER_S, "fp32_flop_per_s": FP32_FLOP_PER_S,
-                      "hbm_bytes_per_s": HBM_BYTES_PER_S}}
+            "peaks": {"bf16_flop_per_s": BF16_FLOP_PER_S, "tf32_flop_per_s": TF32_FLOP_PER_S,
+                      "fp32_flop_per_s": FP32_FLOP_PER_S, "hbm_bytes_per_s": HBM_BYTES_PER_S}}
 
 
 def _free_port() -> int:
@@ -2960,9 +3021,10 @@ def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None) -> dic
     """Ring attention over a one-rank sp mesh (the caller holds the process
     group), then K3 through ``flash_attention``: a bf16 path, forward at
     ``fwd_seq`` and forward + backward at ``bwd_seq``, causal and not; then
-    an fp32 path (a learner computing attention in fp32), forward and K3 at
-    half ``bwd_seq``. Each path's per-variant launch counts are set to 0 just
-    before it and read right after; the comparisons follow."""
+    an fp32 path (a learner computing attention in fp32: sm90_fp32 at head
+    dim 64 or 128, simt at 256), forward and K3 at half ``bwd_seq``. Each
+    path's per-variant launch counts are set to 0 just before it and read
+    right after; the comparisons follow."""
     from torchstore_tpu_torch.ops import flash_attention, ring_attention_sharded
     from torchstore_tpu_torch.parallel import make_mesh
 
@@ -3013,9 +3075,13 @@ def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None) -> dic
     fp32_path_s = time.perf_counter() - t0
     fp32_launches = _flash_counts(flash)
     _reset_flash_counts(flash)
-    ring_calls, k3_calls = 4, 2  # each path's calls: bf16 on sm90, fp32 on simt
-    expected = {"flash_stats": {"sm90": ring_calls, "simt": 0}, "flash": {"sm90": k3_calls, "simt": 0}}
-    fp32_expected = {"flash_stats": {"sm90": 0, "simt": 2}, "flash": {"sm90": 0, "simt": 2}}
+    # Each path's calls: bf16 on sm90; fp32 on sm90_fp32 at d 64/128, on
+    # simt at d = 256.
+    ring_calls, k3_calls = 4, 2
+    none = {name: 0 for name in flash.stats_kernel.launches_by_variant}
+    expected = {"flash_stats": {**none, "sm90": ring_calls}, "flash": {**none, "sm90": k3_calls}}
+    fp32_variant = "sm90_fp32" if d in flash.SM90_FP32_HEAD_DIMS else "simt"
+    fp32_expected = {"flash_stats": {**none, fp32_variant: 2}, "flash": {**none, fp32_variant: 2}}
 
     def yardstick(label, got, want, inputs, causal):
         """``got`` against ``want`` with SDPA on the same inputs as the
@@ -3102,7 +3168,7 @@ def phase_ring(torch, flash) -> dict:
     try:
         res = _ring_path(torch, flash, dev, fwd_seq=8192, bwd_seq=4096)
         # Gemma-7B attention width: its bf16 calls run on the sm90 kernel's
-        # d = 256 instance.
+        # d = 256 instance, its fp32 calls on simt.
         t0 = time.perf_counter()
         gemma = _ring_path(torch, flash, dev, fwd_seq=8192, bwd_seq=4096, heads=GEMMA_HEADS)
         gemma["seconds"] = time.perf_counter() - t0
@@ -5486,7 +5552,7 @@ def phase_kernels(results: dict) -> dict:
     run (five casting steps). The flash kernels' are one call at FLASH_TIMED
     (FLASH_TIMED_GEMMA for d = 256; flash_timing), their launches those of
     the ring phase's paths (bf16: sm90, Gemma-width bf16: sm90 at d = 256,
-    fp32: simt)."""
+    fp32: sm90_fp32, Gemma-width fp32: simt)."""
     needed = ("parity", "timing", "main", "flash_parity", "flash_timing", "ring")
     missing = [p for p in needed if p not in results]
     if missing:
@@ -5557,22 +5623,26 @@ def phase_kernels(results: dict) -> dict:
     fparity, ftiming, ring = results["flash_parity"], results["flash_timing"]["rows"], results["ring"]
     within = "within tolerance" if fparity["ok"] else "differs"
     sources = {"sm90": "torchstore_tpu_torch/csrc/flash_attention_sm90.cu",
+               "sm90_fp32": "torchstore_tpu_torch/csrc/flash_attention_sm90_fp32.cu",
                "simt": "torchstore_tpu_torch/csrc/flash_attention.cu"}
     # (entry suffix, variant, timing row prefix and suffix, worst-error key,
-    # launches). Launches: the sm90 kernel's d 64/128 instances on the ring
-    # phase's bf16 Llama-width path, its d = 256 instance on the Gemma-width
-    # one, the simt kernel's on the fp32 path.
+    # launches, shape, input type). Launches: the sm90 kernel's d 64/128
+    # instances on the ring phase's bf16 Llama-width path, its d = 256
+    # instance on the Gemma-width one, the sm90_fp32 kernel's on the
+    # Llama-width fp32 path, the simt kernel's on the Gemma-width fp32 path.
     flavours = (
-        ("sm90", "sm90", "", "", "sm90", ring["launches"], FLASH_TIMED,
+        ("sm90", "sm90", "", "", "sm90", ring["launches"], FLASH_TIMED, "bf16",
          "launches from the bf16 ring path"),
-        ("simt", "simt", "", "_simt", "simt", ring["fp32_launches"], FLASH_TIMED,
-         "launches from the fp32 ring path"),
+        ("sm90_fp32", "sm90_fp32", "", "_fp32", "sm90_fp32", ring["fp32_launches"], FLASH_TIMED,
+         "fp32", "launches from the fp32 ring path"),
+        ("simt", "simt", "", "_simt", "simt", ring["gemma"]["fp32_launches"], FLASH_TIMED,
+         "fp32", "launches from the Gemma-7B-width fp32 ring path (d = 256)"),
         ("sm90_d256", "sm90", "gemma_", "", "sm90_d256", ring["gemma"]["launches"],
-         FLASH_TIMED_GEMMA, "launches from the Gemma-7B-width bf16 ring path"),
+         FLASH_TIMED_GEMMA, "bf16", "launches from the Gemma-7B-width bf16 ring path"),
     )
-    for suffix, variant, prefix, row_suffix, err_key, launches, shape, origin in flavours:
+    for suffix, variant, prefix, row_suffix, err_key, launches, shape, dtype, origin in flavours:
         b, s, h, hk, d = shape
-        per = f"one call, b={b} sq=sk={s} h={h} hk={hk} d={d} bf16"
+        per = f"one call, b={b} sq=sk={s} h={h} hk={hk} d={d} {dtype}"
         for name, row_key, err in (("flash_stats", "flash_stats", "stats"),
                                    ("flash", "flash_causal", "o")):
             row = ftiming[prefix + row_key + row_suffix]

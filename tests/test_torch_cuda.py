@@ -19,6 +19,11 @@ sm90 kernel are held against its arithmetic twin
 round an fp32 p to the input type, and where the two p differ in their last
 bits they can round to adjacent values (one ulp, at most 2**-7 p_j |v_j| / l
 in o in bf16, 2**-10 in fp16); the allowance covers two such terms at p <= 1.
+Calls that ``sm90_fp32_eligible`` sends to the sm90_fp32 kernel (fp32, d 64
+or 128) are held against the fp32 plain version with the fp32 bounds, and
+against their 3xTF32 twin (``stats_blockwise_reference(split="tf32x3")``)
+ten times tighter: 1e-6 + 1e-5 |want| (the twin makes the same TF32
+roundings; only the order of the fp32 sums differs).
 """
 
 import importlib
@@ -62,10 +67,38 @@ def counts():
             dict(fa.attention_kernel.launches_by_variant))
 
 
+def expected_variant(dtype, d):
+    if dtype in fa.SM90_DTYPES and d in fa.SM90_HEAD_DIMS:
+        return "sm90"
+    return "sm90_fp32" if dtype == torch.float32 and d in fa.SM90_FP32_HEAD_DIMS else "simt"
+
+
+def within(got, want, rtol, atol, scale=None):
+    """Worst error and whether every value is within atol + rtol |want|,
+    both sides divided by ``scale`` first where given."""
+    got, want = got.float(), want.float()
+    if scale is not None:
+        got, want = got / scale, want / scale
+    err = (got - want).abs()
+    return float(err.max()), bool((err <= atol + rtol * want.abs()).all())
+
+
+def check_tf32x3_twin(q, k, v, causal, acc, m, l, o):
+    """The sm90_fp32 kernel against its 3xTF32 twin, ten times tighter than
+    the fp32 bounds."""
+    t_acc, t_m, t_l = fa.stats_blockwise_reference(q, k, v, causal, _round_p=False,
+                                                   split="tf32x3")
+    t_o = fa.attention_blockwise_reference(q, k, v, causal, split="tf32x3")
+    for name, got, want, scale in (("acc", acc, t_acc, t_l[..., None]), ("m", m, t_m, None),
+                                   ("l", l, t_l, None), ("o", o, t_o, None)):
+        err, ok = within(got, want, 1e-5, 1e-6, scale)
+        assert ok, (name, err)
+
+
 def run_and_check(q, k, v, causal, dtype):
     """Both modes against the plain version of the variant that ran; returns
     the variant."""
-    variant = "sm90" if fa.sm90_eligible(q, k, v) else "simt"
+    variant = fa.flash_variant(q, k, v)
     before = counts()
     acc, m, l = fa.flash_attention_stats(q, k, v, causal_diag=causal)
     o = fa.flash_attention(q, k, v, causal=causal)
@@ -90,6 +123,8 @@ def run_and_check(q, k, v, causal, dtype):
     o_err = (o.float() - want_o.float()).abs()
     allowed = 1e-5 + rtol * want_o.float().abs() + (flip.transpose(1, 2) if flip.dim() else flip)
     assert bool((o_err <= allowed).all()), float(o_err.max())
+    if variant == "sm90_fp32":
+        check_tf32x3_twin(q, k, v, causal, acc, m, l, o)
     return variant
 
 
@@ -102,7 +137,7 @@ def test_kernel_matches_plain_version_on_cuda(cuda, shape, causal, dtype):
     b, sq, sk, h, hk, d = shape
     q, k, v = qkv(9, b, sq, sk, h, hk, d, dtype, cuda)
     variant = run_and_check(q, k, v, causal, dtype)
-    assert variant == ("sm90" if dtype in fa.SM90_DTYPES and d in fa.SM90_HEAD_DIMS else "simt")
+    assert variant == expected_variant(dtype, d)
 
 
 @pytest.mark.cuda
@@ -140,6 +175,47 @@ def test_sm90_reads_packed_projection_views(cuda, causal):
         assert torch.equal(g, w)
     assert torch.equal(fa.flash_attention(*views, causal=causal),
                        fa.flash_attention(*copies, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", [(1, 200, 333, 8, 2, 128), (2, 130, 130, 4, 4, 64),
+                                   (1, 77, 40, 6, 3, 128), (1, 300, 129, 4, 1, 64)])
+def test_sm90_fp32_matches_plain_version_and_twin_on_cuda(cuda, shape, causal):
+    b, sq, sk, h, hk, d = shape
+    q, k, v = qkv(13, b, sq, sk, h, hk, d, torch.float32, cuda)
+    assert run_and_check(q, k, v, causal, torch.float32) == "sm90_fp32"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 72])
+def test_fp32_outside_the_tensor_core_head_dims_launches_simt(cuda, d):
+    q, k, v = qkv(14, 1, 77, 40, 6, 3, d, torch.float32, cuda)
+    assert not fa.sm90_fp32_eligible(q, k, v)
+    assert run_and_check(q, k, v, True, torch.float32) == "simt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_sm90_fp32_reads_packed_projection_views(cuda, causal):
+    """fp32 q, k, v sliced from one (b, s, h + 2 hk, d) tensor run on
+    sm90_fp32 through their strides and give what contiguous copies give,
+    bit for bit."""
+    b, s, h, hk, d = 2, 300, 8, 2, 128
+    rng = np.random.default_rng(15)
+    qkv_ = torch.from_numpy(rng.standard_normal((b, s, h + 2 * hk, d)).astype(np.float32))
+    qkv_ = qkv_.to(cuda)
+    views = (qkv_[:, :, :h], qkv_[:, :, h:h + hk], qkv_[:, :, h + hk:])
+    assert not views[0].is_contiguous() and fa.flash_variant(*views) == "sm90_fp32"
+    copies = tuple(x.contiguous() for x in views)
+    before = counts()
+    got = fa.flash_attention_stats(*views, causal_diag=causal)
+    o = fa.flash_attention(*views, causal=causal)
+    assert counts() == tuple({**c, "sm90_fp32": c["sm90_fp32"] + 1} for c in before)
+    want = fa.flash_attention_stats(*copies, causal_diag=causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(o, fa.flash_attention(*copies, causal=causal))
 
 
 @pytest.mark.cuda

@@ -11,13 +11,17 @@ value that may differ in its last bits; 3e-5 on gradients, as the
 reference's ring gradient test. The sm90 kernel's plain twin,
 ``stats_blockwise_reference``, rounds p to q's dtype before P.V; its
 tolerance is derived in ``test_blockwise_reference_matches_reference`` and
-``test_blockwise_reference_fp16_matches_reference``.
+``test_blockwise_reference_fp16_matches_reference``. The sm90_fp32
+kernel's twin, ``stats_blockwise_reference(split="tf32x3")``, is held to
+chip_smoke.py's unchanged fp32 tolerances (``FLASH_TOL`` "stats" and
+"o_fp32": 1e-5 + 1e-4 |want|, acc on o's scale).
 The CUDA kernels' own tests are in tests/test_torch_cuda.py (they need the
 card).
 """
 
 import ctypes
 import importlib
+import math
 import re
 from pathlib import Path
 
@@ -281,7 +285,7 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "float*": 
             "int": ctypes.c_int, "int64_t": ctypes.c_int64, "float": ctypes.c_float}
 
 
-@pytest.mark.parametrize("variant", ["simt", "sm90"])
+@pytest.mark.parametrize("variant", ["simt", "sm90", "sm90_fp32"])
 def test_ctypes_signature_matches_kernel_source(variant):
     """Each library's argtypes follow its C entry point's parameter list."""
     lib = fa._LIBS[variant]
@@ -356,10 +360,159 @@ def test_sm90_eligible(case):
 
 
 def test_cpu_path_counts_no_launches_by_variant():
-    q, k, v = to_torch(inputs(0, 1, 128, 8, 2, 128, "bfloat16"), "bfloat16")
-    assert fa.sm90_eligible(q, k, v)
     before = (dict(fa.stats_kernel.launches_by_variant), dict(fa.attention_kernel.launches_by_variant))
-    fa.flash_attention_stats(q, k, v, causal_diag=True)
-    fa.flash_attention(q, k, v, causal=True)
+    for dtype, variant in (("bfloat16", "sm90"), ("float32", "sm90_fp32")):
+        q, k, v = to_torch(inputs(0, 1, 128, 8, 2, 128, dtype), dtype)
+        assert fa.flash_variant(q, k, v) == variant
+        fa.flash_attention_stats(q, k, v, causal_diag=True)
+        fa.flash_attention(q, k, v, causal=True)
     assert (fa.stats_kernel.launches_by_variant, fa.attention_kernel.launches_by_variant) == before
-    assert set(before[0]) == {"sm90", "simt"}
+    assert set(before[0]) == set(before[1]) == {"sm90", "sm90_fp32", "simt"}
+
+
+def _misaligned(b, s, h, hk, d, dtype=torch.float32):
+    """Contiguous views one element past a 16-byte aligned base: 4 bytes
+    off in fp32."""
+    shapes = ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))
+    return tuple(torch.zeros(math.prod(shape) + 1, dtype=dtype)[1:].view(shape)
+                 for shape in shapes)
+
+
+def _seq_stride_2(b, s, h, hk, d, dtype=torch.float32):
+    """Head dim 128 cut from rows of 130: the sequence stride is 130
+    elements, not a multiple of 4."""
+    return tuple(x[..., :d] for x in _contiguous(b, s, h, hk, d + 2, dtype))
+
+
+# case: (make, the variant the three-way rule picks).
+ROUTES = {
+    "fp32-d128-gqa": (lambda: _contiguous(2, 64, 8, 2, 128, torch.float32), "sm90_fp32"),
+    "fp32-d64-mha": (lambda: _contiguous(1, 64, 4, 4, 64, torch.float32), "sm90_fp32"),
+    "fp32-packed-projection-view": (
+        lambda: (lambda qkv: (qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]))(
+            torch.zeros((2, 64, 12, 128))), "sm90_fp32"),
+    "fp32-seq-stride-132": (lambda: _seq_stride_4(2, 64, 1, 1, 128, torch.float32), "sm90_fp32"),
+    "fp32-d256": (lambda: _contiguous(1, 64, 16, 16, 256, torch.float32), "simt"),
+    "fp32-d72": (lambda: _contiguous(2, 64, 8, 2, 72, torch.float32), "simt"),
+    "fp32-seq-stride-130": (lambda: _seq_stride_2(2, 64, 1, 1, 128), "simt"),
+    "fp32-misaligned-base": (lambda: _misaligned(1, 64, 4, 4, 64), "simt"),
+    "fp32-d-stride-2": (
+        lambda: tuple(x[..., ::2] for x in _contiguous(2, 64, 8, 2, 256, torch.float32)), "simt"),
+    "bf16-d128": (lambda: _contiguous(2, 64, 8, 2, 128), "sm90"),
+    "bf16-d256": (lambda: _contiguous(2, 64, 8, 2, 256), "sm90"),
+    "bf16-d72": (lambda: _contiguous(2, 64, 8, 2, 72), "simt"),
+    "fp16-d64": (lambda: _contiguous(2, 64, 8, 2, 64, torch.float16), "sm90"),
+    "fp16-seq-stride-not-8": (lambda: _seq_stride_4(2, 64, 1, 1, 128, torch.float16), "simt"),
+    "mixed-fp32-bf16": (
+        lambda: (*_contiguous(2, 64, 8, 2, 128, torch.float32)[:2],
+                 _contiguous(2, 64, 8, 2, 128)[2]), "simt"),
+}
+
+
+@pytest.mark.parametrize("case", ROUTES)
+def test_flash_variant_three_way_route(case):
+    """sm90 first, then sm90_fp32, else simt; each rule alone agrees."""
+    make, want = ROUTES[case]
+    q, k, v = make()
+    assert fa.flash_variant(q, k, v) == want
+    assert fa.sm90_eligible(q, k, v) is (want == "sm90")
+    assert fa.sm90_fp32_eligible(q, k, v) is (want == "sm90_fp32")
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """``_tf32`` keeps 10 explicit mantissa bits, rounding to nearest with
+    ties away from zero (cvt.rna.tf32.f32), and hi + lo restores x to
+    within 2**-22 |x|."""
+    bits = np.array([0x3F800000, 0x3F801000, 0x3F800FFF, 0x3F803000, 0xBF801000, 0xBF800FFF,
+                     0x00001000, 0x7F7FE000], dtype=np.uint32)
+    want = np.array([0x3F800000, 0x3F802000, 0x3F800000, 0x3F804000, 0xBF802000, 0xBF800000,
+                     0x00002000, 0x7F7FE000], dtype=np.uint32)
+    x = torch.from_numpy(bits.view(np.float32).copy())
+    got = fa._tf32(x).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    y = torch.from_numpy(np.random.default_rng(19).standard_normal(4096).astype(np.float32))
+    hi, lo = fa.tf32_split(y)
+    for part in (hi, lo):
+        assert not (part.numpy().view(np.uint32) & 0x1FFF).any()
+    assert bool(((hi + lo - y).abs() <= 2.0**-22 * y.abs()).all())
+    assert bool(((hi - y).abs() > 2.0**-22 * y.abs()).any())  # hi alone is not enough
+
+
+def _fp32_within(got, want, scale=None):
+    """Values outside chip_smoke.py's fp32 tolerance, 1e-5 + 1e-4 |want|,
+    each side divided by ``scale`` first where given."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if scale is not None:
+        got, want = got / scale, want / scale
+    return int(np.sum(np.abs(got - want) > 1e-5 + 1e-4 * np.abs(want)))
+
+
+@pytest.mark.parametrize("d", fa.SM90_FP32_HEAD_DIMS)
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("mode", ["stats", "normalized"])
+def test_tf32x3_twin_matches_pallas_kernel(mode, causal, heads, d):
+    """The sm90_fp32 kernel's plain twin on fp32 inputs against the JAX
+    package's Pallas kernel in interpret mode: within the unchanged fp32
+    tolerances, though q, k, p and v each pass through the TF32 split."""
+    h, hk = HEADS[heads]
+    arrays = inputs(20 + d, 2, 128, h, hk, d)
+    q, k, v = to_torch(arrays, "float32")
+    if mode == "stats":
+        want = [np.asarray(w) for w in ref.flash_attention_stats(
+            *to_jax(arrays, "float32"), causal_diag=causal, interpret=True)]
+        got = fa.stats_blockwise_reference(q, k, v, causal, _round_p=False, split="tf32x3")
+        scale = want[2][..., None]
+        assert _fp32_within(got[0].numpy(), want[0], scale) == 0
+        assert _fp32_within(got[1].numpy(), want[1]) == 0
+        assert _fp32_within(got[2].numpy(), want[2]) == 0
+    else:
+        want = np.asarray(ref.flash_attention(*to_jax(arrays, "float32"), causal=causal,
+                                              interpret=True))
+        got = fa.attention_blockwise_reference(q, k, v, causal, split="tf32x3")
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+        assert _fp32_within(got.numpy(), want) == 0
+
+
+@pytest.mark.parametrize("d", fa.SM90_FP32_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tf32x3_twin_with_split_off_equals_unrounded_blockwise(causal, d, monkeypatch):
+    """With the split off (hi = x, lo = 0) the twin's three passes add exact
+    zeros to one fp32 product, so it equals the unrounded blockwise twin at
+    the same k-tile bit for bit; with the split on it differs."""
+    q, k, v = to_torch(inputs(21, 1, 100, 8, 2, d, sk=300), "float32")
+    block_k = fa.SM90_FP32_BLOCK_K[d]
+    split_on = fa.stats_blockwise_reference(q, k, v, causal, _round_p=False, split="tf32x3")
+    want = fa.stats_blockwise_reference(q, k, v, causal, block_k, _round_p=False)
+    monkeypatch.setattr(fa, "tf32_split", lambda x: (x.float(), torch.zeros_like(x.float())))
+    got = fa.stats_blockwise_reference(q, k, v, causal, _round_p=False, split="tf32x3")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(split_on[0], want[0])
+
+
+def test_tf32x3_twin_refuses_rounded_p_and_unknown_splits():
+    q, k, v = to_torch(inputs(0, 1, 8, 2, 2, 64), "float32")
+    with pytest.raises(ValueError, match="_round_p=False"):
+        fa.stats_blockwise_reference(q, k, v, split="tf32x3")
+    with pytest.raises(ValueError, match="split"):
+        fa.stats_blockwise_reference(q, k, v, _round_p=False, split="tf32x2")
+
+
+def test_sm90_fp32_tiling_matches_kernel_source():
+    """SM90_FP32_BLOCK_K repeats the fp32 kernel's Tiling<D>::kBK, and
+    SM90_FP32_HEAD_DIMS the head dims its entry point takes."""
+    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_sm90_fp32.cu").read_text()
+    found = re.search(r"kBK = D == (\d+) \? (\d+) : (\d+);", src)
+    assert found is not None
+    at, then, other = (int(x) for x in found.groups())
+    assert {d: then if d == at else other for d in fa.SM90_FP32_HEAD_DIMS} == fa.SM90_FP32_BLOCK_K
+    dims = re.search(r"if \(d != (\d+) && d != (\d+)\) return kBadHeadDim;", src)
+    assert dims is not None
+    assert tuple(sorted(int(x) for x in dims.groups())) == fa.SM90_FP32_HEAD_DIMS
+    q, k, v = to_torch(inputs(18, 1, 40, 2, 2, 128, sk=300), "float32")
+    got = fa.stats_blockwise_reference(q, k, v, _round_p=False, split="tf32x3")
+    want = fa.stats_blockwise_reference(q, k, v, False, fa.SM90_FP32_BLOCK_K[128],
+                                        _round_p=False, split="tf32x3")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

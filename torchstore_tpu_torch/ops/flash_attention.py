@@ -11,17 +11,24 @@
 
 On a CUDA tensor both launch a hand-written kernel or raise; on a CPU
 tensor they take the plain versions, ``stats_reference`` and
-``attention_reference``. Two kernels serve both modes (a compile-time stats
-flag in each), picked by one rule, ``sm90_eligible``:
+``attention_reference``. Three kernels serve both modes (a compile-time
+stats flag in each), picked by shape (``sm90_eligible``, then
+``sm90_fp32_eligible``), never as a fallback after a failure:
 
 - ``csrc/flash_attention_sm90.cu`` (variant ``"sm90"``): bf16 or fp16
   q/k/v with head_dim 64, 128 or 256 whose strides TMA accepts. ``wgmma``
   in the input type for both products, p rounded to that type before P.V
   as FlashAttention and SDPA do, over k-tiles of ``SM90_BLOCK_K[d]`` keys;
   ``stats_blockwise_reference`` repeats its arithmetic in plain PyTorch.
-- ``csrc/flash_attention.cu`` (variant ``"simt"``): every other call (fp32,
-  other head dims up to 256 with d % 8 == 0, other strides), fp32 math on
-  the CUDA cores; it reads fp32, bf16 and fp16.
+- ``csrc/flash_attention_sm90_fp32.cu`` (variant ``"sm90_fp32"``): fp32
+  q/k/v with head_dim 64 or 128 whose strides TMA accepts. TF32 ``wgmma``
+  for both products with a 3xTF32 split (hi = tf32(x), lo = tf32(x - hi),
+  lo.lo dropped), over k-tiles of ``SM90_FP32_BLOCK_K[d]`` keys;
+  ``stats_blockwise_reference(split="tf32x3", _round_p=False)`` repeats its
+  arithmetic.
+- ``csrc/flash_attention.cu`` (variant ``"simt"``): every other call (fp32
+  at d = 256, other head dims up to 256 with d % 8 == 0, other strides),
+  fp32 math on the CUDA cores; it reads fp32, bf16 and fp16.
 
 Both take any sequence lengths (they mask ragged edges); the JAX kernel
 needed tiling lengths. ``flash_stats_eligible`` keeps the JAX package's
@@ -57,6 +64,13 @@ SM90_HEAD_DIMS = (64, 128, 256)
 # .cu file): at d = 256 q and two stages of 128-key k and v tiles would not
 # fit in a block's shared memory.
 SM90_BLOCK_K = {64: 128, 128: 128, 256: 64}
+SM90_FP32_HEAD_DIMS = (64, 128)
+# Keys per k-tile of the sm90_fp32 kernel (``Tiling<D>`` in its .cu file):
+# at d = 128 two stages of k and v^T split into hi and lo beside q fit in a
+# block's shared memory only at 32 keys.
+SM90_FP32_BLOCK_K = {64: 64, 128: 32}
+# Bits of an fp32 value that TF32 drops (the low 13 of the mantissa).
+_TF32_DROPPED = 0x1FFF
 
 
 def _pick_block(s: int, cap: int = 256) -> "int | None":
@@ -121,18 +135,52 @@ def attention_reference(q, k, v, causal: bool = False):
     return _normalize(acc, l, q.dtype)
 
 
+def _tf32(x):
+    """fp32 ``x`` rounded to TF32 (10 explicit mantissa bits) to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: the dropped 13 bits'
+    half added to the magnitude bits, then cleared, on an int32 view."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + (_TF32_DROPPED + 1) // 2) & ~_TF32_DROPPED).view(torch.float32)
+
+
+def tf32_split(x):
+    """``x = hi + lo`` to TF32 precision: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x.float() - hi)
+
+
+def _product(eq, a, b, split):
+    """``einsum(eq, a, b)`` in fp32, or with ``split="tf32x3"`` the sum the
+    sm90_fp32 kernel's three TF32 passes make: a_lo.b_hi + a_hi.b_lo +
+    a_hi.b_hi, a_lo.b_lo dropped."""
+    if split is None:
+        return torch.einsum(eq, a, b)
+    (a_hi, a_lo), (b_hi, b_lo) = tf32_split(a), tf32_split(b)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
 def stats_blockwise_reference(q, k, v, causal_diag: bool = False,
-                              block_k: "int | None" = None, *, _round_p: bool = True):
-    """Plain PyTorch that repeats the sm90 kernel's arithmetic: an online
-    softmax over k-tiles of ``block_k`` keys (by default the kernel's own,
-    ``SM90_BLOCK_K[d]``), ``l`` summed from the fp32 ``p``, ``p`` rounded to
-    q's dtype before P.V (``_round_p=False`` keeps it fp32, which makes this
-    ``stats_reference`` summed in another order), the same masks. Returns
-    ``(acc, m, l)`` like ``stats_reference``. The tests and
-    ``chip_smoke.py`` hold the kernel against it; no path uses it."""
+                              block_k: "int | None" = None, *, _round_p: bool = True,
+                              split: "str | None" = None):
+    """Plain PyTorch that repeats the sm90 kernels' arithmetic: an online
+    softmax over k-tiles of ``block_k`` keys, ``l`` summed from the fp32
+    ``p``, the same masks. The sm90 kernel's twin (the default): tiles of its
+    own ``SM90_BLOCK_K[d]`` keys, ``p`` rounded to q's dtype before P.V
+    (``_round_p=False`` keeps it fp32, which makes this ``stats_reference``
+    summed in another order). The sm90_fp32 kernel's twin:
+    ``split="tf32x3"`` with ``_round_p=False`` on fp32 inputs, tiles of
+    ``SM90_FP32_BLOCK_K[d]`` keys by default, both products as its three
+    TF32 passes (``tf32_split`` of q, k, p and v). Returns ``(acc, m, l)``
+    like ``stats_reference``. The tests and ``chip_smoke.py`` hold the
+    kernels against it; no path uses it."""
+    if split not in (None, "tf32x3"):
+        raise ValueError(f"split is None or 'tf32x3', got {split!r}")
+    if split is not None and _round_p:
+        raise ValueError("split='tf32x3' keeps p in fp32: pass _round_p=False")
     b, sq, h, d = q.shape
     if block_k is None:
-        block_k = SM90_BLOCK_K.get(d, 128)
+        block_k = (SM90_FP32_BLOCK_K if split else SM90_BLOCK_K).get(d, 128)
     sk, hk = k.shape[1], k.shape[2]
     g = h // hk
     scale = 1.0 / math.sqrt(d)
@@ -146,7 +194,7 @@ def stats_blockwise_reference(q, k, v, causal_diag: bool = False,
     # Causal: k-tiles wholly above the last row are skipped, as the kernel does.
     last = min(sk, sq) if causal_diag else sk
     for k0 in range(0, last, block_k):
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + block_k]) * scale
+        s = _product("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + block_k], split) * scale
         if causal_diag:
             cols = torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, :]
             s = torch.where(rows >= cols, s, NEG_INF)
@@ -156,15 +204,18 @@ def stats_blockwise_reference(q, k, v, causal_diag: bool = False,
         l = l * corr + p.sum(dim=-1)
         if _round_p:
             p = p.to(q.dtype).float()
-        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, k0:k0 + block_k])
+        acc = acc * corr[..., None] + _product("bhqk,bhkd->bhqd", p,
+                                               vf[:, :, k0:k0 + block_k], split)
         m = m_new
     return acc, m, l
 
 
 def attention_blockwise_reference(q, k, v, causal: bool = False,
-                                  block_k: "int | None" = None):
-    """The normalized twin of ``stats_blockwise_reference``, in q's dtype."""
-    acc, _, l = stats_blockwise_reference(q, k, v, causal, block_k)
+                                  block_k: "int | None" = None, split: "str | None" = None):
+    """The normalized twin of ``stats_blockwise_reference``, in q's dtype
+    (``split="tf32x3"``: the sm90_fp32 kernel's, p unrounded)."""
+    acc, _, l = stats_blockwise_reference(q, k, v, causal, block_k, _round_p=split is None,
+                                          split=split)
     return _normalize(acc, l, q.dtype)
 
 
@@ -177,33 +228,59 @@ def _tma_strides(x: torch.Tensor) -> tuple:
     )
 
 
-def sm90_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """The variant rule: the sm90 kernel takes bf16 or fp16 q, k, v (all of
-    one type) with head_dim 64, 128 or 256, h % hk == 0, and what TMA
-    accepts: 16-byte aligned base pointers, a unit head_dim stride and every
-    other stride a positive multiple of 8 elements. Every other call runs on
-    the simt kernel."""
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in SM90_DTYPES:
+def _tma_takes(x: torch.Tensor, multiple: int) -> bool:
+    """What TMA accepts: a 16-byte aligned base, a unit head_dim stride and
+    every other stride a positive multiple of ``multiple`` elements (16
+    bytes)."""
+    if x.stride(3) != 1 or x.data_ptr() % 16:
+        return False
+    return all(st > 0 and st % multiple == 0 for st in _tma_strides(x))
+
+
+def _tensor_core_shape(q, k, v, dtypes, head_dims) -> bool:
+    """q, k, v all of one type in ``dtypes``, (b, s, h, d) with kv of one
+    shape, d in ``head_dims`` and h % hk == 0."""
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in dtypes:
         return False
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         return False
-    if q.shape[3] not in SM90_HEAD_DIMS or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
-        return False
-    for x in (q, k, v):
-        if x.stride(3) != 1 or x.data_ptr() % 16:
-            return False
-        if any(st <= 0 or st % 8 for st in _tma_strides(x)):
-            return False
-    return True
+    return q.shape[3] in head_dims and k.shape[3] == q.shape[3] and q.shape[2] % k.shape[2] == 0
 
 
-# Both entry points: q, k, v, out, m, l; kind, emit_stats, causal, b, h, hk,
+def sm90_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The first variant rule: the sm90 kernel takes bf16 or fp16 q, k, v
+    (all of one type) with head_dim 64, 128 or 256, h % hk == 0, and what
+    TMA accepts: 16-byte aligned base pointers, a unit head_dim stride and
+    every other stride a positive multiple of 8 elements."""
+    return (_tensor_core_shape(q, k, v, SM90_DTYPES, SM90_HEAD_DIMS)
+            and all(_tma_takes(x, 8) for x in (q, k, v)))
+
+
+def sm90_fp32_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The second variant rule: the sm90_fp32 kernel takes fp32 q, k, v with
+    head_dim 64 or 128, h % hk == 0, 16-byte aligned base pointers, a unit
+    head_dim stride and every other stride a positive multiple of 4
+    elements. Every call that neither rule takes runs on the simt kernel."""
+    return (_tensor_core_shape(q, k, v, (torch.float32,), SM90_FP32_HEAD_DIMS)
+            and all(_tma_takes(x, 4) for x in (q, k, v)))
+
+
+def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call of these tensors launches: ``"sm90"``,
+    ``"sm90_fp32"`` or ``"simt"``."""
+    if sm90_eligible(q, k, v):
+        return "sm90"
+    return "sm90_fp32" if sm90_fp32_eligible(q, k, v) else "simt"
+
+
+# The three entry points: q, k, v, out, m, l; kind, emit_stats, causal, b, h, hk,
 # sq, sk, d; the (b, s, h) strides of q, k, v; scale, stream.
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 9
              + [ctypes.c_float, ctypes.c_void_p])
 _LIBS = {
     "simt": NvccLibrary("flash_attention.cu", "tst_flash", _ARGTYPES),
     "sm90": NvccLibrary("flash_attention_sm90.cu", "tst_flash_sm90", _ARGTYPES),
+    "sm90_fp32": NvccLibrary("flash_attention_sm90_fp32.cu", "tst_flash_sm90_fp32", _ARGTYPES),
 }
 
 
@@ -221,9 +298,9 @@ class FlashKernel:
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                  _variant: "str | None" = None):
-        """``_variant`` forces ``"simt"`` on a call the rule sends to sm90,
-        so a timing can set both kernels side by side; nothing else passes
-        it."""
+        """``_variant`` forces ``"simt"`` on a call the rules send to a
+        tensor-core kernel, so a timing can set the two side by side;
+        nothing else passes it."""
         if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KINDS:
             raise TypeError(
                 f"flash kernel takes q, k, v all float32, all bfloat16 or all float16, got "
@@ -250,7 +327,7 @@ class FlashKernel:
             raise ValueError("flash kernel needs the head_dim axis contiguous (stride 1)")
         if b * sq * h == 0 or sk == 0:
             raise ValueError("flash kernel needs non-empty q and kv")
-        variant = "sm90" if sm90_eligible(q, k, v) else "simt"
+        variant = flash_variant(q, k, v)
         if _variant not in (None, "simt", variant):
             raise ValueError(f"flash kernel: variant {_variant!r} does not take this call")
         variant = _variant or variant
@@ -266,7 +343,7 @@ class FlashKernel:
         lib = self.libs[variant]
         if lib.fn is None:
             lib.build()
-        if variant == "sm90":
+        if variant != "simt":
             strides = (*_tma_strides(q), *_tma_strides(k), *_tma_strides(v))
         else:
             strides = tuple(x.stride(i) for x in (q, k, v) for i in range(3))
