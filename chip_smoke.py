@@ -4,11 +4,11 @@
     python3 chip_smoke.py --phases device,build,parity   # a subset
 
 Phases, each printing one JSON line. Widths are always full; so the whole
-run stays well inside its 1200 s limit, reshard, quant, channel, tiering,
-runtime (legs b and d), bulk and healing (legs a-e) run at 12 of the 32
-layers (``TIME_CAP_LAYERS``, each listed under ``reduced``), where earlier
-slices ran them at full depth; main, direct_device and spmd keep full
-depth:
+run stays well inside its 1200 s limit on a slow machine, reshard, quant,
+channel, tiering, runtime (legs b and d), bulk, healing (legs a-e) and
+spmd run at 6 of the 32 layers (``TIME_CAP_LAYERS``, each listed under
+``reduced``), where earlier slices ran them at 12 or at full depth; main
+and direct_device keep full depth:
 
 1. device       - the card, its power limit, /dev/shm and host memory;
 2. build        - nvcc builds csrc/cast.cu, csrc/flash_attention.cu (the
@@ -17,9 +17,10 @@ depth:
                   (its fp32 twin on the TF32 tensor cores, 3xTF32) from the
                   checkout, all at once, and prints each library's ptxas
                   registers and spills, and each tensor-core instance's
-                  (sm90: bf16 and fp16, d 64, 128 and 256; sm90_fp32: d 64
-                  and 128; both modes); fails if an instance spills, one is
-                  missing, or ptxas ignored a setmaxnreg;
+                  (sm90: bf16 and fp16, d 64, 128 and 256; sm90_fp32: d 64,
+                  128 and 256; both modes); fails if an instance spills, one
+                  is missing, ptxas ignored a setmaxnreg, or it serialized
+                  an sm90_fp32 instance's wgmmas (C7512);
 3. parity       - the grouped cast kernel against its plain version on the
                   card, bit for bit outside NaN (NaN positions equal), for
                   every covered dtype pair: single tensors (groups of one) at
@@ -114,13 +115,16 @@ depth:
                   view, fp32 and bf16, causal and not, and fp16 on d 64, 72
                   and 256, a ragged case and the packed view. Each case
                   names the variant ``flash_variant`` picked (bf16 and fp16
-                  at d 64, 128 and 256 on sm90, fp32 at d 64 and 128 on
-                  sm90_fp32, the rest on simt); the sm90 cases are held
+                  at d 64, 128 and 256 on sm90, fp32 at d 64, 128 and 256
+                  on sm90_fp32, the rest on simt); the sm90 cases are held
                   against the blockwise plain version at the kernel's own
                   k-tile and against the fp32 one with SDPA's error as the
                   yardstick, the sm90_fp32 and simt cases against the fp32
                   plain version (sm90_fp32's error against its 3xTF32 twin
-                  printed beside it);
+                  printed beside it); on a few fp32 cases at d = 128 and 256
+                  the errors of sm90_fp32, simt (forced) and the fp32 plain
+                  version against attention computed in fp64, printed and
+                  not gated;
 10. flash_timing - K2 and K3 at b=1, h=32, hk=8, d=128, bf16, 8192 tokens
                   (and K2 at 4096, and K2 in fp16) on the sm90 kernel, and
                   the same calls in fp32 on the sm90_fp32 kernel and on the
@@ -128,18 +132,23 @@ depth:
                   tensor-core rate for sm90, three passes at the TF32 rate
                   for sm90_fp32, the fp32 CUDA-core rate for simt), the
                   plain versions and SDPA on the same inputs; then at Gemma-7B
-                  attention width (h=16, hk=16, d=256, bf16, 8192 tokens)
-                  K2, K2 causal-diagonal and K3 causal on the sm90 kernel and
-                  on the simt kernel forced (the route d = 256 took before),
-                  each beside the bf16 bound, the plain version and SDPA;
+                  attention width (h=16, hk=16, d=256, 8192 tokens) K2, K2
+                  causal-diagonal and K3 causal in bf16 on the sm90 kernel,
+                  and in fp32 on the sm90_fp32 kernel and on the simt kernel
+                  forced (the route fp32 at d = 256 took before), each beside
+                  its bound, the plain version and SDPA on the same inputs;
+                  then K2 and K3 causal on the simt kernel where the rules
+                  send calls to it (bf16, h=hk=32, d=96, 2048 tokens);
 11. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
                   Llama-3-8B attention width and again at Gemma-7B's: a bf16
                   path (forward at 8192, forward and backward at 4096) and
                   an fp32 forward path at 2048, held against the einsum body
                   and the plain version; K2's and K3's launches per variant
                   on each path (bf16: sm90 only, at both widths; fp32:
-                  sm90_fp32 only at Llama-3-8B width, simt only at Gemma-7B's
-                  d = 256);
+                  sm90_fp32 only, at both widths); then the same paths at
+                  a width the rules send to simt (Phi-3-mini's attention,
+                  h=hk=32, d=96; bf16 at 2048 tokens, fp32 at 1024; simt
+                  only);
 12. model       - the RL loop at Llama-3-8B width (depth cut): a learner
                   trains two steps and publishes with direct=True (cast
                   launches equal to the planner's chunk count; the device
@@ -176,7 +185,7 @@ depth:
                   a pull leaves (0), peak card memory per process; every
                   target bit-equal; no process or segment left;
 15. tiering     - version retention and the disk tier at Llama-3-8B
-                  width, 12 layers (the port Llama's tensors, fp32 on the card,
+                  width, 6 layers (the port Llama's tensors, fp32 on the card,
                   bf16 on the wire, bf16 targets on the card), after a
                   printed plan (free /dev/shm, card memory, and the free
                   disk and filesystem type, from /proc/mounts, of the tier
@@ -312,7 +321,8 @@ depth:
                   MASTER_ADDR=127.0.0.1, an ephemeral MASTER_PORT), an auth
                   secret and two emulated hosts (ranks 0-1 the trainer host,
                   2-3 the generator host), LocalRankStrategy, all on the one
-                  card, at the depth a printed memory plan allows: each
+                  card, at the depth a printed memory plan allows, at most
+                  TIME_CAP_LAYERS: each
                   rank times initialize_spmd; the trainer ranks put their
                   Shard(0) half of the fp32 state dict (bf16 on the wire),
                   barrier, the generator ranks get their tensor-parallel
@@ -377,11 +387,12 @@ L2_BYTES = 50 * 2**20
 
 
 # Depth of the phases that measure the paths of earlier slices again
-# (reshard, quant, channel, tiering, runtime, bulk, healing): each still
-# drives its path and holds K1 against the plain version, at this many
-# layers, so the whole script stays inside its 1200 s limit with main,
-# direct_device and spmd at full depth. Widths never change.
-TIME_CAP_LAYERS = 12
+# (reshard, quant, channel, tiering, runtime, bulk, healing, spmd): each
+# still drives its path and holds K1 against the plain version, at this
+# many layers, so the whole script stays inside its 1200 s limit with main
+# and direct_device at full depth. At 12 layers (spmd at 32) every phase
+# read 1165 s on a slow H100 host. Widths never change.
+TIME_CAP_LAYERS = 6
 
 
 def emit(obj: dict) -> None:
@@ -394,8 +405,8 @@ def time_capped(name: str, layers: int) -> int:
     if layers <= TIME_CAP_LAYERS:
         return layers
     emit({"reduced": {name: TIME_CAP_LAYERS, "of": LAYERS,
-                      "why": "the script's 1200 s limit; this path ran at full depth in "
-                             "earlier slices"}})
+                      "why": "the script's 1200 s limit; this path ran at 12 layers or at "
+                             "full depth in earlier slices"}})
     return TIME_CAP_LAYERS
 
 
@@ -465,7 +476,8 @@ def phase_build(staging, flash) -> dict:
             "warnings": [line.strip() for line in log if "warning" in line.lower()][:8],
         }
     # Every (type, head_dim, mode) instance of both tensor-core libraries:
-    # no spill, setmaxnreg honoured.
+    # no spill, setmaxnreg honoured; the sm90_fp32 kernel's wgmmas not
+    # serialized either (C7512; printed for sm90).
     ok = True
     for variant, want in (("sm90", len(flash.SM90_DTYPES) * len(flash.SM90_HEAD_DIMS) * 2),
                           ("sm90_fp32", len(flash.SM90_FP32_HEAD_DIMS) * 2)):
@@ -473,9 +485,12 @@ def phase_build(staging, flash) -> dict:
         instances = _ptxas_instances(flash.stats_kernel.libs[variant].build_log.splitlines())
         lib["instances"] = instances
         lib["setmaxnreg_ignored"] = any(i["setmaxnreg_ignored"] for i in instances.values())
+        lib["wgmma_serialized"] = sorted(n for n, i in instances.items() if i["wgmma_serialized"])
         ok = ok and (lib["spill_bytes"] == 0 and not lib["setmaxnreg_ignored"]
                      and len(instances) == want
                      and all(i["spill_bytes"] == 0 for i in instances.values()))
+        if variant == "sm90_fp32":
+            ok = ok and not lib["wgmma_serialized"]
     out["ok"] = ok
     return out
 
@@ -483,22 +498,29 @@ def phase_build(staging, flash) -> dict:
 def _ptxas_instances(log: list) -> dict:
     """Per entry function of a tensor-core flash library's ``ptxas -v``
     log, named ``<type>_d<head_dim>_<stats|o>``: its registers at entry, its
-    spill bytes and whether ptxas ignored a setmaxnreg in it (C7508)."""
+    spill bytes, whether ptxas ignored a setmaxnreg in it (C7508) and
+    whether it serialized its wgmmas (C7512, a line that names the
+    function before its entry)."""
     import re
 
+    def label(name):
+        dtype = ("bf16" if "__nv_bfloat16" in name else "fp16" if "__half" in name
+                 else "fp32" if "fp32" in name else "?")
+        d = re.search(r"Li(\d+)E", name)
+        stats = re.search(r"Lb([01])E", name)
+        return (f"{dtype}_d{d.group(1) if d else '?'}_"
+                f"{'stats' if stats and stats.group(1) == '1' else 'o'}")
+
+    serialized = {label(m) for line in log if "C7512" in line
+                  for m in re.findall(r"function '([^']+)'", line)}
     out, cur = {}, None
     for line in log:
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
-            name = found.group(1)
-            dtype = ("bf16" if "__nv_bfloat16" in name else "fp16" if "__half" in name
-                     else "fp32" if "fp32" in name else "?")
-            d = re.search(r"Li(\d+)E", name)
-            stats = re.search(r"Lb([01])E", name)
-            label = (f"{dtype}_d{d.group(1) if d else '?'}_"
-                     f"{'stats' if stats and stats.group(1) == '1' else 'o'}")
-            cur = out.setdefault(label, {"registers": None, "spill_bytes": 0,
-                                         "setmaxnreg_ignored": False})
+            name = label(found.group(1))
+            cur = out.setdefault(name, {"registers": None, "spill_bytes": 0,
+                                        "setmaxnreg_ignored": False,
+                                        "wgmma_serialized": name in serialized})
             continue
         if cur is None:
             continue
@@ -2587,6 +2609,7 @@ FLASH_CASES = (
     ("mha-d64-1025", 2, 1025, 1025, 16, 16, 64),
     ("mha-d256-sq1024-sk1000", 1, 1024, 1000, 16, 16, 256),
     ("gqa-d256-4096", 1, 4096, 4096, 16, 4, 256),
+    ("gemma-sq1000-sk1537", 1, 1000, 1537, 16, 16, 256),
     ("gqa-d72-300", 1, 300, 300, 4, 2, 72),
     ("8b-sq77-sk40", 1, 77, 40, HEADS, KV_HEADS, HEAD_DIM),
     ("8b-sq8192-sk1", 1, 8192, 1, HEADS, KV_HEADS, HEAD_DIM),
@@ -2613,7 +2636,7 @@ FLASH_TOL = {
                          "one ulp (<= u p) per term; flip allows two such terms at the row's "
                          "largest weight (p <= 1). 'strict_outside' counts acc values outside "
                          "1e-5 + 1e-4 |want|",
-    "sm90_fp32": "fp32 inputs at d 64/128 (the sm90_fp32 kernel, 3xTF32): held to 'stats' "
+    "sm90_fp32": "fp32 inputs at d 64/128/256 (the sm90_fp32 kernel, 3xTF32): held to 'stats' "
                  "and 'o_fp32' against the fp32 plain version; beside it, reported and not "
                  "gated, the worst errors of acc (on o's scale), m, l and o against its twin "
                  "stats_blockwise_reference(split='tf32x3', _round_p=False) at the kernel's "
@@ -2625,7 +2648,12 @@ FLASH_TOL = {
                     "attention_reference; m, l as 'stats' (both sum the fp32 p). p rounded to "
                     "the input type before P.V, as in SDPA's own kernels, is the rounding the "
                     "fp32 version does not make",
+    "fp64": "on FLASH_FP64_CASES in fp32: the worst |o - o64| of the sm90_fp32 kernel, the "
+            "simt kernel (forced) and the fp32 plain version, o64 computed in fp64 from the "
+            "same fp32 inputs; reported, not gated",
 }
+# fp32 cases whose o is also held against fp64 (reported): d = 128 and 256.
+FLASH_FP64_CASES = ("8b-1025", "mha-d256-sq1024-sk1000", "gemma-sq1000-sk1537")
 SDPA_YARDSTICK = 2.0  # the sm90 kernel's worst error may be this multiple of SDPA's
 # The timed shapes: b, s, h, hk, d (bf16): Llama-3-8B attention width, and
 # Gemma-7B's (h = hk = 16, d = 256: torchstore_tpu_torch/models/llama.py).
@@ -2633,6 +2661,11 @@ FLASH_TIMED = (1, 8192, HEADS, KV_HEADS, HEAD_DIM)
 FLASH_TIMED_SHORT = 4096  # the ring phase's backward length
 GEMMA_HEADS = (16, 16, 256)
 FLASH_TIMED_GEMMA = (1, 8192, *GEMMA_HEADS)
+# A width the rules send to the simt kernel: Phi-3-mini's attention (hidden
+# 3072, 32 heads of 96, as many kv heads; its published config), bf16, at
+# the ring phase's short length.
+SIMT_HEADS = (32, 32, 96)
+FLASH_TIMED_SIMT = (1, 2048, *SIMT_HEADS)
 # Significant bits of each 16-bit type: one ulp of x is 2**(e - bits) for
 # x = f 2**e, 0.5 <= |f| < 1, so at most 2**(1 - bits) |x|.
 SIG_BITS = {"bfloat16": 8, "float16": 11}
@@ -2746,6 +2779,25 @@ def _check_tf32x3_twin(torch, flash, q, k, v, causal, got, o) -> dict:
     return res
 
 
+def _fp64_errors(torch, flash, q, k, v, causal, o) -> dict:
+    """The worst |o - o64| of the kernel's o, the simt kernel's (forced)
+    and the fp32 plain version's, o64 being attention computed in fp64 from
+    the same fp32 inputs (FLASH_TOL "fp64"; reported, not gated)."""
+    g = q.shape[2] // k.shape[2]
+    qd, kd, vd = (x.transpose(1, 2).double() for x in (q, k, v))
+    kd, vd = kd.repeat_interleave(g, dim=1), vd.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qd, kd) / math.sqrt(q.shape[3])
+    if causal:
+        rows = torch.arange(s.shape[2], device=q.device)[:, None]
+        cols = torch.arange(s.shape[3], device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, -math.inf)
+    o64 = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vd).transpose(1, 2)
+    del s, qd, kd, vd
+    outs = {"kernel": o, "simt": flash.attention_kernel(q, k, v, causal, _variant="simt"),
+            "fp32_plain": flash.attention_reference(q, k, v, causal)}
+    return {name: float((x.double() - o64).abs().max().item()) for name, x in outs.items()}
+
+
 def phase_flash_parity(torch, flash) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2756,7 +2808,7 @@ def phase_flash_parity(torch, flash) -> dict:
     worst = {f"{mode}_{variant}": 0.0 for mode in ("stats", "o")
              for variant in ("sm90", "sm90_fp32", "simt")}
     worst.update({"stats_sm90_d256": 0.0, "o_sm90_d256": 0.0, "stats_sm90_fp16": 0.0,
-                  "o_sm90_fp16": 0.0})
+                  "o_sm90_fp16": 0.0, "stats_sm90_fp32_d256": 0.0, "o_sm90_fp32_d256": 0.0})
     fp16_s = 0.0
     for label, b, sq, sk, h, hk, d in FLASH_CASES:
         dtypes = [torch.float32, torch.bfloat16]
@@ -2803,9 +2855,11 @@ def phase_flash_parity(torch, flash) -> dict:
                     err_stats = max(res["m"]["max_abs_err"], res["l"]["max_abs_err"],
                                     res["acc"]["raw_max_abs_err"])
                     err_o = res["o"]["max_abs_err"]
-                twin = None
+                twin = fp64 = None
                 if variant == "sm90_fp32":
                     twin = _check_tf32x3_twin(torch, flash, q, k, v, causal, got, o)
+                    if label in FLASH_FP64_CASES:
+                        fp64 = _fp64_errors(torch, flash, q, k, v, causal, o)
                 del got, o
                 ok = all(r["outside"] == 0 for r in res.values()) and ran == {
                     "flash_stats": [variant], "flash": [variant]} and variant == rule
@@ -2814,6 +2868,8 @@ def phase_flash_parity(torch, flash) -> dict:
                     keys.append("sm90_d256")
                 if variant == "sm90" and dtype == torch.float16:
                     keys.append("sm90_fp16")
+                if variant == "sm90_fp32" and d == 256:
+                    keys.append("sm90_fp32_d256")
                 for key in keys:
                     worst[f"stats_{key}"] = max(worst[f"stats_{key}"], err_stats)
                     worst[f"o_{key}"] = max(worst[f"o_{key}"], err_o)
@@ -2821,6 +2877,7 @@ def phase_flash_parity(torch, flash) -> dict:
                     "case": f"{label} {str(dtype)[6:]} {'causal' if causal else 'full'}",
                     "variant": variant, "launched": ran, "ok": ok, **res,
                     **({"twin": twin} if twin else {}),
+                    **({"fp64_o_max_abs_err": fp64} if fp64 else {}),
                 })
             del q, k, v
             torch.cuda.empty_cache()
@@ -2840,6 +2897,8 @@ def phase_flash_parity(torch, flash) -> dict:
             row.update({"acc": c["acc"]["max_abs_err"], "o": c["o"]["max_abs_err"]})
         if c["variant"] == "sm90_fp32":
             row["twin_max_abs_err"] = c["twin"]
+        if "fp64_o_max_abs_err" in c:
+            row["fp64_o_max_abs_err"] = c["fp64_o_max_abs_err"]
         rows.append(row)
     return {
         "phase": "flash_parity",
@@ -2885,13 +2944,15 @@ def phase_flash_timing(torch, flash) -> dict:
     # set at Llama-3-8B width and 192 MB at Gemma-7B's: every call reads
     # memory that is not in L2.
     shapes = {"8b": (s, h, hk, d, bf16), "8b_4096": (FLASH_TIMED_SHORT, h, hk, d, bf16),
-              "8b_fp16": (s, h, hk, d, fp16), "gemma": (FLASH_TIMED_GEMMA[1], *GEMMA_HEADS, bf16)}
+              "8b_fp16": (s, h, hk, d, fp16), "gemma": (FLASH_TIMED_GEMMA[1], *GEMMA_HEADS, bf16),
+              "d96": (FLASH_TIMED_SIMT[1], *SIMT_HEADS, bf16)}
     inputs = {key: [_qkv(torch, gen, dev, b, n, n, hh, kh, dd, dt) for _ in range(2)]
               for key, (n, hh, kh, dd, dt) in shapes.items()}
     # The same values in fp32: the fp32 calls' inputs (sm90_fp32, the simt
     # route forced, SDPA and the plain version beside them).
-    shapes["8b_fp32"] = (s, h, hk, d, torch.float32)
-    inputs["8b_fp32"] = [[t.float() for t in qkv] for qkv in inputs["8b"]]
+    for key in ("8b", "gemma"):
+        shapes[f"{key}_fp32"] = (*shapes[key][:4], torch.float32)
+        inputs[f"{key}_fp32"] = [[t.float() for t in qkv] for qkv in inputs[key]]
     before = _flash_counts(flash)
 
     def stats(causal, variant=None):
@@ -2908,13 +2969,12 @@ def phase_flash_timing(torch, flash) -> dict:
 
     sdpa = lambda causal: lambda q, k, v: _sdpa(torch, q, k, v, causal)  # noqa: E731
     # name: (input set, causal, stats mode, variant, kernel, plain, library).
-    # The Llama-width fp32 rows time the sm90_fp32 kernel against the
+    # The fp32 rows, at both widths, time the sm90_fp32 kernel against the
     # 3xTF32 bound (three TF32 passes) and the simt route forced on the same
     # fp32 inputs against the fp32 CUDA-core bound, SDPA on those inputs
-    # beside both; the Gemma-width simt rows (the route d = 256 took before
-    # the sm90 kernel took it) stand beside the bf16 bound and SDPA in bf16,
-    # as their sm90 twins do. A row without a plain version reports its
-    # twin's (the same inputs).
+    # beside both. A row without a plain version reports its tensor-core
+    # twin's (the same inputs). The d96 rows time simt where the rules send
+    # calls to it.
     plan = {
         "flash_stats": ("8b", False, True, "sm90", stats(False), stats_plain(False), sdpa(False)),
         "flash_stats_causal_diag": ("8b", True, True, "sm90", stats(True), stats_plain(True),
@@ -2943,12 +3003,22 @@ def phase_flash_timing(torch, flash) -> dict:
                                           stats_plain(True), sdpa(True)),
         "gemma_flash_causal": ("gemma", True, False, "sm90", attention(True),
                                attention_plain(True), sdpa(True)),
-        "gemma_flash_stats_simt": ("gemma", False, True, "simt", stats(False, "simt"), None,
+        "gemma_flash_stats_fp32": ("gemma_fp32", False, True, "sm90_fp32", stats(False),
+                                   stats_plain(False), sdpa(False)),
+        "gemma_flash_stats_causal_diag_fp32": ("gemma_fp32", True, True, "sm90_fp32",
+                                               stats(True), stats_plain(True), sdpa(True)),
+        "gemma_flash_causal_fp32": ("gemma_fp32", True, False, "sm90_fp32", attention(True),
+                                    attention_plain(True), sdpa(True)),
+        "gemma_flash_stats_simt": ("gemma_fp32", False, True, "simt", stats(False, "simt"), None,
                                    sdpa(False)),
-        "gemma_flash_stats_causal_diag_simt": ("gemma", True, True, "simt", stats(True, "simt"),
-                                               None, sdpa(True)),
-        "gemma_flash_causal_simt": ("gemma", True, False, "simt", attention(True, "simt"), None,
-                                    sdpa(True)),
+        "gemma_flash_stats_causal_diag_simt": ("gemma_fp32", True, True, "simt",
+                                               stats(True, "simt"), None, sdpa(True)),
+        "gemma_flash_causal_simt": ("gemma_fp32", True, False, "simt", attention(True, "simt"),
+                                    None, sdpa(True)),
+        "d96_flash_stats_simt": ("d96", False, True, "simt", stats(False), stats_plain(False),
+                                 sdpa(False)),
+        "d96_flash_causal_simt": ("d96", True, False, "simt", attention(True),
+                                  attention_plain(True), sdpa(True)),
     }
     rows = {}
     gemma_s = 0.0
@@ -2994,13 +3064,13 @@ def phase_flash_timing(torch, flash) -> dict:
             "share_of_bound": bound["bound_ms"] / ms,
             "tflop_per_s": bound["flop"] / ms / 1e9,
         }
-        if variant == "simt":
+        if variant == "simt" and twin in rows:
             # How much faster the tensor-core route is on the same inputs.
             rows[name]["tensor_core_speedup"] = ms / rows[twin]["ms"]
         if variant == "sm90_fp32":
             rows[name]["library_over_kernel"] = rows[name]["library_ms"] / ms
         torch.cuda.empty_cache()
-        if key == "gemma":
+        if key.startswith("gemma"):
             gemma_s += time.perf_counter() - t_row
     _reset_flash_counts(flash, before)
     ok = all(r["ran_on_variant"] for r in rows.values())
@@ -3017,14 +3087,16 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None) -> dict:
+def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None,
+               variants=("sm90", "sm90_fp32")) -> dict:
     """Ring attention over a one-rank sp mesh (the caller holds the process
     group), then K3 through ``flash_attention``: a bf16 path, forward at
     ``fwd_seq`` and forward + backward at ``bwd_seq``, causal and not; then
-    an fp32 path (a learner computing attention in fp32: sm90_fp32 at head
-    dim 64 or 128, simt at 256), forward and K3 at half ``bwd_seq``. Each
-    path's per-variant launch counts are set to 0 just before it and read
-    right after; the comparisons follow."""
+    an fp32 path (a learner computing attention in fp32), forward and K3 at
+    half ``bwd_seq``. ``variants`` names the kernel each path must launch
+    (bf16, fp32): the tensor-core ones at head dim 64, 128 and 256, simt
+    at others. Each path's per-variant launch counts are set to 0 just
+    before it and read right after; the comparisons follow."""
     from torchstore_tpu_torch.ops import flash_attention, ring_attention_sharded
     from torchstore_tpu_torch.parallel import make_mesh
 
@@ -3075,12 +3147,11 @@ def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None) -> dic
     fp32_path_s = time.perf_counter() - t0
     fp32_launches = _flash_counts(flash)
     _reset_flash_counts(flash)
-    # Each path's calls: bf16 on sm90; fp32 on sm90_fp32 at d 64/128, on
-    # simt at d = 256.
+    # Each path's calls, all on the kernel ``variants`` names for it.
     ring_calls, k3_calls = 4, 2
     none = {name: 0 for name in flash.stats_kernel.launches_by_variant}
-    expected = {"flash_stats": {**none, "sm90": ring_calls}, "flash": {**none, "sm90": k3_calls}}
-    fp32_variant = "sm90_fp32" if d in flash.SM90_FP32_HEAD_DIMS else "simt"
+    variant, fp32_variant = variants
+    expected = {"flash_stats": {**none, variant: ring_calls}, "flash": {**none, variant: k3_calls}}
     fp32_expected = {"flash_stats": {**none, fp32_variant: 2}, "flash": {**none, fp32_variant: 2}}
 
     def yardstick(label, got, want, inputs, causal):
@@ -3168,14 +3239,21 @@ def phase_ring(torch, flash) -> dict:
     try:
         res = _ring_path(torch, flash, dev, fwd_seq=8192, bwd_seq=4096)
         # Gemma-7B attention width: its bf16 calls run on the sm90 kernel's
-        # d = 256 instance, its fp32 calls on simt.
+        # d = 256 instance, its fp32 calls on the sm90_fp32 kernel's.
         t0 = time.perf_counter()
         gemma = _ring_path(torch, flash, dev, fwd_seq=8192, bwd_seq=4096, heads=GEMMA_HEADS)
         gemma["seconds"] = time.perf_counter() - t0
+        # A head dim neither tensor-core kernel takes: the simt kernel's paths.
+        t0 = time.perf_counter()
+        n = FLASH_TIMED_SIMT[1]
+        simt = _ring_path(torch, flash, dev, fwd_seq=n, bwd_seq=n, heads=SIMT_HEADS,
+                          variants=("simt", "simt"))
+        simt["seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     res["gemma"] = gemma
-    res["ok"] = res["ok"] and gemma["ok"]
+    res["simt"] = simt
+    res["ok"] = res["ok"] and gemma["ok"] and simt["ok"]
     res["phase"] = "ring"
     return res
 
@@ -4564,6 +4642,7 @@ def phase_spmd(torch, staging) -> dict:
     layers, sizing = plan_spmd_layers(torch, dev)
     if layers < LAYERS:
         emit({"reduced": {"spmd_layers": layers}, **sizing})
+    layers = time_capped("spmd_layers", layers)
     res = _spmd_path(torch, staging, layers, "cuda:0")
     res["phase"] = "spmd"
     res["sizing"] = sizing
@@ -5628,15 +5707,26 @@ def phase_kernels(results: dict) -> dict:
     # (entry suffix, variant, timing row prefix and suffix, worst-error key,
     # launches, shape, input type). Launches: the sm90 kernel's d 64/128
     # instances on the ring phase's bf16 Llama-width path, its d = 256
-    # instance on the Gemma-width one, the sm90_fp32 kernel's on the
-    # Llama-width fp32 path, the simt kernel's on the Gemma-width fp32 path.
+    # instance on the Gemma-width one; the sm90_fp32 kernel's on the fp32
+    # paths at both widths (its d = 256 instance's, on the Gemma-width one,
+    # also apart); the simt kernel's on the paths the rules send to it
+    # (d = 96, bf16 and fp32).
+    def added(a, b):
+        return {mode: {v: n + b[mode][v] for v, n in by.items()} for mode, by in a.items()}
+
+    fp32_launches = added(ring["fp32_launches"], ring["gemma"]["fp32_launches"])
     flavours = (
         ("sm90", "sm90", "", "", "sm90", ring["launches"], FLASH_TIMED, "bf16",
          "launches from the bf16 ring path"),
-        ("sm90_fp32", "sm90_fp32", "", "_fp32", "sm90_fp32", ring["fp32_launches"], FLASH_TIMED,
-         "fp32", "launches from the fp32 ring path"),
-        ("simt", "simt", "", "_simt", "simt", ring["gemma"]["fp32_launches"], FLASH_TIMED,
-         "fp32", "launches from the Gemma-7B-width fp32 ring path (d = 256)"),
+        ("sm90_fp32", "sm90_fp32", "", "_fp32", "sm90_fp32", fp32_launches, FLASH_TIMED,
+         "fp32", "launches from the fp32 ring paths at Llama-3-8B and Gemma-7B width"),
+        ("sm90_fp32_d256", "sm90_fp32", "gemma_", "_fp32", "sm90_fp32_d256",
+         ring["gemma"]["fp32_launches"], FLASH_TIMED_GEMMA, "fp32",
+         "launches from the Gemma-7B-width fp32 ring path (d = 256; counted in the "
+         "sm90_fp32 entries too)"),
+        ("simt", "simt", "d96_", "_simt", "simt",
+         added(ring["simt"]["launches"], ring["simt"]["fp32_launches"]), FLASH_TIMED_SIMT, "bf16",
+         "launches from the ring phase's d = 96 paths, bf16 and fp32"),
         ("sm90_d256", "sm90", "gemma_", "", "sm90_d256", ring["gemma"]["launches"],
          FLASH_TIMED_GEMMA, "bf16", "launches from the Gemma-7B-width bf16 ring path"),
     )

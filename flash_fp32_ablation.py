@@ -4,10 +4,12 @@ Copies ``torchstore_tpu_torch`` into a scratch directory once per variant,
 removes one piece of work from ``csrc/flash_attention_sm90_fp32.cu`` in each
 copy (the results of a cut variant are wrong; only its time is read), builds
 every copy at once, then times K2 non-causal and K3 causal in fp32 at
-Llama-3-8B attention width (b=1, 8192 tokens, h=32, hk=8, d=128) in one
-process per variant, the unchanged kernel first and last:
+Llama-3-8B attention width (b=1, 8192 tokens, h=32, hk=8, d=128: the d = 128
+instance) and at Gemma-7B's (h=hk=16, d=256: the d = 256 instance) in one
+process per variant, the unchanged kernel first and last. From the
+repository's root:
 
-    python3 scripts/flash_fp32_ablation.py [--out DIR]
+    python3 flash_fp32_ablation.py [--out DIR]
 
 Variants: ``base``; ``no_q_split`` (raw q bits as both TF32 halves: no
 per-tile split of q); ``no_transform`` (the producer warpgroup splits and
@@ -26,21 +28,23 @@ import sys
 import tempfile
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+ROOT = Path(__file__).resolve().parent
 KERNEL = Path("torchstore_tpu_torch/csrc/flash_attention_sm90_fp32.cu")
 
 # name: (old, new) replacements in the kernel source.
 CUTS = {
     "base": [],
     "no_q_split": [(
-        """      split(lds(q_rows + (kk / 4) * (kBQ * kRowBytes) + (r & 1) * 8 * kRowBytes +
+        """      split(lds(q_rows + (kk / 4) * (BQ * kRowBytes) + (r & 1) * 8 * kRowBytes +
                 ((chunk ^ group) * 16) + quad * 4),
             hi[4 * j + r], lo[4 * j + r]);""",
-        """      hi[4 * j + r] = __float_as_uint(lds(q_rows + (kk / 4) * (kBQ * kRowBytes) +
+        """      hi[4 * j + r] = __float_as_uint(lds(q_rows + (kk / 4) * (BQ * kRowBytes) +
                                           (r & 1) * 8 * kRowBytes +
                                           ((chunk ^ group) * 16) + quad * 4));
       lo[4 * j + r] = hi[4 * j + r];""")],
-    "no_transform": [("      transform_stage<D>(stage_at(s), tid);\n", "")],
+    "no_transform": [(f"void transform_{x}(uint32_t stage, int tid) {{\n",
+                      f"void transform_{x}(uint32_t stage, int tid) {{\n  return;\n")
+                     for x in "kv"],
     "s_one_pass": [
         ("""    wgmma_rs<N, off>(s_lo, lo + 4 * J, d_kh, K0 + J > 0);
     wgmma_rs<N, off>(s, hi + 4 * J, d_kh, K0 + J > 0);
@@ -62,11 +66,9 @@ assert fa.__file__.startswith(sys.argv[1]), fa.__file__
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev)
 gen.manual_seed(3)
-shapes = ((1, 8192, 32, 128), (1, 8192, 8, 128), (1, 8192, 8, 128))
-sets = [[torch.randn(s, generator=gen, device=dev) for s in shapes] for _ in range(2)]
-assert fa.flash_variant(*sets[0]) == "sm90_fp32"
+widths = {"llama": (32, 8, 128), "gemma": (16, 16, 256)}
 
-def ms(fn, iters=5):
+def ms(fn, sets, iters=5):
     for i in range(3):
         fn(*sets[i % 2])
     torch.cuda.synchronize()
@@ -80,10 +82,15 @@ def ms(fn, iters=5):
 
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True).stdout.strip()
-k2 = min(ms(lambda q, k, v: fa.stats_kernel(q, k, v, False)) for _ in range(2))
-k3 = min(ms(lambda q, k, v: fa.attention_kernel(q, k, v, True)) for _ in range(2))
-print(json.dumps({"variant": sys.argv[2], "card": smi, "k2_ms": k2, "k3_causal_ms": k3}),
-      flush=True)
+for width, (h, hk, d) in widths.items():
+    shapes = ((1, 8192, h, d), (1, 8192, hk, d), (1, 8192, hk, d))
+    sets = [[torch.randn(s, generator=gen, device=dev) for s in shapes] for _ in range(2)]
+    assert fa.flash_variant(*sets[0]) == "sm90_fp32"
+    k2 = min(ms(lambda q, k, v: fa.stats_kernel(q, k, v, False), sets) for _ in range(2))
+    k3 = min(ms(lambda q, k, v: fa.attention_kernel(q, k, v, True), sets) for _ in range(2))
+    print(json.dumps({"variant": sys.argv[2], "width": width, "d": d, "card": smi,
+                      "k2_ms": k2, "k3_causal_ms": k3}), flush=True)
+    del sets
 """
 
 

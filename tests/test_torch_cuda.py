@@ -19,11 +19,15 @@ sm90 kernel are held against its arithmetic twin
 round an fp32 p to the input type, and where the two p differ in their last
 bits they can round to adjacent values (one ulp, at most 2**-7 p_j |v_j| / l
 in o in bf16, 2**-10 in fp16); the allowance covers two such terms at p <= 1.
-Calls that ``sm90_fp32_eligible`` sends to the sm90_fp32 kernel (fp32, d 64
-or 128) are held against the fp32 plain version with the fp32 bounds, and
+Calls that ``sm90_fp32_eligible`` sends to the sm90_fp32 kernel (fp32, d 64,
+128 or 256) are held against the fp32 plain version with the fp32 bounds, and
 against their 3xTF32 twin (``stats_blockwise_reference(split="tf32x3")``)
 ten times tighter: 1e-6 + 1e-5 |want| (the twin makes the same TF32
-roundings; only the order of the fp32 sums differs).
+roundings; only the order and rounding of the fp32 sums differ). That bound
+was set at d 64 and 128; the sums that differ are S's, d terms long, which
+the tensor cores add in k-steps of 8 with their own rounding, so above
+d = 128 it grows by d / 128 (at d = 256, 2e-6 + 2e-5 |want|; measured on an
+H100, the worst case came to 1.4 times the d <= 128 bound).
 """
 
 import importlib
@@ -85,13 +89,15 @@ def within(got, want, rtol, atol, scale=None):
 
 def check_tf32x3_twin(q, k, v, causal, acc, m, l, o):
     """The sm90_fp32 kernel against its 3xTF32 twin, ten times tighter than
-    the fp32 bounds."""
+    the fp32 bounds at d <= 128 and d / 128 times that above (see the module
+    docstring)."""
     t_acc, t_m, t_l = fa.stats_blockwise_reference(q, k, v, causal, _round_p=False,
                                                    split="tf32x3")
     t_o = fa.attention_blockwise_reference(q, k, v, causal, split="tf32x3")
+    grow = max(1.0, q.shape[3] / 128)
     for name, got, want, scale in (("acc", acc, t_acc, t_l[..., None]), ("m", m, t_m, None),
                                    ("l", l, t_l, None), ("o", o, t_o, None)):
-        err, ok = within(got, want, 1e-5, 1e-6, scale)
+        err, ok = within(got, want, 1e-5 * grow, 1e-6 * grow, scale)
         assert ok, (name, err)
 
 
@@ -180,7 +186,9 @@ def test_sm90_reads_packed_projection_views(cuda, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("shape", [(1, 200, 333, 8, 2, 128), (2, 130, 130, 4, 4, 64),
-                                   (1, 77, 40, 6, 3, 128), (1, 300, 129, 4, 1, 64)])
+                                   (1, 77, 40, 6, 3, 128), (1, 300, 129, 4, 1, 64),
+                                   (1, 200, 333, 8, 2, 256), (2, 130, 130, 4, 4, 256),
+                                   (1, 77, 40, 6, 3, 256), (1, 300, 1025, 16, 16, 256)])
 def test_sm90_fp32_matches_plain_version_and_twin_on_cuda(cuda, shape, causal):
     b, sq, sk, h, hk, d = shape
     q, k, v = qkv(13, b, sq, sk, h, hk, d, torch.float32, cuda)
@@ -188,7 +196,7 @@ def test_sm90_fp32_matches_plain_version_and_twin_on_cuda(cuda, shape, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [256, 72])
+@pytest.mark.parametrize("d", [96, 72])
 def test_fp32_outside_the_tensor_core_head_dims_launches_simt(cuda, d):
     q, k, v = qkv(14, 1, 77, 40, 6, 3, d, torch.float32, cuda)
     assert not fa.sm90_fp32_eligible(q, k, v)
@@ -196,12 +204,22 @@ def test_fp32_outside_the_tensor_core_head_dims_launches_simt(cuda, d):
 
 
 @pytest.mark.cuda
+def test_fp32_d256_strides_tma_refuses_launch_simt(cuda):
+    """fp32 at d = 256 cut from rows of 258: a sequence stride TMA refuses,
+    so the call runs on simt and matches its plain version."""
+    q, k, v = (x[..., :256] for x in qkv(16, 1, 77, 40, 1, 1, 258, torch.float32, cuda))
+    assert not fa.sm90_fp32_eligible(q, k, v)
+    assert run_and_check(q, k, v, True, torch.float32) == "simt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_sm90_fp32_reads_packed_projection_views(cuda, causal):
+def test_sm90_fp32_reads_packed_projection_views(cuda, causal, d):
     """fp32 q, k, v sliced from one (b, s, h + 2 hk, d) tensor run on
     sm90_fp32 through their strides and give what contiguous copies give,
     bit for bit."""
-    b, s, h, hk, d = 2, 300, 8, 2, 128
+    b, s, h, hk = 2, 300, 8, 2
     rng = np.random.default_rng(15)
     qkv_ = torch.from_numpy(rng.standard_normal((b, s, h + 2 * hk, d)).astype(np.float32))
     qkv_ = qkv_.to(cuda)

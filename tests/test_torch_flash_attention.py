@@ -379,8 +379,8 @@ def _misaligned(b, s, h, hk, d, dtype=torch.float32):
 
 
 def _seq_stride_2(b, s, h, hk, d, dtype=torch.float32):
-    """Head dim 128 cut from rows of 130: the sequence stride is 130
-    elements, not a multiple of 4."""
+    """Head dim ``d`` cut from rows of d + 2 (130 at d = 128): with one head
+    the sequence stride is d + 2 elements, not a multiple of 4."""
     return tuple(x[..., :d] for x in _contiguous(b, s, h, hk, d + 2, dtype))
 
 
@@ -392,15 +392,23 @@ ROUTES = {
         lambda: (lambda qkv: (qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]))(
             torch.zeros((2, 64, 12, 128))), "sm90_fp32"),
     "fp32-seq-stride-132": (lambda: _seq_stride_4(2, 64, 1, 1, 128, torch.float32), "sm90_fp32"),
-    "fp32-d256": (lambda: _contiguous(1, 64, 16, 16, 256, torch.float32), "simt"),
+    "fp32-d256": (lambda: _contiguous(1, 64, 16, 16, 256, torch.float32), "sm90_fp32"),
+    "fp32-d256-gqa": (lambda: _contiguous(2, 64, 8, 2, 256, torch.float32), "sm90_fp32"),
+    "fp32-d256-packed-projection-view": (
+        lambda: (lambda qkv: (qkv[:, :, :16], qkv[:, :, 16:32], qkv[:, :, 32:]))(
+            torch.zeros((1, 64, 48, 256))), "sm90_fp32"),
     "fp32-d72": (lambda: _contiguous(2, 64, 8, 2, 72, torch.float32), "simt"),
+    "fp32-d96": (lambda: _contiguous(2, 64, 8, 2, 96, torch.float32), "simt"),
     "fp32-seq-stride-130": (lambda: _seq_stride_2(2, 64, 1, 1, 128), "simt"),
+    "fp32-d256-seq-stride-258": (lambda: _seq_stride_2(1, 64, 1, 1, 256), "simt"),
+    "fp32-d256-misaligned-base": (lambda: _misaligned(1, 64, 16, 16, 256), "simt"),
     "fp32-misaligned-base": (lambda: _misaligned(1, 64, 4, 4, 64), "simt"),
     "fp32-d-stride-2": (
         lambda: tuple(x[..., ::2] for x in _contiguous(2, 64, 8, 2, 256, torch.float32)), "simt"),
     "bf16-d128": (lambda: _contiguous(2, 64, 8, 2, 128), "sm90"),
     "bf16-d256": (lambda: _contiguous(2, 64, 8, 2, 256), "sm90"),
     "bf16-d72": (lambda: _contiguous(2, 64, 8, 2, 72), "simt"),
+    "bf16-d96": (lambda: _contiguous(1, 64, 32, 32, 96), "simt"),
     "fp16-d64": (lambda: _contiguous(2, 64, 8, 2, 64, torch.float16), "sm90"),
     "fp16-seq-stride-not-8": (lambda: _seq_stride_4(2, 64, 1, 1, 128, torch.float16), "simt"),
     "mixed-fp32-bf16": (
@@ -499,20 +507,68 @@ def test_tf32x3_twin_refuses_rounded_p_and_unknown_splits():
         fa.stats_blockwise_reference(q, k, v, _round_p=False, split="tf32x2")
 
 
+def _conditional_chain(src, name):
+    """``name = D == a ? x : D == b ? y : z;`` in ``src`` as a function of
+    D."""
+    found = re.search(name + r" = ((?:D == \d+ \? \d+ : )+)(\d+);", src)
+    assert found is not None, name
+    arms = [(int(a), int(x)) for a, x in re.findall(r"D == (\d+) \? (\d+)", found.group(1))]
+    return lambda d: next((x for a, x in arms if a == d), int(found.group(2)))
+
+
 def test_sm90_fp32_tiling_matches_kernel_source():
     """SM90_FP32_BLOCK_K repeats the fp32 kernel's Tiling<D>::kBK, and
-    SM90_FP32_HEAD_DIMS the head dims its entry point takes."""
+    SM90_FP32_HEAD_DIMS the head dims its entry point takes; the twin's
+    default k-tile is the kernel's at each of them."""
     src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_sm90_fp32.cu").read_text()
-    found = re.search(r"kBK = D == (\d+) \? (\d+) : (\d+);", src)
-    assert found is not None
-    at, then, other = (int(x) for x in found.groups())
-    assert {d: then if d == at else other for d in fa.SM90_FP32_HEAD_DIMS} == fa.SM90_FP32_BLOCK_K
-    dims = re.search(r"if \(d != (\d+) && d != (\d+)\) return kBadHeadDim;", src)
+    block_k = _conditional_chain(src, "kBK")
+    assert {d: block_k(d) for d in fa.SM90_FP32_HEAD_DIMS} == fa.SM90_FP32_BLOCK_K
+    dims = re.search(r"if \(((?:d != \d+(?: && )?)+)\) return kBadHeadDim;", src)
     assert dims is not None
-    assert tuple(sorted(int(x) for x in dims.groups())) == fa.SM90_FP32_HEAD_DIMS
-    q, k, v = to_torch(inputs(18, 1, 40, 2, 2, 128, sk=300), "float32")
-    got = fa.stats_blockwise_reference(q, k, v, _round_p=False, split="tf32x3")
-    want = fa.stats_blockwise_reference(q, k, v, False, fa.SM90_FP32_BLOCK_K[128],
-                                        _round_p=False, split="tf32x3")
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert tuple(sorted(int(x) for x in re.findall(r"\d+", dims.group(1)))) == \
+        fa.SM90_FP32_HEAD_DIMS
+    dispatched = {int(x) for x in re.findall(r"if \(c\.d == (\d+)\) return launch<", src)}
+    assert dispatched | {min(fa.SM90_FP32_HEAD_DIMS)} == set(fa.SM90_FP32_HEAD_DIMS)
+    for d in fa.SM90_FP32_HEAD_DIMS:
+        q, k, v = to_torch(inputs(18, 1, 40, 2, 2, d, sk=300), "float32")
+        got = fa.stats_blockwise_reference(q, k, v, _round_p=False, split="tf32x3")
+        want = fa.stats_blockwise_reference(q, k, v, False, fa.SM90_FP32_BLOCK_K[d],
+                                            _round_p=False, split="tf32x3")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_sm90_fp32_q_tile_matches_kernel_source():
+    """The kernel's q-tile rows, registers and stages per head dim
+    (Tiling<D>): at d = 256 one consumer warpgroup of 64 rows with 240
+    registers over one stage refilled by halves; the d = 64 and 128
+    instances keep their 128-row tiles, 232 registers and two stages."""
+    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_sm90_fp32.cu").read_text()
+    tiling = {name: _conditional_chain(src, name) for name in ("kBQ", "kConsumerRegs", "kStages")}
+    got = {d: tuple(f(d) for f in tiling.values()) for d in fa.SM90_FP32_HEAD_DIMS}
+    assert got == {64: (128, 232, 2), 128: (128, 232, 2), 256: (64, 240, 1)}
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("mode", ["stats", "normalized"])
+def test_tf32x3_twin_at_d256_ragged_matches_pallas_kernel(mode, causal):
+    """At d = 256 the twin's 32-key tiles leave a ragged last tile (296 keys)
+    and the kernel's 64-row q-tiles a ragged last one (136 rows); the twin
+    stays within the fp32 tolerances of the JAX kernel in interpret mode,
+    GQA and all."""
+    arrays = inputs(31, 1, 136, 4, 2, 256, sk=136 if causal else 296)
+    q, k, v = to_torch(arrays, "float32")
+    assert fa.flash_variant(q, k, v) == "sm90_fp32"
+    if mode == "stats":
+        want = [np.asarray(w) for w in ref.flash_attention_stats(
+            *to_jax(arrays, "float32"), causal_diag=causal, interpret=True)]
+        got = fa.stats_blockwise_reference(q, k, v, causal, _round_p=False, split="tf32x3")
+        assert _fp32_within(got[0].numpy(), want[0], want[2][..., None]) == 0
+        assert _fp32_within(got[1].numpy(), want[1]) == 0
+        assert _fp32_within(got[2].numpy(), want[2]) == 0
+    else:
+        want = np.asarray(ref.flash_attention(*to_jax(arrays, "float32"), causal=causal,
+                                              block_q=8, block_k=8, interpret=True))
+        got = fa.attention_blockwise_reference(q, k, v, causal, split="tf32x3")
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+        assert _fp32_within(got.numpy(), want) == 0

@@ -14,10 +14,11 @@ FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "torchstore_tp
 
 
 def port_sources() -> list[Path]:
-    """The port, its smoke script, and the module its spawned test ranks
-    import."""
+    """The port, its smoke script and kernel ablation, and the module its
+    spawned test ranks import."""
     return sorted((ROOT / "torchstore_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py",
+        ROOT / "flash_fp32_ablation.py",
         ROOT / "tests" / "test_torch_sp_worker.py",
     ]
 

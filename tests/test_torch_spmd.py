@@ -140,6 +140,45 @@ def test_rendezvous_takes_auth_and_its_fault_point(monkeypatch):
     assert out == {"rogue_closed": True, "after_fault": 2}
 
 
+async def _stalled_challenge_case() -> dict:
+    from torchstore_tpu_torch import config as port_config
+
+    server = port_rdv.RendezvousServer()
+    handle, stalled = server._handle, []
+
+    async def busy_first(reader, writer):
+        # Rank 0's loop busy past the client's auth timeout, once.
+        if not stalled:
+            stalled.append(True)
+            await asyncio.sleep(0.6)
+        await handle(reader, writer)
+
+    server._handle = busy_first
+    port = await server.start("127.0.0.1", 0)
+    client = port_rdv.RendezvousClient("127.0.0.1", port)
+    try:
+        await client.connect(timeout=30.0)
+        await client.set("k", 3)
+        return {"stalled": stalled, "value": await client.get("k")}
+    finally:
+        await client.close()
+        await server.stop()
+        port_config._default_config = None
+
+
+def test_rendezvous_client_retries_a_stalled_auth_challenge(monkeypatch):
+    """A challenge that does not come within the auth timeout (rank 0's
+    loop busy spawning its volumes) is retried inside the connect deadline,
+    as a refused connection is, and the session works."""
+    from torchstore_tpu_torch import config as port_config
+    from torchstore_tpu_torch.runtime import auth
+
+    monkeypatch.setenv(port_config.ENV_AUTH_SECRET, "rdv-secret")
+    monkeypatch.setattr(port_config, "_default_config", None)
+    monkeypatch.setattr(auth, "AUTH_TIMEOUT_S", 0.2)
+    assert asyncio.run(_stalled_challenge_case()) == {"stalled": [True], "value": 3}
+
+
 def test_durable_recovery_is_not_ported(monkeypatch):
     """Durable recovery is ported now (``test_spmd_durable_recovery``);
     what stays refused, as the JAX package refuses it, is ``recover``

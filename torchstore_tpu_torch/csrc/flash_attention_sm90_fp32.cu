@@ -1,11 +1,11 @@
 // Blockwise (flash) attention in fp32 for Hopper (sm_90a): both products on
 // the TF32 tensor cores with a 3xTF32 split, a TMA ring of k/v tiles behind
-// mbarriers, one producer-and-transform warpgroup and two consumer
-// warpgroups.
+// mbarriers, producer-and-transform warpgroups and consumer warpgroups (one
+// and two at d = 64 and 128, two and one at d = 256).
 //
 // Replaces the TPU kernel torchstore_tpu/ops/flash_attention.py::_kernel,
 // launched by _flash_call (pl.pallas_call, :205), for fp32 q/k/v with head
-// dim d in {64, 128}, in both of its modes:
+// dim d in {64, 128, 256}, in both of its modes:
 //   EMIT_STATS = true  (flash_attention_stats, ring attention's per-hop body):
 //     the unnormalized fp32 accumulator acc (b, h, sq, d) = sum_k p v and the
 //     running max m and denominator l (b, h, sq);
@@ -36,7 +36,7 @@
 // - the splits are explicit (cvt.rna.tf32.f32, low 13 bits cleared), so
 //   flash_attention.py's stats_blockwise_reference(split="tf32x3") repeats
 //   the arithmetic up to the order of fp32 sums. k and v are split once per
-//   k-tile by the producer warpgroup and shared by both consumers: k hi over
+//   k-tile by the producer warpgroups and shared by the consumers: k hi over
 //   the raw k, k lo beside it, v^T hi and lo from a raw v landing buffer. p
 //   is split in registers; l sums the fp32 p;
 // - q stays raw in shared memory, and every product takes its A operand from
@@ -57,10 +57,11 @@
 //   (2t, 2t + 1), so the keys of each 8-key group of v^T are stored in the
 //   order 0 2 4 6 1 3 5 7: A column t is key 2t, column t + 4 key 2t + 1,
 //   and p's registers feed the wgmma in the accumulator's order;
-// - one thread of the producer warpgroup issues the TMA loads (q once, then
-//   raw k and v per tile into a ring of kStages stages); the 128 threads of
-//   that warpgroup then split and transpose each landed tile, fence it for
-//   the tensor cores and arrive on the stage's ready barrier. The loads of
+// - one thread of the producer warpgroups issues the TMA loads (q once, then
+//   raw k and v per tile into a ring of kStages stages, or into one stage
+//   by halves at d = 256); all their threads then split and transpose each
+//   landed tile, fence it for the tensor cores and arrive on its ready
+//   barrier. The loads of
 //   tile t + 1 and the transform of t + 1 overlap the consumers' math on t;
 //   the consumers spend no instructions on copies or on k and v's splits;
 // - 128-byte swizzle everywhere: a 32-element fp32 row is 128 bytes, so a
@@ -82,11 +83,31 @@
 //   232 = 64,512, the 384 x 168 allocated at launch), its transform holding
 //   4 values and their hi at a time. Each wgmma's descriptor is a base plus
 //   an immediate added inside its asm, so only the bases stay live;
-// - one CTA per (b*h, 128-row q-tile), heads fastest and the heaviest causal
-//   q-tiles first; causal k-tiles wholly above a q-tile's last row are never
-//   loaded, and the mask runs only on tiles that cross the diagonal or the
-//   sk edge. No persistent grid and no overlap of the softmax with the next
-//   tile's product yet.
+// - budget at d = 256 (Tiling<256>). o alone is 128 fp32 a consumer thread,
+//   and 128 rows of raw q would take 128 KB, so a CTA holds one consumer
+//   warpgroup on 64 q rows (q: 64 KB), and the two other warpgroups both
+//   transform (256 threads; 256 x 40 + 128 x 240 = 40,960 of the 64,512
+//   registers allocated at launch). Two stages of 16-key tiles (5 x 16 KB
+//   each) would fit, but at 16 keys the per-tile costs dominate: the q
+//   re-split (d/2 values a thread a tile), m64n16 score wgmmas, the
+//   softmax's shuffles and each tile's load latency. So d = 256 takes one
+//   stage of 32-key tiles (5 x 32 KB; q and the stage, 224 KB) whose halves
+//   refill apart (kStages = 1, barriers of its own for each half): raw k of
+//   tile t + 1 lands once S of tile t has left k hi and k lo, and is split
+//   while the consumer runs the softmax and P.V of t; raw v of t + 1 lands
+//   as soon as v of t is transposed, and is transposed once P.V of t has
+//   left v^T, while the consumer runs S of t + 1. S is m64n32k8 (32
+//   k-steps, 3 passes), P.V m64n256k8 (4 k-steps, 3 passes). The consumer
+//   holds o (128), the score chains, p hi and p lo (16 each) and the q
+//   fragment buffers (32): at most 192 live in its 240. (On an H100 SXM at
+//   700 W, Gemma-width K2 took 24.4-25.0 ms with two stages of 16 keys, and
+//   25.3 ms with two consumer warpgroups on the same 64 rows taking
+//   alternate 16-key tiles; this design measured 17.9 ms there);
+// - one CTA per (b*h, q-tile of kBQ rows), heads fastest and the heaviest
+//   causal q-tiles first; causal k-tiles wholly above a q-tile's last row
+//   are never loaded, and the mask runs only on tiles that cross the
+//   diagonal or the sk edge. No persistent grid and no overlap of the
+//   softmax with the next tile's product yet.
 // TMA tensor maps are rank 4 over (d, s, h, b) with the tensor's own strides
 // (no transpose or copy), built on the host at each call with
 // cuTensorMapEncodeTiled fetched through cudaGetDriverEntryPoint (no -lcuda);
@@ -108,11 +129,8 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the reference's finite mask value
 constexpr float kFloor = 1e-30f;   // the reference's denominator floor
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBQ = 128;  // q rows per CTA: two consumer warpgroups of 64
-constexpr int kStages = 2;
-constexpr int kThreads = 384;  // warpgroup 0 loads and transforms, 1 and 2 consume
-constexpr int kConsumers = 256;
-constexpr int kTransformers = 128;
+constexpr int kThreads = 384;  // producer warpgroups first, then one consumer per 64 q rows
+constexpr int kProducerRegs = 40;
 constexpr int kRowBytes = 128;  // one row of a 32-column box of fp32 values
 constexpr int kBoxCols = 32;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
@@ -132,10 +150,19 @@ struct Params {
   float scale;
 };
 
-// Keys per k/v tile; flash_attention.py's SM90_FP32_BLOCK_K repeats it.
+// Per head dim: keys per k/v tile (flash_attention.py's SM90_FP32_BLOCK_K
+// repeats kBK), q rows per CTA (one consumer warpgroup per 64), the
+// registers setmaxnreg gives a consumer thread, and the stages of k and v.
+// With two stages each stage is one unit behind one set of barriers; with
+// one (d = 256) its k half and its v half are refilled apart, each behind
+// barriers of its own, so the next tile's k loads during this tile's
+// softmax and P.V, and its v during the next S.
 template <int D>
 struct Tiling {
-  static constexpr int kBK = D == 128 ? 32 : 64;
+  static constexpr int kBK = D == 64 ? 64 : 32;
+  static constexpr int kBQ = D == 256 ? 64 : 128;
+  static constexpr int kConsumerRegs = D == 256 ? 240 : 232;
+  static constexpr int kStages = D == 256 ? 1 : 2;
 };
 
 // Shared memory, in bytes from a 1024-byte aligned base: q, then kStages
@@ -145,6 +172,10 @@ struct Tiling {
 template <int D>
 struct Layout {
   static constexpr int kBK = Tiling<D>::kBK;
+  static constexpr int kBQ = Tiling<D>::kBQ;
+  static constexpr int kStages = Tiling<D>::kStages;
+  static constexpr int kConsumers = 2 * kBQ;  // 128 threads per 64 q rows
+  static constexpr int kTransformers = kThreads - kConsumers;
   static constexpr int kQBox = kBQ * kRowBytes;
   static constexpr int kKBox = kBK * kRowBytes;
   static constexpr int kVtBox = D * kRowBytes;
@@ -160,19 +191,33 @@ struct Layout {
   static constexpr int kQ = 0;
   static constexpr int kStages0 = kQTile;
   static constexpr int kBar = kStages0 + kStages * kStage;
-  // barrier indices: q full, raw full[s], ready[s], empty[s]
+  // barrier indices: q full, raw full[s], ready[s], empty[s]; with one
+  // stage these three are its k half's, and its v half has its own three
   static constexpr int kQFull = 0;
   static constexpr int kRawFull = 1;
   static constexpr int kReady = 1 + kStages;
   static constexpr int kEmpty = 1 + 2 * kStages;
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
+  static constexpr int kVRawFull = 1 + 3 * kStages;
+  static constexpr int kVReady = kVRawFull + 1;
+  static constexpr int kVEmpty = kVRawFull + 2;
+  static constexpr int kBytes = kBar + 8 * (4 + 3 * kStages) + 1024;  // + alignment slack
 };
-static_assert(Layout<64>::kBytes <= kSmemLimit, "d = 64 exceeds shared memory");
-static_assert(Layout<128>::kBytes <= kSmemLimit, "d = 128 exceeds shared memory");
-static_assert(Layout<64>::kKTile % (16 * kTransformers) == 0, "k tile split unevenly");
-static_assert(Layout<128>::kKTile % (16 * kTransformers) == 0, "k tile split unevenly");
-static_assert((64 * Layout<64>::kBK / 8) % kTransformers == 0, "v tile split unevenly");
-static_assert((128 * Layout<128>::kBK / 8) % kTransformers == 0, "v tile split unevenly");
+
+// What each instance needs of its Layout: it fits, its tiles split evenly
+// over the transform threads, its stages keep the swizzle's 1024-byte
+// alignment, and its register split fits the 384 x 168 allocated at launch.
+template <int D>
+constexpr bool layout_ok() {
+  using L = Layout<D>;
+  return L::kBytes <= kSmemLimit && L::kKTile % (16 * L::kTransformers) == 0 &&
+         (D * L::kBK / 8) % L::kTransformers == 0 && L::kStage % 1024 == 0 &&
+         L::kQTile % 1024 == 0 && L::kVtTile % 1024 == 0 &&
+         L::kTransformers * kProducerRegs + L::kConsumers * Tiling<D>::kConsumerRegs <=
+             kThreads * 168;
+}
+static_assert(layout_ok<64>(), "d = 64 layout");
+static_assert(layout_ok<128>(), "d = 128 layout");
+static_assert(layout_ok<256>(), "d = 256 layout");
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
@@ -303,6 +348,9 @@ __device__ __forceinline__ float ex2(float x) {
 #define TST_ACC16 TST_F8(0), TST_F8(8)
 #define TST_ACC32 TST_ACC16, TST_F8(16), TST_F8(24)
 #define TST_ACC64 TST_ACC32, TST_F8(32), TST_F8(40), TST_F8(48), TST_F8(56)
+#define TST_ACC128                                                                      \
+  TST_ACC64, TST_F8(64), TST_F8(72), TST_F8(80), TST_F8(88), TST_F8(96), TST_F8(104), \
+      TST_F8(112), TST_F8(120)
 #define TST_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define TST_REGS32 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
@@ -312,6 +360,15 @@ __device__ __forceinline__ float ex2(float x) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define TST_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
 
 // D (64 x N, fp32) += A (64 x 8, registers) * B (N x 8, smem, K-major)^T.
 #define TST_WGMMA_RS(N, REGS, ACC, A0, A1, A2, A3, IB, IS, IOB)                          \
@@ -326,13 +383,16 @@ __device__ __forceinline__ float ex2(float x) {
 template <int N, int OB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t db,
                                          int scale_d = 1) {
-  static_assert(N == 32 || N == 64 || N == 128, "tile width");
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "tile width");
   if constexpr (N == 32) {
     TST_WGMMA_RS("32", TST_REGS16, TST_ACC16, "16", "17", "18", "19", "20", "21", "22");
   } else if constexpr (N == 64) {
     TST_WGMMA_RS("64", TST_REGS32, TST_ACC32, "32", "33", "34", "35", "36", "37", "38");
-  } else {
+  } else if constexpr (N == 128) {
     TST_WGMMA_RS("128", TST_REGS64, TST_ACC64, "64", "65", "66", "67", "68", "69", "70");
+  } else {
+    TST_WGMMA_RS("256", TST_REGS128, TST_ACC128, "128", "129", "130", "131", "132", "133",
+                 "134");
   }
 }
 
@@ -371,8 +431,8 @@ __device__ __forceinline__ void s_steps(float (&s)[N / 2], float (&s_lo)[N / 2],
 // This thread's TF32 A fragments of q for k-steps K0 .. K0 + NK - 1 (d
 // columns 8k .. 8k + 7), split from raw q in shared memory: hi[4j + r] and
 // lo[4j + r] of step K0 + j hold rows (g, g + 8, g, g + 8) of the warp's 16,
-// columns (t, t, t + 4, t + 4), from 128-byte swizzled boxes of kBQ rows.
-template <int K0, int NK>
+// columns (t, t, t + 4, t + 4), from 128-byte swizzled boxes of BQ rows.
+template <int BQ, int K0, int NK>
 __device__ __forceinline__ void q_fragments(uint32_t (&hi)[4 * NK], uint32_t (&lo)[4 * NK],
                                             uint32_t q_rows, int group, int quad) {
 #pragma unroll
@@ -381,7 +441,7 @@ __device__ __forceinline__ void q_fragments(uint32_t (&hi)[4 * NK], uint32_t (&l
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int chunk = 2 * (kk % 4) + (r >> 1);
-      split(lds(q_rows + (kk / 4) * (kBQ * kRowBytes) + (r & 1) * 8 * kRowBytes +
+      split(lds(q_rows + (kk / 4) * (BQ * kRowBytes) + (r & 1) * 8 * kRowBytes +
                 ((chunk ^ group) * 16) + quad * 4),
             hi[4 * j + r], lo[4 * j + r]);
     }
@@ -401,7 +461,7 @@ __device__ __forceinline__ void s_product(float (&s)[kBK / 2], float (&s_lo)[kBK
   if constexpr (G * NK < D / 8) {
     constexpr int kKBox = kBK * kRowBytes;
     if constexpr (G >= 2) wgmma_wait<1>();
-    q_fragments<G * NK, NK>(qh[G % 2], ql[G % 2], q_rows, group, quad);
+    q_fragments<Tiling<D>::kBQ, G * NK, NK>(qh[G % 2], ql[G % 2], q_rows, group, quad);
     wgmma_fence();
     s_steps<kBK, kKBox, G * NK, 0, NK>(s, s_lo, qh[G % 2], ql[G % 2], d_kh, d_kl);
     wgmma_commit();
@@ -409,23 +469,28 @@ __device__ __forceinline__ void s_product(float (&s)[kBK / 2], float (&s_lo)[kBK
   }
 }
 
-// The producer warpgroup's share of one landed stage: k hi over raw k and k
+// The producer warpgroups' share of one landed stage: k hi over raw k and k
 // lo beside it (the same swizzled offsets), then v^T hi and lo from raw v.
 // v^T row d holds the tile's keys in 32-key boxes, each 8-key group in the
 // order 0 2 4 6 1 3 5 7 (two 16-byte chunks), swizzled by d % 8.
 template <int D>
-__device__ __forceinline__ void transform_stage(uint32_t stage, int tid) {
+__device__ __forceinline__ void transform_k(uint32_t stage, int tid) {
   using L = Layout<D>;
-  constexpr int kBK = L::kBK;
 #pragma unroll 1
-  for (int i = 0; i < L::kKTile / 16 / kTransformers; ++i) {
-    const uint32_t off = stage + (uint32_t)(i * kTransformers + tid) * 16;
+  for (int i = 0; i < L::kKTile / 16 / L::kTransformers; ++i) {
+    const uint32_t off = stage + (uint32_t)(i * L::kTransformers + tid) * 16;
     const float4 x = lds4(off + L::kKh);
     const uint32_t h0 = tf32(x.x), h1 = tf32(x.y), h2 = tf32(x.z), h3 = tf32(x.w);
     sts4(off + L::kKh, h0, h1, h2, h3);
     sts4(off + L::kKl, tf32(x.x - __uint_as_float(h0)), tf32(x.y - __uint_as_float(h1)),
          tf32(x.z - __uint_as_float(h2)), tf32(x.w - __uint_as_float(h3)));
   }
+}
+template <int D>
+__device__ __forceinline__ void transform_v(uint32_t stage, int tid) {
+  using L = Layout<D>;
+  constexpr int kBK = L::kBK;
+  constexpr int kTransformers = L::kTransformers;
 #pragma unroll 1
   for (int i = 0; i < D * kBK / 8 / kTransformers; ++i) {
     const int item = i * kTransformers + tid;
@@ -454,6 +519,16 @@ __device__ __forceinline__ void transform_stage(uint32_t stage, int tid) {
     }
   }
 }
+template <int D>
+__device__ __forceinline__ void transform_stage(uint32_t stage, int tid) {
+  transform_k<D>(stage, tid);
+  transform_v<D>(stage, tid);
+}
+
+// The producer warpgroups meet at named barrier 1 (0 is __syncthreads).
+__device__ __forceinline__ void producers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
 
 template <int D, bool EMIT_STATS>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -462,6 +537,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = Layout<D>;
   constexpr int kBK = L::kBK;
+  constexpr int kBQ = L::kBQ;
+  constexpr int kStages = L::kStages;
   constexpr int kBoxes = D / kBoxCols;
   constexpr int kQSteps = 2;  // k-steps of S per commit group
   extern __shared__ uint8_t smem_raw[];
@@ -483,18 +560,68 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_init(bar(L::kQFull), 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar(L::kRawFull + s), 1);
-      mbar_init(bar(L::kReady + s), kTransformers);
-      mbar_init(bar(L::kEmpty + s), kConsumers);
+      mbar_init(bar(L::kReady + s), L::kTransformers);
+      mbar_init(bar(L::kEmpty + s), L::kConsumers);
+    }
+    if (kStages == 1) {
+      mbar_init(bar(L::kVRawFull), 1);
+      mbar_init(bar(L::kVReady), L::kTransformers);
+      mbar_init(bar(L::kVEmpty), L::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
-    // Producer warpgroup: thread 0 issues every load; all 128 split and
-    // transpose each landed stage.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+  if (threadIdx.x < L::kTransformers) {
+    // Producer warpgroups: thread 0 issues every load; all their threads
+    // split and transpose each landed stage.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     const int tid = threadIdx.x;
+    if (tid == 0) {
+      mbar_expect_tx(bar(L::kQFull), L::kQTile);
+      for (int x = 0; x < kBoxes; ++x)
+        tma_load(base + L::kQ + x * L::kQBox, &tm_q, bar(L::kQFull), kBoxCols * x, q0, head,
+                 bi);
+    }
+    if constexpr (kStages == 1) {
+      // One stage refilled by halves: raw k lands in k hi once S of the tile
+      // before has left k hi and k lo, raw v in its landing tile once this
+      // warpgroup pair has transformed the tile before.
+      const uint32_t stage = stage_at(0);
+      // Tile t of k or v (D/32 boxes of kBK rows) to ``dst``, its bytes
+      // completing on barrier ``full``.
+      auto load = [&](const CUtensorMap* map, uint32_t dst, int full, int t) {
+        mbar_expect_tx(bar(full), L::kKTile);
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load(dst + x * L::kKBox, map, bar(full), kBoxCols * x, t * kBK, kvh, bi);
+      };
+      auto load_k = [&](int t) { load(&tm_k, stage + L::kKh, L::kRawFull, t); };
+      auto load_v = [&](int t) { load(&tm_v, stage + L::kVraw, L::kVRawFull, t); };
+      if (tid == 0) {
+        load_k(0);
+        load_v(0);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(bar(L::kRawFull), t & 1);
+        transform_k<D>(stage, tid);
+        fence_proxy_async();
+        mbar_arrive(bar(L::kReady));
+        mbar_wait(bar(L::kVRawFull), t & 1);
+        mbar_wait(bar(L::kVEmpty), (t & 1) ^ 1);  // P.V of tile t - 1 has left v^T
+        transform_v<D>(stage, tid);
+        fence_proxy_async();
+        mbar_arrive(bar(L::kVReady));
+        if (t + 1 < n_tiles) {
+          producers_sync(L::kTransformers);  // every thread has read raw v
+          if (tid == 0) {
+            load_v(t + 1);
+            mbar_wait(bar(L::kEmpty), t & 1);  // S of tile t has left k
+            load_k(t + 1);
+          }
+        }
+      }
+      return;
+    }
     // Raw k into the stage's k hi tile, raw v into its landing tile; the
     // stage is free once the consumers are done with tile t - kStages.
     auto issue = [&](int t) {
@@ -508,13 +635,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  kBoxCols * x, t * kBK, kvh, bi);
       }
     };
-    if (tid == 0) {
-      mbar_expect_tx(bar(L::kQFull), L::kQTile);
-      for (int x = 0; x < kBoxes; ++x)
-        tma_load(base + L::kQ + x * L::kQBox, &tm_q, bar(L::kQFull), kBoxCols * x, q0, head,
-                 bi);
-      issue(0);
-    }
+    if (tid == 0) issue(0);
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % kStages;
       mbar_wait(bar(L::kRawFull + s), (t / kStages) & 1);
@@ -524,9 +645,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (tid == 0 && t + 1 < n_tiles) issue(t + 1);
     }
   } else {
-    // Consumer warpgroups: wg 0 owns q rows 0..63 of the tile, wg 1 rows 64..127.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    const int wg = threadIdx.x / 128 - 1;
+    // Consumer warpgroups: wg w owns q rows 64 w .. 64 w + 63 of the tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(Tiling<D>::kConsumerRegs));
+    const int wg = (threadIdx.x - L::kTransformers) / 128;
     const int tid = threadIdx.x % 128;
     const int quad = tid & 3;
     const int group = (tid % 32) / 4;
@@ -566,6 +687,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait_all();
       fence_regs(s);
       fence_regs(s_lo);
+      if constexpr (kStages == 1) mbar_arrive(bar(L::kEmpty));  // S has left k
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) s[i] += s_lo[i];
 
@@ -638,6 +760,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(ph);
       fence_regs(pl);
       fence_regs(o);
+      if constexpr (kStages == 1) {
+        mbar_wait(bar(L::kVReady), t & 1);
+        __syncwarp();
+      }
       wgmma_fence();
       rs_steps<D, L::kVtBox, 0, kBK / 8>(o, pl, d_vth);
       rs_steps<D, L::kVtBox, 0, kBK / 8>(o, ph, d_vtl);
@@ -647,7 +773,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(o);
       fence_regs(ph);  // p stays in its registers until the wgmma has read it
       fence_regs(pl);
-      mbar_arrive(bar(L::kEmpty + st));
+      mbar_arrive(bar(kStages == 1 ? L::kVEmpty : L::kEmpty + st));
     }
 
     // Epilogue: o[4j + 2r + e] is row row0 + 8r, column 8j + 2 quad + e.
@@ -730,10 +856,11 @@ struct Call {
 template <int D, bool EMIT_STATS>
 int launch(const Call& c, const Params& p, cudaStream_t stream) {
   using L = Layout<D>;
+  if ((c.sq + L::kBQ - 1) / L::kBQ > 65535) return kBadShape;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kNoDriver;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, c.q, D, c.sq, c.h, c.b, c.q_sb, c.q_ss, c.q_sh, kBQ) ||
+  if (!make_map(encode, &tq, c.q, D, c.sq, c.h, c.b, c.q_sb, c.q_ss, c.q_sh, L::kBQ) ||
       !make_map(encode, &tk, c.k, D, c.sk, c.hk, c.b, c.k_sb, c.k_ss, c.k_sh, L::kBK) ||
       !make_map(encode, &tv, c.v, D, c.sk, c.hk, c.b, c.v_sb, c.v_ss, c.v_sh, L::kBK))
     return kBadTensorMap;
@@ -741,13 +868,14 @@ int launch(const Call& c, const Params& p, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(c.b * p.h, (p.sq + kBQ - 1) / kBQ);
+  const dim3 grid(c.b * p.h, (p.sq + L::kBQ - 1) / L::kBQ);
   kernel<<<grid, kThreads, L::kBytes, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
 template <bool EMIT_STATS>
 int dispatch_d(const Call& c, const Params& p, cudaStream_t stream) {
+  if (c.d == 256) return launch<256, EMIT_STATS>(c, p, stream);
   if (c.d == 128) return launch<128, EMIT_STATS>(c, p, stream);
   return launch<64, EMIT_STATS>(c, p, stream);
 }
@@ -765,10 +893,8 @@ extern "C" int tst_flash_sm90_fp32(const void* q, const void* k, const void* v, 
                                    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                    float scale, void* stream) {
   if (kind != 0) return kBadKind;
-  if (d != 64 && d != 128) return kBadHeadDim;
-  if (b <= 0 || h <= 0 || hk <= 0 || h % hk != 0 || sq <= 0 || sk <= 0 ||
-      (sq + kBQ - 1) / kBQ > 65535)
-    return kBadShape;
+  if (d != 64 && d != 128 && d != 256) return kBadHeadDim;
+  if (b <= 0 || h <= 0 || hk <= 0 || h % hk != 0 || sq <= 0 || sk <= 0) return kBadShape;
   if (!tma_ok(q, q_sb, q_ss, q_sh) || !tma_ok(k, k_sb, k_ss, k_sh) || !tma_ok(v, v_sb, v_ss, v_sh))
     return kBadLayout;
   const Call c{q, k, v, b, h, hk, sq, sk, d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};

@@ -21,14 +21,15 @@ stats flag in each), picked by shape (``sm90_eligible``, then
   as FlashAttention and SDPA do, over k-tiles of ``SM90_BLOCK_K[d]`` keys;
   ``stats_blockwise_reference`` repeats its arithmetic in plain PyTorch.
 - ``csrc/flash_attention_sm90_fp32.cu`` (variant ``"sm90_fp32"``): fp32
-  q/k/v with head_dim 64 or 128 whose strides TMA accepts. TF32 ``wgmma``
-  for both products with a 3xTF32 split (hi = tf32(x), lo = tf32(x - hi),
-  lo.lo dropped), over k-tiles of ``SM90_FP32_BLOCK_K[d]`` keys;
-  ``stats_blockwise_reference(split="tf32x3", _round_p=False)`` repeats its
-  arithmetic.
-- ``csrc/flash_attention.cu`` (variant ``"simt"``): every other call (fp32
-  at d = 256, other head dims up to 256 with d % 8 == 0, other strides),
-  fp32 math on the CUDA cores; it reads fp32, bf16 and fp16.
+  q/k/v with head_dim 64, 128 or 256 whose strides TMA accepts. TF32
+  ``wgmma`` for both products with a 3xTF32 split (hi = tf32(x), lo =
+  tf32(x - hi), lo.lo dropped), over k-tiles of ``SM90_FP32_BLOCK_K[d]``
+  keys; ``stats_blockwise_reference(split="tf32x3", _round_p=False)``
+  repeats its arithmetic.
+- ``csrc/flash_attention.cu`` (variant ``"simt"``): every other call (other
+  head dims up to 256 with d % 8 == 0, in any of the three types, and
+  strides TMA refuses), fp32 math on the CUDA cores; it reads fp32, bf16 and
+  fp16.
 
 Both take any sequence lengths (they mask ragged edges); the JAX kernel
 needed tiling lengths. ``flash_stats_eligible`` keeps the JAX package's
@@ -64,11 +65,12 @@ SM90_HEAD_DIMS = (64, 128, 256)
 # .cu file): at d = 256 q and two stages of 128-key k and v tiles would not
 # fit in a block's shared memory.
 SM90_BLOCK_K = {64: 128, 128: 128, 256: 64}
-SM90_FP32_HEAD_DIMS = (64, 128)
+SM90_FP32_HEAD_DIMS = (64, 128, 256)
 # Keys per k-tile of the sm90_fp32 kernel (``Tiling<D>`` in its .cu file):
-# at d = 128 two stages of k and v^T split into hi and lo beside q fit in a
-# block's shared memory only at 32 keys.
-SM90_FP32_BLOCK_K = {64: 64, 128: 32}
+# two stages of k and v^T split into hi and lo beside q fit in a block's
+# shared memory only at 32 keys at d = 128; at d = 256 one stage of 32 keys
+# beside 64 q rows.
+SM90_FP32_BLOCK_K = {64: 64, 128: 32, 256: 32}
 # Bits of an fp32 value that TF32 drops (the low 13 of the mantissa).
 _TF32_DROPPED = 0x1FFF
 
@@ -258,7 +260,7 @@ def sm90_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 def sm90_fp32_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """The second variant rule: the sm90_fp32 kernel takes fp32 q, k, v with
-    head_dim 64 or 128, h % hk == 0, 16-byte aligned base pointers, a unit
+    head_dim 64, 128 or 256, h % hk == 0, 16-byte aligned base pointers, a unit
     head_dim stride and every other stride a positive multiple of 4
     elements. Every call that neither rule takes runs on the simt kernel."""
     return (_tensor_core_shape(q, k, v, (torch.float32,), SM90_FP32_HEAD_DIMS)

@@ -138,7 +138,11 @@ class RendezvousClient:
     async def connect(self, timeout: float = DEFAULT_TIMEOUT_S) -> None:
         """Connect, retrying under a ``RetryPolicy`` while rank 0's server is
         not up yet (``timeout`` is the budget; a gentle jittered start, so a
-        world connecting at once does not hit the listener in lockstep)."""
+        world connecting at once does not hit the listener in lockstep). A
+        challenge that does not come within the auth timeout is retried the
+        same way: rank 0's event loop can stay busy longer than that right
+        after its listener opens (it spawns its host's volumes), and the
+        connection then waits in its backlog unanswered."""
         from torchstore_tpu_torch.config import RetryPolicy
         from torchstore_tpu_torch.runtime.auth import client_authenticate
 
@@ -148,13 +152,21 @@ class RendezvousClient:
         while True:
             try:
                 self._reader, self._writer = await asyncio.open_connection(self.host, self.port)
-                break
             except (ConnectionError, OSError):
                 if not policy.should_retry(attempt, deadline):
                     raise
-                await asyncio.sleep(policy.backoff(attempt))
-                attempt += 1
-        await client_authenticate(self._reader, self._writer)
+            else:
+                try:
+                    await client_authenticate(self._reader, self._writer)
+                    break
+                except (asyncio.TimeoutError, asyncio.IncompleteReadError):
+                    self._writer.close()
+                    if not policy.should_retry(attempt, deadline):
+                        raise
+                    logger.warning("rendezvous at %s:%s sent no auth challenge in time; "
+                                   "retrying", self.host, self.port)
+            await asyncio.sleep(policy.backoff(attempt))
+            attempt += 1
         self._reader_task = asyncio.ensure_future(self._read_loop())
 
     async def _read_loop(self) -> None:
