@@ -110,18 +110,22 @@ and direct_device keep full depth:
                   state, targets within one keyframe step; nothing left;
 9. flash_parity - the flash kernels, stats mode (K2) and normalized mode
                   (K3), against their plain versions on the card: Llama-3-8B
-                  attention width, MHA, d = 64, 72 and 256, lengths 1 to 8192
-                  and ragged ones, batch up to 4, a packed qkv projection
-                  view, fp32 and bf16, causal and not, and fp16 on d 64, 72
-                  and 256, a ragged case and the packed view. Each case
-                  names the variant ``flash_variant`` picked (bf16 and fp16
-                  at d 64, 128 and 256 on sm90, fp32 at d 64, 128 and 256
-                  on sm90_fp32, the rest on simt); the sm90 cases are held
-                  against the blockwise plain version at the kernel's own
-                  k-tile and against the fp32 one with SDPA's error as the
-                  yardstick, the sm90_fp32 and simt cases against the fp32
-                  plain version (sm90_fp32's error against its 3xTF32 twin
-                  printed beside it); on a few fp32 cases at d = 128 and 256
+                  attention width, MHA, d = 8, 40, 64, 72, 96, 136, 200 and
+                  256, lengths 1 to 8192 and ragged ones, batch up to 4,
+                  packed qkv projection views, q, k, v cut from rows of
+                  d + 2 (strides TMA refuses), fp32 and bf16, causal and
+                  not, and fp16 on d 64, 72, 96, 136 and 256, a ragged case,
+                  the packed views and a case TMA refuses. Each case names
+                  the variant ``flash_variant`` picked (bf16 and fp16 on
+                  sm90, fp32 on sm90_fp32, at every head dim: d 64, 128 and
+                  256 on their own instances, others zero-padded to the
+                  next; the cases TMA refuses on simt); the sm90 cases are
+                  held against the blockwise plain version at the k-tile of
+                  the instance they run on and against the fp32 one with
+                  SDPA's error as the yardstick, the sm90_fp32 and simt
+                  cases against the fp32 plain version (sm90_fp32's error
+                  against its 3xTF32 twin printed beside it); on a few fp32
+                  cases at d = 128 and 256
                   the errors of sm90_fp32, simt (forced) and the fp32 plain
                   version against attention computed in fp64, printed and
                   not gated;
@@ -137,8 +141,13 @@ and direct_device keep full depth:
                   and in fp32 on the sm90_fp32 kernel and on the simt kernel
                   forced (the route fp32 at d = 256 took before), each beside
                   its bound, the plain version and SDPA on the same inputs;
-                  then K2 and K3 causal on the simt kernel where the rules
-                  send calls to it (bf16, h=hk=32, d=96, 2048 tokens);
+                  then at Phi-3-mini attention width (h=hk=32, d=96, 2048
+                  tokens) K2 and K3 causal on the d = 128 instances
+                  zero-padded, in bf16 on sm90 and in fp32 on sm90_fp32,
+                  each beside the simt kernel forced on the same inputs
+                  (the route before padding); and K2 and K3 causal on the
+                  simt kernel where the rules send calls to it (the same
+                  width in bf16, q, k, v cut from rows of d + 2);
 11. ring         - ring attention over a one-rank NCCL group ({"sp": 1}) at
                   Llama-3-8B attention width and again at Gemma-7B's: a bf16
                   path (forward at 8192, forward and backward at 4096) and
@@ -146,9 +155,13 @@ and direct_device keep full depth:
                   and the plain version; K2's and K3's launches per variant
                   on each path (bf16: sm90 only, at both widths; fp32:
                   sm90_fp32 only, at both widths); then the same paths at
-                  a width the rules send to simt (Phi-3-mini's attention,
-                  h=hk=32, d=96; bf16 at 2048 tokens, fp32 at 1024; simt
-                  only);
+                  Phi-3-mini's attention width (h=hk=32, d=96, zero-padded
+                  on the d = 128 instances; bf16 at 2048 tokens, fp32 at
+                  1024), and its forward once more in fp16 (sm90 only);
+                  then the simt path: the same width with q, k, v cut from
+                  rows of d + 2 (strides TMA refuses), bf16 at 2048 and
+                  fp32 at 1024, through ring attention's per-rank body and
+                  flash_attention (simt only);
 12. model       - the RL loop at Llama-3-8B width (depth cut): a learner
                   trains two steps and publishes with direct=True (cast
                   launches equal to the planner's chunk count; the device
@@ -2615,11 +2628,28 @@ FLASH_CASES = (
     ("8b-sq8192-sk1", 1, 8192, 1, HEADS, KV_HEADS, HEAD_DIM),
     ("8b-sq1000-sk1537-b4", 4, 1000, 1537, HEADS, KV_HEADS, HEAD_DIM),
     ("packed-8b-2048", 1, 2048, 2048, HEADS, KV_HEADS, HEAD_DIM),
+    # Head dims between the tensor-core instances (64, 128, 256), zero-padded
+    # to the next one up: d 8 and 40 on the d = 64 instance, 96 (Phi-3-mini's
+    # attention width: h = hk = 32) on 128, 136 and 200 on 256.
+    ("gqa-d8-257", 1, 257, 257, 4, 2, 8),
+    ("gqa-d40-sq300-sk1000", 1, 300, 1000, 8, 2, 40),
+    ("phi3-sq1000-sk1537", 1, 1000, 1537, 32, 32, 96),
+    ("packed-phi3-2048", 1, 2048, 2048, 32, 32, 96),
+    ("gqa-d136-sq300-sk777", 1, 300, 777, 8, 2, 136),
+    ("mha-d200-513", 1, 513, 513, 4, 4, 200),
+    # q, k, v each cut from rows of d + 2 elements: strides TMA refuses, so
+    # every type runs on the simt kernel.
+    ("rowpad-phi3-1024", 1, 1024, 1024, 32, 32, 96),
+    ("rowpad-gqa-d72-300", 1, 300, 300, 4, 2, 72),
 )
-# The cases that run in fp16 too (beside fp32 and bf16): d 64, 72 and 256,
-# one ragged Llama-3-8B case and the packed view.
+# The cases that run in fp16 too (beside fp32 and bf16): d 64, 72, 96, 136
+# and 256, one ragged Llama-3-8B case, the packed views and a case with
+# strides TMA refuses.
 FLASH_FP16_CASES = ("mha-d64-1025", "mha-d256-sq1024-sk1000", "gqa-d256-4096", "gqa-d72-300",
-                    "8b-sq1000-sk1537", "packed-8b-2048")
+                    "8b-sq1000-sk1537", "packed-8b-2048", "phi3-sq1000-sk1537",
+                    "packed-phi3-2048", "gqa-d136-sq300-sk777", "rowpad-phi3-1024")
+# The layouts a case's label may start with (``_qkv``); others are contiguous.
+FLASH_LAYOUTS = ("packed", "rowpad")
 FLASH_TOL = {
     "stats": "m, l: |got - want| <= 1e-5 + 1e-4 |want|; acc the same after dividing "
              "got and want by want's l (fp32, bf16 and fp16 inputs)",
@@ -2627,8 +2657,9 @@ FLASH_TOL = {
     "o_bf16": "|got - want| <= 1e-5 + 2 bf16 ulps of want",
     "o_fp16": "|got - want| <= 1e-5 + 2 fp16 ulps of want (11 significant bits)",
     "sm90_vs_blockwise": "against stats_blockwise_reference (the same arithmetic: p rounded "
-                         "to the input type, block_k = the kernel's own k-tile at that d: 128 "
-                         "at d 64 and 128, 64 at d 256): m, l as 'stats'; acc (on o's scale) "
+                         "to the input type, block_k = the k-tile of the instance the call "
+                         "runs on, padded_head_dim(d): 128 at 64 and 128, 64 at 256): m, l "
+                         "as 'stats'; acc (on o's scale) "
                          "within 1e-5 + 1e-4 |want| + flip, o within 1e-5 + 2 ulps of the "
                          "input type + flip, where flip = 2 u max_k |v_kd| / l with u = 2**-7 "
                          "(bf16) or 2**-10 (fp16): the two fp32 p differ in their last bits "
@@ -2636,12 +2667,12 @@ FLASH_TOL = {
                          "one ulp (<= u p) per term; flip allows two such terms at the row's "
                          "largest weight (p <= 1). 'strict_outside' counts acc values outside "
                          "1e-5 + 1e-4 |want|",
-    "sm90_fp32": "fp32 inputs at d 64/128/256 (the sm90_fp32 kernel, 3xTF32): held to 'stats' "
-                 "and 'o_fp32' against the fp32 plain version; beside it, reported and not "
-                 "gated, the worst errors of acc (on o's scale), m, l and o against its twin "
-                 "stats_blockwise_reference(split='tf32x3', _round_p=False) at the kernel's "
-                 "k-tile SM90_FP32_BLOCK_K[d] (the same TF32 roundings; the fp32 sums, of up "
-                 "to 8192 terms, in another order)",
+    "sm90_fp32": "fp32 inputs whose strides TMA takes (the sm90_fp32 kernel, 3xTF32): held "
+                 "to 'stats' and 'o_fp32' against the fp32 plain version; beside it, reported "
+                 "and not gated, the worst errors of acc (on o's scale), m, l and o against "
+                 "its twin stats_blockwise_reference(split='tf32x3', _round_p=False) at the "
+                 "k-tile SM90_FP32_BLOCK_K[padded_head_dim(d)] (the same TF32 roundings; the "
+                 "fp32 sums, of up to 8192 terms, in another order)",
     "sm90_vs_fp32": "against the fp32 plain version, with SDPA (is_causal, enable_gqa) on "
                     "the same inputs (of the same type) as the yardstick: the kernel's o and "
                     "acc/l each have a worst error <= 2x SDPA's worst error against "
@@ -2661,11 +2692,11 @@ FLASH_TIMED = (1, 8192, HEADS, KV_HEADS, HEAD_DIM)
 FLASH_TIMED_SHORT = 4096  # the ring phase's backward length
 GEMMA_HEADS = (16, 16, 256)
 FLASH_TIMED_GEMMA = (1, 8192, *GEMMA_HEADS)
-# A width the rules send to the simt kernel: Phi-3-mini's attention (hidden
-# 3072, 32 heads of 96, as many kv heads; its published config), bf16, at
-# the ring phase's short length.
-SIMT_HEADS = (32, 32, 96)
-FLASH_TIMED_SIMT = (1, 2048, *SIMT_HEADS)
+# A head dim between the tensor-core instances: Phi-3-mini's attention
+# (hidden 3072, 32 heads of 96, as many kv heads; its published config),
+# on the d = 128 instances zero-padded, at the ring phase's short length.
+PHI3_HEADS = (32, 32, 96)
+FLASH_TIMED_PHI3 = (1, 2048, *PHI3_HEADS)
 # Significant bits of each 16-bit type: one ulp of x is 2**(e - bits) for
 # x = f 2**e, 0.5 <= |f| < 1, so at most 2**(1 - bits) |x|.
 SIG_BITS = {"bfloat16": 8, "float16": 11}
@@ -2694,14 +2725,25 @@ def _within(torch, got, want, rtol=1e-4, atol=1e-5, ulps=None, extra=None) -> di
     return {"max_abs_err": float(err.max().item()) if err.numel() else 0.0, "outside": bad}
 
 
-def _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype, packed=False):
-    if packed:  # one projection output, sliced: q, k, v are strided views
+def _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype, layout=None):
+    """Seeded q, k, v. ``layout`` "packed": strided views of one (b, s,
+    h + 2 hk, d) projection output (TMA takes them); "rowpad": each cut from
+    rows of d + 2 elements, so every stride but d's is 2 mod 8 elements and
+    TMA refuses them (the simt kernel's calls); None: contiguous."""
+    if layout == "packed":
         qkv = torch.randn((b, sq, h + 2 * hk, d), generator=gen, device=dev).to(dtype)
         return qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]
-    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
-    k = torch.randn((b, sk, hk, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((b, sk, hk, d), generator=gen, device=dev).to(dtype)
-    return q, k, v
+    pad = 2 if layout == "rowpad" else 0
+    q = torch.randn((b, sq, h, d + pad), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, sk, hk, d + pad), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, hk, d + pad), generator=gen, device=dev).to(dtype)
+    return (q[..., :d], k[..., :d], v[..., :d]) if pad else (q, k, v)
+
+
+def _case_layout(label: str):
+    """The ``_qkv`` layout a FLASH_CASES label names, or None."""
+    first = label.split("-")[0]
+    return first if first in FLASH_LAYOUTS else None
 
 
 def _sdpa(torch, q, k, v, causal):
@@ -2741,7 +2783,8 @@ def _check_sm90(torch, flash, q, k, v, causal, got, o) -> dict:
     version at the kernel's own k-tile, and against the fp32 one with SDPA
     as the yardstick."""
     h = q.shape[2]
-    bw = flash.stats_blockwise_reference(q, k, v, causal, flash.SM90_BLOCK_K[q.shape[3]])
+    block_k = flash.SM90_BLOCK_K[flash.padded_head_dim(q.shape[3])]
+    bw = flash.stats_blockwise_reference(q, k, v, causal, block_k)
     n = bw[2][..., None]
     flip = _flip_allowance(torch, v, bw[2], h)
     res = {"bw_acc": _within(torch, got[0] / n, bw[0] / n, extra=flip)}
@@ -2807,8 +2850,9 @@ def phase_flash_parity(torch, flash) -> dict:
     cases = []
     worst = {f"{mode}_{variant}": 0.0 for mode in ("stats", "o")
              for variant in ("sm90", "sm90_fp32", "simt")}
-    worst.update({"stats_sm90_d256": 0.0, "o_sm90_d256": 0.0, "stats_sm90_fp16": 0.0,
-                  "o_sm90_fp16": 0.0, "stats_sm90_fp32_d256": 0.0, "o_sm90_fp32_d256": 0.0})
+    worst.update({f"{mode}_{key}": 0.0 for mode in ("stats", "o")
+                  for key in ("sm90_d256", "sm90_fp16", "sm90_fp32_d256", "sm90_pad",
+                              "sm90_fp32_pad")})
     fp16_s = 0.0
     for label, b, sq, sk, h, hk, d in FLASH_CASES:
         dtypes = [torch.float32, torch.bfloat16]
@@ -2816,14 +2860,15 @@ def phase_flash_parity(torch, flash) -> dict:
             dtypes.append(torch.float16)
         for dtype in dtypes:
             t_case = time.perf_counter()
-            q, k, v = _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype,
-                           packed=label.startswith("packed"))
+            layout = _case_layout(label)
+            q, k, v = _qkv(torch, gen, dev, b, sq, sk, h, hk, d, dtype, layout=layout)
             variant = flash.flash_variant(q, k, v)
-            # Every case's strides pass TMA's rule, so dtype and d decide.
-            if dtype != torch.float32:
-                rule = "sm90" if d in flash.SM90_HEAD_DIMS else "simt"
+            # Every case's d is a multiple of 8 up to 256, so the strides and
+            # the type decide: the "rowpad" cases' strides TMA refuses.
+            if layout == "rowpad":
+                rule = "simt"
             else:
-                rule = "sm90_fp32" if d in flash.SM90_FP32_HEAD_DIMS else "simt"
+                rule = "sm90" if dtype != torch.float32 else "sm90_fp32"
             for causal in (False, True):
                 before = _flash_counts(flash)
                 got = flash.stats_kernel(q, k, v, causal)
@@ -2870,12 +2915,15 @@ def phase_flash_parity(torch, flash) -> dict:
                     keys.append("sm90_fp16")
                 if variant == "sm90_fp32" and d == 256:
                     keys.append("sm90_fp32_d256")
+                if variant != "simt" and d not in flash.SM90_HEAD_DIMS:
+                    keys.append(f"{variant}_pad")
                 for key in keys:
                     worst[f"stats_{key}"] = max(worst[f"stats_{key}"], err_stats)
                     worst[f"o_{key}"] = max(worst[f"o_{key}"], err_o)
                 cases.append({
                     "case": f"{label} {str(dtype)[6:]} {'causal' if causal else 'full'}",
-                    "variant": variant, "launched": ran, "ok": ok, **res,
+                    "variant": variant, "launched": ran, "ok": ok,
+                    "padded": variant != "simt" and d not in flash.SM90_HEAD_DIMS, **res,
                     **({"twin": twin} if twin else {}),
                     **({"fp64_o_max_abs_err": fp64} if fp64 else {}),
                 })
@@ -2906,6 +2954,8 @@ def phase_flash_parity(torch, flash) -> dict:
         "cases": len(cases),
         "sm90_cases": sum(c["variant"] == "sm90" for c in cases),
         "sm90_fp32_cases": sum(c["variant"] == "sm90_fp32" for c in cases),
+        "simt_cases": sum(c["variant"] == "simt" for c in cases),
+        "padded_cases": sum(c["padded"] for c in cases),
         "fp16_cases": sum(" float16 " in c["case"] for c in cases),
         "fp16_seconds": fp16_s,
         "failed": failed[:10],
@@ -2943,14 +2993,19 @@ def phase_flash_timing(torch, flash) -> dict:
     # (tokens, h, hk, d, dtype) of each input set. Two sets of each, 96 MB a
     # set at Llama-3-8B width and 192 MB at Gemma-7B's: every call reads
     # memory that is not in L2.
+    # "d96_rowpad": Phi-3-mini width with q, k, v cut from rows of d + 2
+    # (strides TMA refuses: the simt kernel's calls by the rules).
     shapes = {"8b": (s, h, hk, d, bf16), "8b_4096": (FLASH_TIMED_SHORT, h, hk, d, bf16),
               "8b_fp16": (s, h, hk, d, fp16), "gemma": (FLASH_TIMED_GEMMA[1], *GEMMA_HEADS, bf16),
-              "d96": (FLASH_TIMED_SIMT[1], *SIMT_HEADS, bf16)}
-    inputs = {key: [_qkv(torch, gen, dev, b, n, n, hh, kh, dd, dt) for _ in range(2)]
+              "d96": (FLASH_TIMED_PHI3[1], *PHI3_HEADS, bf16),
+              "d96_rowpad": (FLASH_TIMED_PHI3[1], *PHI3_HEADS, bf16)}
+    inputs = {key: [_qkv(torch, gen, dev, b, n, n, hh, kh, dd, dt,
+                         layout="rowpad" if key.endswith("rowpad") else None)
+                    for _ in range(2)]
               for key, (n, hh, kh, dd, dt) in shapes.items()}
     # The same values in fp32: the fp32 calls' inputs (sm90_fp32, the simt
     # route forced, SDPA and the plain version beside them).
-    for key in ("8b", "gemma"):
+    for key in ("8b", "gemma", "d96"):
         shapes[f"{key}_fp32"] = (*shapes[key][:4], torch.float32)
         inputs[f"{key}_fp32"] = [[t.float() for t in qkv] for qkv in inputs[key]]
     before = _flash_counts(flash)
@@ -2969,12 +3024,14 @@ def phase_flash_timing(torch, flash) -> dict:
 
     sdpa = lambda causal: lambda q, k, v: _sdpa(torch, q, k, v, causal)  # noqa: E731
     # name: (input set, causal, stats mode, variant, kernel, plain, library).
-    # The fp32 rows, at both widths, time the sm90_fp32 kernel against the
+    # The fp32 rows, at every width, time the sm90_fp32 kernel against the
     # 3xTF32 bound (three TF32 passes) and the simt route forced on the same
     # fp32 inputs against the fp32 CUDA-core bound, SDPA on those inputs
-    # beside both. A row without a plain version reports its tensor-core
-    # twin's (the same inputs). The d96 rows time simt where the rules send
-    # calls to it.
+    # beside both. A simt row without a plain version reports its
+    # tensor-core twin's (the row of the same inputs and mode). The d96 rows
+    # time the d = 128 instances zero-padded at d = 96, the simt kernel
+    # forced beside them (the route before padding); the rowpad rows time
+    # simt where the rules send calls to it.
     plan = {
         "flash_stats": ("8b", False, True, "sm90", stats(False), stats_plain(False), sdpa(False)),
         "flash_stats_causal_diag": ("8b", True, True, "sm90", stats(True), stats_plain(True),
@@ -3015,10 +3072,26 @@ def phase_flash_timing(torch, flash) -> dict:
                                                stats(True, "simt"), None, sdpa(True)),
         "gemma_flash_causal_simt": ("gemma_fp32", True, False, "simt", attention(True, "simt"),
                                     None, sdpa(True)),
-        "d96_flash_stats_simt": ("d96", False, True, "simt", stats(False), stats_plain(False),
+        "d96_flash_stats": ("d96", False, True, "sm90", stats(False), stats_plain(False),
+                            sdpa(False)),
+        "d96_flash_causal": ("d96", True, False, "sm90", attention(True), attention_plain(True),
+                             sdpa(True)),
+        "d96_flash_stats_simt": ("d96", False, True, "simt", stats(False, "simt"), None,
                                  sdpa(False)),
-        "d96_flash_causal_simt": ("d96", True, False, "simt", attention(True),
+        "d96_flash_causal_simt": ("d96", True, False, "simt", attention(True, "simt"), None,
+                                  sdpa(True)),
+        "d96_flash_stats_fp32": ("d96_fp32", False, True, "sm90_fp32", stats(False),
+                                 stats_plain(False), sdpa(False)),
+        "d96_flash_causal_fp32": ("d96_fp32", True, False, "sm90_fp32", attention(True),
                                   attention_plain(True), sdpa(True)),
+        "d96_flash_stats_fp32_simt": ("d96_fp32", False, True, "simt", stats(False, "simt"),
+                                      None, sdpa(False)),
+        "d96_flash_causal_fp32_simt": ("d96_fp32", True, False, "simt",
+                                       attention(True, "simt"), None, sdpa(True)),
+        "rowpad_flash_stats": ("d96_rowpad", False, True, "simt", stats(False),
+                               stats_plain(False), sdpa(False)),
+        "rowpad_flash_causal": ("d96_rowpad", True, False, "simt", attention(True),
+                                attention_plain(True), sdpa(True)),
     }
     rows = {}
     gemma_s = 0.0
@@ -3043,9 +3116,9 @@ def phase_flash_timing(torch, flash) -> dict:
             rate, passes, bound_rate = BF16_FLOP_PER_S, 1, "16-bit tensor cores"
         bound = flash_bound(b, n, n, rh, rhk, rd, causal, dtype.itemsize, is_stats, rate, passes)
         ms = min(runs["kernel"])
-        twin = name
-        if variant == "simt":
-            twin = name[:-len("_simt")] + ("_fp32" if dtype == torch.float32 else "")
+        # The tensor-core row of the same inputs and mode (an earlier row).
+        twin = next((other for other, row in plan.items()
+                     if row[:3] == (key, causal, is_stats) and row[3] != "simt"), None)
         rows[name] = {
             "shape": {"b": b, "sq": n, "sk": n, "h": rh, "hk": rhk, "d": rd,
                       "dtype": str(dtype)[6:]},
@@ -3054,6 +3127,8 @@ def phase_flash_timing(torch, flash) -> dict:
             "ran_on_variant": mode.launches_by_variant[variant] > launched,
             "ms": ms,
             "plain_ms": min(runs["plain"]) if plain is not None else rows[twin]["plain_ms"],
+            **({"layout": "rows of d + 2 (strides TMA refuses)"} if key.endswith("rowpad")
+               else {}),
             "library_ms": min(runs["library"]),
             "library": ("SDPA" + (" on the same fp32 inputs" if dtype == torch.float32 else "")
                         + ", " + ("causal" if causal else "not causal")
@@ -3064,7 +3139,7 @@ def phase_flash_timing(torch, flash) -> dict:
             "share_of_bound": bound["bound_ms"] / ms,
             "tflop_per_s": bound["flop"] / ms / 1e9,
         }
-        if variant == "simt" and twin in rows:
+        if variant == "simt" and twin is not None:
             # How much faster the tensor-core route is on the same inputs.
             rows[name]["tensor_core_speedup"] = ms / rows[twin]["ms"]
         if variant == "sm90_fp32":
@@ -3087,16 +3162,17 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None,
-               variants=("sm90", "sm90_fp32")) -> dict:
+def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None, fp16=False) -> dict:
     """Ring attention over a one-rank sp mesh (the caller holds the process
     group), then K3 through ``flash_attention``: a bf16 path, forward at
     ``fwd_seq`` and forward + backward at ``bwd_seq``, causal and not; then
     an fp32 path (a learner computing attention in fp32), forward and K3 at
-    half ``bwd_seq``. ``variants`` names the kernel each path must launch
-    (bf16, fp32): the tensor-core ones at head dim 64, 128 and 256, simt
-    at others. Each path's per-variant launch counts are set to 0 just
-    before it and read right after; the comparisons follow."""
+    half ``bwd_seq``; with ``fp16``, the forward at ``fwd_seq`` once more in
+    fp16. The bf16 and fp16 paths must launch sm90 only, the fp32 path
+    sm90_fp32 only, at every head dim (d 64, 128 and 256 on their own
+    instances, others zero-padded). Each path's per-variant launch counts
+    are set to 0 just before it and read right after; the comparisons
+    follow."""
     from torchstore_tpu_torch.ops import flash_attention, ring_attention_sharded
     from torchstore_tpu_torch.parallel import make_mesh
 
@@ -3147,12 +3223,21 @@ def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None,
     fp32_path_s = time.perf_counter() - t0
     fp32_launches = _flash_counts(flash)
     _reset_flash_counts(flash)
-    # Each path's calls, all on the kernel ``variants`` names for it.
+    if fp16:
+        f16 = _qkv(torch, gen, dev, 1, fwd_seq, fwd_seq, h, hk, d, torch.float16)
+        t0 = time.perf_counter()
+        for causal in (False, True):
+            path[("fp16", causal)] = ring("auto")(*f16, causal)
+        sync()
+        fp16_path_s = time.perf_counter() - t0
+        fp16_launches = _flash_counts(flash)
+        _reset_flash_counts(flash)
+    # Each path's calls, all on the tensor-core kernel of its type.
     ring_calls, k3_calls = 4, 2
     none = {name: 0 for name in flash.stats_kernel.launches_by_variant}
-    variant, fp32_variant = variants
-    expected = {"flash_stats": {**none, variant: ring_calls}, "flash": {**none, variant: k3_calls}}
-    fp32_expected = {"flash_stats": {**none, fp32_variant: 2}, "flash": {**none, fp32_variant: 2}}
+    expected = {"flash_stats": {**none, "sm90": ring_calls}, "flash": {**none, "sm90": k3_calls}}
+    fp32_expected = {"flash_stats": {**none, "sm90_fp32": 2}, "flash": {**none, "sm90_fp32": 2}}
+    fp16_expected = {"flash_stats": {**none, "sm90": 2}, "flash": dict(none)}
 
     def yardstick(label, got, want, inputs, causal):
         """``got`` against ``want`` with SDPA on the same inputs as the
@@ -3200,10 +3285,35 @@ def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None,
         checks.append({"check": f"fp32 K3 {fp32_seq} {tag} vs ring (K2 + normalization)",
                        **_within(torch, path[("fp32_k3", causal)], got), "bit_equal": same})
         checks[-1]["outside"] += int(not same)
+        if fp16:
+            got = path[("fp16", causal)]
+            checks.append(yardstick(f"fp16 fwd {fwd_seq} {tag} vs einsum body", got,
+                                    ring("einsum")(*f16, causal), f16, causal))
+            # FLASH_TOL "sm90_vs_blockwise" against the arithmetic the path
+            # ran: o within 1e-5 + 2 fp16 ulps ("o_fp16") plus the flip
+            # allowance of the sm90 kernel's twin (p rounded to fp16) on the
+            # card; the plain version on the CPU.
+            stats = (flash.stats_blockwise_reference if dev.type == "cuda"
+                     else flash.stats_reference)
+            acc, _, l = stats(*f16, causal)
+            flip = _flip_allowance(torch, f16[2], l, h).transpose(1, 2)
+            checks.append({"check": f"fp16 fwd {fwd_seq} {tag} vs its twin (sm90_vs_blockwise)",
+                           **_within(torch, got, flash._normalize(acc, l, torch.float16),
+                                     atol=1e-5, ulps=2, extra=flip),
+                           "outside_without_flip": _within(
+                               torch, got, flash._normalize(acc, l, torch.float16), atol=1e-5,
+                               ulps=2)["outside"]})
+            del acc, l, flip
     on_card = dev.type == "cuda"
     ok = all(c["outside"] == 0 for c in checks)
     if on_card:
         ok = ok and launches == expected and fp32_launches == fp32_expected
+        if fp16:
+            ok = ok and fp16_launches == fp16_expected
+    fp16_res = {}
+    if fp16:
+        fp16_res = {"fp16_launches": fp16_launches, "fp16_launches_expected": fp16_expected,
+                    "fp16_path_seconds": fp16_path_s}
     return {
         "ok": ok,
         "launches": launches,
@@ -3213,6 +3323,7 @@ def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None,
         "fp32_launches": fp32_launches,
         "fp32_launches_expected": fp32_expected,
         "fp32_path_seconds": fp32_path_s,
+        **fp16_res,
         "checks": checks,
         "tolerance": (
             "bf16 outputs and grads: worst error <= 2x SDPA's (is_causal, enable_gqa; its own "
@@ -3220,9 +3331,86 @@ def _ring_path(torch, flash, dev, fwd_seq: int, bwd_seq: int, heads=None,
             "inputs (bf16 p before P.V; the backward's D = rowsum(dO o) takes the forward's "
             "rounding); 'outside_2ulps' counts values outside the fixed 1e-5 + 2 bf16 ulps "
             "(outputs) or 2 ulps + 1e-5 max|want| (grads); K3 bit-equal to the ring's K2 + "
-            "normalization; fp32 outputs within 1e-5 + 1e-4 |want|"),
+            "normalization; fp32 outputs within 1e-5 + 1e-4 |want|; fp16 outputs: the SDPA "
+            "yardstick against the einsum body, and FLASH_TOL 'sm90_vs_blockwise' (1e-5 + 2 "
+            "fp16 ulps plus the flip allowance) against the sm90 kernel's twin, p rounded to "
+            "fp16"),
         "shapes": {"fwd": [1, fwd_seq, h, hk, d], "bwd": [1, bwd_seq, h, hk, d],
-                   "fp32": [1, fp32_seq, h, hk, d], "dtype": "bfloat16 (fp32 path: float32)"},
+                   "fp32": [1, fp32_seq, h, hk, d],
+                   "dtype": "bfloat16 (fp32 path: float32" + ("; fp16 path: float16, fwd"
+                                                              if fp16 else "") + ")"},
+    }
+
+
+def _simt_path(torch, flash, dev, seq: int, heads) -> dict:
+    """The simt kernel's path: q, k, v each cut from rows of d + 2 elements
+    (``_qkv``'s "rowpad": strides TMA refuses, so the rules send every call
+    to simt), bf16 at ``seq`` tokens and fp32 at half of it, through ring
+    attention's per-rank body ``ring_attention(q, k, v, group)`` over a
+    one-rank sp group (the caller holds the process group; the body hands
+    the kernel the caller's strides, where ``ring_attention_sharded`` would
+    make them contiguous), causal and not, then K3 through
+    ``flash_attention``. The per-variant launch counts are set to 0 just
+    before the path and read right after; each output is held against the
+    einsum body and the plain version, and K3 bit-equal to the ring's K2 +
+    normalization."""
+    from torchstore_tpu_torch.ops import flash_attention
+    from torchstore_tpu_torch.ops.ring_attention import ring_attention
+    from torchstore_tpu_torch.parallel import make_mesh
+
+    h, hk, d = heads
+    group = make_mesh({"sp": 1}, dev.type).get_group("sp")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    sets = {"bf16": _qkv(torch, gen, dev, 1, seq, seq, h, hk, d, torch.bfloat16, "rowpad"),
+            "fp32": _qkv(torch, gen, dev, 1, seq // 2, seq // 2, h, hk, d, torch.float32,
+                         "rowpad")}
+    routes = {name: flash.flash_variant(*qkv) for name, qkv in sets.items()}
+    _reset_flash_counts(flash)
+    t0 = time.perf_counter()
+    out = {}
+    for name, qkv in sets.items():
+        for causal in (False, True):
+            out[(name, causal)] = ring_attention(*qkv, group, causal=causal)
+            out[(name, "k3", causal)] = flash_attention(*qkv, causal=causal)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    path_s = time.perf_counter() - t0
+    launches = _flash_counts(flash)
+    _reset_flash_counts(flash)
+    none = {name: 0 for name in flash.stats_kernel.launches_by_variant}
+    expected = {"flash_stats": {**none, "simt": 4}, "flash": {**none, "simt": 4}}
+    checks = []
+    for name, qkv in sets.items():
+        tol = {} if name == "fp32" else {"atol": 1e-5, "ulps": 2}
+        for causal in (False, True):
+            tag = "causal" if causal else "full"
+            got = out[(name, causal)]
+            einsum = ring_attention(*qkv, group, causal=causal, impl="einsum")
+            checks.append({"check": f"{name} fwd {tag} vs einsum body",
+                           **_within(torch, got, einsum, **tol)})
+            checks.append({"check": f"{name} fwd {tag} vs plain",
+                           **_within(torch, got, flash.attention_reference(*qkv, causal), **tol)})
+            k3 = out[(name, "k3", causal)]
+            same = bool(torch.equal(k3, got))
+            checks.append({"check": f"{name} K3 {tag} vs ring (K2 + normalization)",
+                           **_within(torch, k3, got, **tol), "bit_equal": same})
+            checks[-1]["outside"] += int(not same)
+    ok = all(c["outside"] == 0 for c in checks)
+    if dev.type == "cuda":
+        ok = ok and launches == expected and set(routes.values()) == {"simt"}
+    return {
+        "ok": ok,
+        "routes": routes,
+        "launches": launches,
+        "launches_expected": expected,
+        "path_seconds": path_s,
+        "checks": checks,
+        "tolerance": "bf16 outputs within 1e-5 + 2 bf16 ulps, fp32 within 1e-5 + 1e-4 |want|, "
+                     "of the einsum body and the plain version; K3 bit-equal to the ring's K2 "
+                     "+ normalization",
+        "shapes": {"bf16": [1, seq, h, hk, d], "fp32": [1, seq // 2, h, hk, d],
+                   "layout": "q, k, v each cut from rows of d + 2 elements"},
     }
 
 
@@ -3243,17 +3431,22 @@ def phase_ring(torch, flash) -> dict:
         t0 = time.perf_counter()
         gemma = _ring_path(torch, flash, dev, fwd_seq=8192, bwd_seq=4096, heads=GEMMA_HEADS)
         gemma["seconds"] = time.perf_counter() - t0
-        # A head dim neither tensor-core kernel takes: the simt kernel's paths.
+        # Phi-3-mini attention width (d = 96): every call on the d = 128
+        # instances zero-padded; its forward once more in fp16.
         t0 = time.perf_counter()
-        n = FLASH_TIMED_SIMT[1]
-        simt = _ring_path(torch, flash, dev, fwd_seq=n, bwd_seq=n, heads=SIMT_HEADS,
-                          variants=("simt", "simt"))
+        n = FLASH_TIMED_PHI3[1]
+        phi3 = _ring_path(torch, flash, dev, fwd_seq=n, bwd_seq=n, heads=PHI3_HEADS, fp16=True)
+        phi3["seconds"] = time.perf_counter() - t0
+        # The same width with strides TMA refuses: the simt kernel's path.
+        t0 = time.perf_counter()
+        simt = _simt_path(torch, flash, dev, n, PHI3_HEADS)
         simt["seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     res["gemma"] = gemma
+    res["phi3"] = phi3
     res["simt"] = simt
-    res["ok"] = res["ok"] and gemma["ok"] and simt["ok"]
+    res["ok"] = res["ok"] and gemma["ok"] and phi3["ok"] and simt["ok"]
     res["phase"] = "ring"
     return res
 
@@ -5625,13 +5818,16 @@ def phase_healing(torch, staging) -> dict:
 
 def phase_kernels(results: dict) -> dict:
     """One entry per ported kernel, and per (mode, variant) of the flash
-    kernels, the sm90 kernel's d = 256 instance apart. The cast's times are
-    the timing phase's measured publish row (cast_group over the 291 tensors
-    of the Llama-3-8B state dict), its launches those of the main phase's
-    run (five casting steps). The flash kernels' are one call at FLASH_TIMED
-    (FLASH_TIMED_GEMMA for d = 256; flash_timing), their launches those of
-    the ring phase's paths (bf16: sm90, Gemma-width bf16: sm90 at d = 256,
-    fp32: sm90_fp32, Gemma-width fp32: simt)."""
+    kernels, the tensor-core kernels' d = 256 instances and their zero-padded
+    calls at d = 96 apart. The cast's times are the timing phase's measured
+    publish row (cast_group over the 291 tensors of the Llama-3-8B state
+    dict), its launches those of the main phase's run (five casting steps).
+    The flash kernels' are one call at FLASH_TIMED (FLASH_TIMED_GEMMA for
+    d = 256, FLASH_TIMED_PHI3 for d = 96 and simt; flash_timing), their
+    launches those of the ring phase's paths (Llama-width bf16: sm90,
+    Gemma-width bf16: sm90 at d = 256, fp32 at both widths: sm90_fp32,
+    Gemma-width fp32: its d = 256 instance, Phi-3-mini-width bf16 and fp32:
+    the padded calls, strides TMA refuses: simt)."""
     needed = ("parity", "timing", "main", "flash_parity", "flash_timing", "ring")
     missing = [p for p in needed if p not in results]
     if missing:
@@ -5709,8 +5905,9 @@ def phase_kernels(results: dict) -> dict:
     # instances on the ring phase's bf16 Llama-width path, its d = 256
     # instance on the Gemma-width one; the sm90_fp32 kernel's on the fp32
     # paths at both widths (its d = 256 instance's, on the Gemma-width one,
-    # also apart); the simt kernel's on the paths the rules send to it
-    # (d = 96, bf16 and fp32).
+    # also apart); both kernels' zero-padded d = 96 calls on the
+    # Phi-3-mini-width paths; the simt kernel's on the path whose strides
+    # TMA refuses (bf16 and fp32).
     def added(a, b):
         return {mode: {v: n + b[mode][v] for v, n in by.items()} for mode, by in a.items()}
 
@@ -5724,11 +5921,17 @@ def phase_kernels(results: dict) -> dict:
          ring["gemma"]["fp32_launches"], FLASH_TIMED_GEMMA, "fp32",
          "launches from the Gemma-7B-width fp32 ring path (d = 256; counted in the "
          "sm90_fp32 entries too)"),
-        ("simt", "simt", "d96_", "_simt", "simt",
-         added(ring["simt"]["launches"], ring["simt"]["fp32_launches"]), FLASH_TIMED_SIMT, "bf16",
-         "launches from the ring phase's d = 96 paths, bf16 and fp32"),
+        ("simt", "simt", "rowpad_", "", "simt", ring["simt"]["launches"], FLASH_TIMED_PHI3,
+         "bf16, q, k, v cut from rows of d + 2 (strides TMA refuses)",
+         "launches from the ring phase's simt path (the same layout; bf16 and fp32)"),
         ("sm90_d256", "sm90", "gemma_", "", "sm90_d256", ring["gemma"]["launches"],
          FLASH_TIMED_GEMMA, "bf16", "launches from the Gemma-7B-width bf16 ring path"),
+        ("sm90_pad", "sm90", "d96_", "", "sm90_pad", ring["phi3"]["launches"], FLASH_TIMED_PHI3,
+         "bf16", "the d = 128 instance zero-padded; launches from the Phi-3-mini-width bf16 "
+         "ring path"),
+        ("sm90_fp32_pad", "sm90_fp32", "d96_", "_fp32", "sm90_fp32_pad",
+         ring["phi3"]["fp32_launches"], FLASH_TIMED_PHI3, "fp32",
+         "the d = 128 instance zero-padded; launches from the Phi-3-mini-width fp32 ring path"),
     )
     for suffix, variant, prefix, row_suffix, err_key, launches, shape, dtype, origin in flavours:
         b, s, h, hk, d = shape

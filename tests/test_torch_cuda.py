@@ -19,15 +19,18 @@ sm90 kernel are held against its arithmetic twin
 round an fp32 p to the input type, and where the two p differ in their last
 bits they can round to adjacent values (one ulp, at most 2**-7 p_j |v_j| / l
 in o in bf16, 2**-10 in fp16); the allowance covers two such terms at p <= 1.
-Calls that ``sm90_fp32_eligible`` sends to the sm90_fp32 kernel (fp32, d 64,
-128 or 256) are held against the fp32 plain version with the fp32 bounds, and
+Calls that ``sm90_fp32_eligible`` sends to the sm90_fp32 kernel (fp32, any
+d <= 256 with d % 8 == 0) are held against the fp32 plain version with the
+fp32 bounds, and
 against their 3xTF32 twin (``stats_blockwise_reference(split="tf32x3")``)
 ten times tighter: 1e-6 + 1e-5 |want| (the twin makes the same TF32
 roundings; only the order and rounding of the fp32 sums differ). That bound
 was set at d 64 and 128; the sums that differ are S's, d terms long, which
 the tensor cores add in k-steps of 8 with their own rounding, so above
 d = 128 it grows by d / 128 (at d = 256, 2e-6 + 2e-5 |want|; measured on an
-H100, the worst case came to 1.4 times the d <= 128 bound).
+H100, the worst case came to 1.4 times the d <= 128 bound). Head dims
+between the instances' 64, 128 and 256 run on the next one up, zero-padded,
+and are held to the same bounds (the twins tile k as that instance does).
 """
 
 import importlib
@@ -72,9 +75,15 @@ def counts():
 
 
 def expected_variant(dtype, d):
-    if dtype in fa.SM90_DTYPES and d in fa.SM90_HEAD_DIMS:
-        return "sm90"
-    return "sm90_fp32" if dtype == torch.float32 and d in fa.SM90_FP32_HEAD_DIMS else "simt"
+    """The variant of a contiguous call at head dim ``d`` (d % 8 == 0)."""
+    fa.padded_head_dim(d)
+    return "sm90" if dtype in fa.SM90_DTYPES else "sm90_fp32"
+
+
+def rowpad(x, d):
+    """``x`` (.., d + 2) cut to d columns: every stride but d's is 2 mod 8
+    elements, which TMA refuses."""
+    return x[..., :d]
 
 
 def within(got, want, rtol, atol, scale=None):
@@ -158,9 +167,13 @@ def test_sm90_matches_blockwise_reference_on_cuda(cuda, shape, causal):
 
 @pytest.mark.cuda
 def test_ineligible_bf16_head_dim_launches_simt(cuda):
-    q, k, v = qkv(11, 1, 77, 40, 6, 3, 72, torch.bfloat16, cuda)
+    """d = 72 runs on sm90 zero-padded since head dims stopped deciding
+    eligibility; cut from rows of 74, its strides make the call ineligible
+    and it runs on simt."""
+    q, k, v = (rowpad(x, 72) for x in qkv(11, 1, 77, 40, 6, 3, 74, torch.bfloat16, cuda))
     assert not fa.sm90_eligible(q, k, v)
     assert run_and_check(q, k, v, True, torch.bfloat16) == "simt"
+    assert fa.sm90_eligible(*(x.contiguous() for x in (q, k, v)))
 
 
 @pytest.mark.cuda
@@ -198,9 +211,50 @@ def test_sm90_fp32_matches_plain_version_and_twin_on_cuda(cuda, shape, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [96, 72])
 def test_fp32_outside_the_tensor_core_head_dims_launches_simt(cuda, d):
-    q, k, v = qkv(14, 1, 77, 40, 6, 3, d, torch.float32, cuda)
+    """fp32 at d 96 and 72 runs on sm90_fp32 zero-padded; cut from rows of
+    d + 2, the strides TMA refuses send it to simt."""
+    q, k, v = (rowpad(x, d) for x in qkv(14, 1, 77, 40, 6, 3, d + 2, torch.float32, cuda))
     assert not fa.sm90_fp32_eligible(q, k, v)
     assert run_and_check(q, k, v, True, torch.float32) == "simt"
+    assert fa.sm90_fp32_eligible(*(x.contiguous() for x in (q, k, v)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", [(1, 77, 300, 4, 2, 8), (2, 130, 130, 4, 4, 40),
+                                   (1, 200, 333, 8, 2, 96), (1, 77, 40, 6, 3, 136),
+                                   (1, 130, 200, 4, 1, 200), (1, 65, 129, 2, 2, 248)])
+def test_padded_head_dims_run_on_tensor_cores_on_cuda(cuda, shape, causal, dtype):
+    """Head dims between the instances run on the next one up, zero-padded,
+    within the bounds of that kernel's own head dims."""
+    b, sq, sk, h, hk, d = shape
+    q, k, v = qkv(17, b, sq, sk, h, hk, d, dtype, cuda)
+    assert run_and_check(q, k, v, causal, dtype) == expected_variant(dtype, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [40, 96, 136])
+def test_padded_head_dim_reads_no_column_past_d(cuda, d, dtype):
+    """Packed projection views at a padded head dim: the columns past d of
+    each head are the next head's, so a tensor map that read them would
+    differ from contiguous copies; the kernels read zeros there, and agree
+    with the copies bit for bit."""
+    b, s, h, hk = 1, 200, 4, 2
+    rng = np.random.default_rng(18)
+    qkv_ = torch.from_numpy(rng.standard_normal((b, s, h + 2 * hk, d)).astype(np.float32))
+    qkv_ = qkv_.to(cuda, dtype)
+    views = (qkv_[:, :, :h], qkv_[:, :, h:h + hk], qkv_[:, :, h + hk:])
+    copies = tuple(x.contiguous() for x in views)
+    assert fa.flash_variant(*views) == expected_variant(dtype, d)
+    for causal in (False, True):
+        got = fa.flash_attention_stats(*views, causal_diag=causal)
+        want = fa.flash_attention_stats(*copies, causal_diag=causal)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert torch.equal(fa.flash_attention(*views, causal=causal),
+                           fa.flash_attention(*copies, causal=causal))
 
 
 @pytest.mark.cuda

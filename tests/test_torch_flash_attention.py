@@ -14,7 +14,11 @@ tolerance is derived in ``test_blockwise_reference_matches_reference`` and
 ``test_blockwise_reference_fp16_matches_reference``. The sm90_fp32
 kernel's twin, ``stats_blockwise_reference(split="tf32x3")``, is held to
 chip_smoke.py's unchanged fp32 tolerances (``FLASH_TOL`` "stats" and
-"o_fp32": 1e-5 + 1e-4 |want|, acc on o's scale).
+"o_fp32": 1e-5 + 1e-4 |want|, acc on o's scale). Both kernels run every
+head dim d <= 256 with d % 8 == 0 on their instance at 64, 128 or 256
+(``padded_head_dim``), d zero-padded: the twins zero-padded the same way
+(with the real d's scale) equal the unpadded ones within the fp32
+tolerance, and hold at d 40, 96 and 136 against the Pallas kernel.
 The CUDA kernels' own tests are in tests/test_torch_cuda.py (they need the
 card).
 """
@@ -256,15 +260,17 @@ def test_blockwise_reference_fp16_matches_reference(causal, heads, block_k, leng
     assert not torch.equal(acc, unrounded[0])
 
 
-@pytest.mark.parametrize("d", fa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("d", fa.SM90_HEAD_DIMS + (40, 96, 136))
 def test_blockwise_reference_defaults_to_kernel_block_k(d):
     """Without ``block_k`` the twin tiles k as the sm90 kernel does at this
-    head_dim (64 keys at d = 256, 128 below), so the chip checks hold each
+    head_dim (64 keys on the d = 256 instance, 128 below; a head dim between
+    the instances takes the one it runs on), so the chip checks hold each
     instance against its own arithmetic."""
     q, k, v = to_torch(inputs(18, 1, 40, 2, 2, d, "bfloat16", sk=300), "bfloat16")
+    block_k = fa.SM90_BLOCK_K[fa.padded_head_dim(d)]
     got = fa.stats_blockwise_reference(q, k, v)
-    want = fa.stats_blockwise_reference(q, k, v, False, fa.SM90_BLOCK_K[d])
-    other = fa.stats_blockwise_reference(q, k, v, False, 192 - fa.SM90_BLOCK_K[d])
+    want = fa.stats_blockwise_reference(q, k, v, False, block_k)
+    other = fa.stats_blockwise_reference(q, k, v, False, 192 - block_k)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert not torch.equal(got[0], other[0])
@@ -272,13 +278,54 @@ def test_blockwise_reference_defaults_to_kernel_block_k(d):
                        fa._normalize(want[0], want[2], q.dtype))
 
 
+def _kernel_source(name):
+    return (Path(fa.__file__).parent.parent / "csrc" / name).read_text()
+
+
+def _dispatch_rule(src):
+    """The head dim of the instance ``dispatch_d`` launches for a call at
+    ``d``: ``if (c.d > a) return launch<..., A, ...>`` arms in order, then
+    the last ``return launch<..., B, ...>``."""
+    body = re.search(r"int dispatch_d\(.*?\n\}", src, re.S)
+    assert body is not None
+    arms = [(int(a), int(x)) for a, x in
+            re.findall(r"if \(c\.d > (\d+)\) return launch<(?:T, )?(\d+),", body.group(0))]
+    last = re.findall(r"\n  return launch<(?:T, )?(\d+),", body.group(0))
+    assert arms and len(last) == 1
+    return lambda d: next((x for a, x in arms if d > a), int(last[0]))
+
+
+def _head_dim_check(src):
+    """(largest head dim, multiple) of the entry point's kBadHeadDim check,
+    ``if (d <= 0 || d > N || d % M != 0) return kBadHeadDim;``."""
+    found = re.search(r"if \(d <= 0 \|\| d > (\d+) \|\| d % (\d+) != 0\) return kBadHeadDim;",
+                      src)
+    assert found is not None
+    return tuple(int(x) for x in found.groups())
+
+
+@pytest.mark.parametrize("source", ["flash_attention_sm90.cu", "flash_attention_sm90_fp32.cu"])
+def test_padded_dispatch_matches_kernel_source(source):
+    """Both tensor-core kernels take every d % 8 == 0 up to 256 at their
+    entry point and launch the instance ``padded_head_dim`` names."""
+    src = _kernel_source(source)
+    assert _head_dim_check(src) == (fa.MAX_HEAD_DIM, 8)
+    rule = _dispatch_rule(src)
+    assert {d: rule(d) for d in range(8, 257, 8)} == \
+        {d: fa.padded_head_dim(d) for d in range(8, 257, 8)}
+
+
 def test_sm90_block_k_matches_kernel_source():
-    """SM90_BLOCK_K repeats the kernel's Tiling<D>::kBK."""
-    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_sm90.cu").read_text()
+    """SM90_BLOCK_K repeats the kernel's Tiling<D>::kBK, at the instances
+    its entry point's head-dim check and padded dispatch reach."""
+    src = _kernel_source("flash_attention_sm90.cu")
     found = re.search(r"kBK = D == (\d+) \? (\d+) : (\d+);", src)
     assert found is not None
     at, then, other = (int(x) for x in found.groups())
     assert {d: then if d == at else other for d in fa.SM90_HEAD_DIMS} == fa.SM90_BLOCK_K
+    largest, multiple = _head_dim_check(src)
+    rule = _dispatch_rule(src)
+    assert {rule(d) for d in range(multiple, largest + 1, multiple)} == set(fa.SM90_HEAD_DIMS)
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "float*": ctypes.c_void_p,
@@ -336,13 +383,13 @@ ELIGIBILITY = {
     "bf16-d64-contiguous": (lambda: _contiguous(1, 64, 4, 4, 64), True),
     "packed-projection-view": (lambda: _packed(2, 64, 8, 2, 128), True),
     "fp32": (lambda: _contiguous(2, 64, 8, 2, 128, torch.float32), False),
-    "d72": (lambda: _contiguous(2, 64, 8, 2, 72), False),
+    "d72": (lambda: _contiguous(2, 64, 8, 2, 72), True),
     "d256": (lambda: _contiguous(2, 64, 8, 2, 256), True),
     "d-stride-2": (lambda: _strided_d(2, 64, 8, 2, 128), False),
     "seq-stride-not-8": (lambda: _seq_stride_4(2, 64, 1, 1, 128), False),
     "fp16-d256": (lambda: _contiguous(1, 64, 16, 16, 256, torch.float16), True),
     "fp16-d64": (lambda: _contiguous(2, 64, 8, 2, 64, torch.float16), True),
-    "fp16-d72": (lambda: _contiguous(2, 64, 8, 2, 72, torch.float16), False),
+    "fp16-d72": (lambda: _contiguous(2, 64, 8, 2, 72, torch.float16), True),
     "fp16-seq-stride-not-8": (
         lambda: _seq_stride_4(2, 64, 1, 1, 128, torch.float16), False),
     "mixed-bf16-fp16": (
@@ -397,8 +444,8 @@ ROUTES = {
     "fp32-d256-packed-projection-view": (
         lambda: (lambda qkv: (qkv[:, :, :16], qkv[:, :, 16:32], qkv[:, :, 32:]))(
             torch.zeros((1, 64, 48, 256))), "sm90_fp32"),
-    "fp32-d72": (lambda: _contiguous(2, 64, 8, 2, 72, torch.float32), "simt"),
-    "fp32-d96": (lambda: _contiguous(2, 64, 8, 2, 96, torch.float32), "simt"),
+    "fp32-d72": (lambda: _contiguous(2, 64, 8, 2, 72, torch.float32), "sm90_fp32"),
+    "fp32-d96": (lambda: _contiguous(2, 64, 8, 2, 96, torch.float32), "sm90_fp32"),
     "fp32-seq-stride-130": (lambda: _seq_stride_2(2, 64, 1, 1, 128), "simt"),
     "fp32-d256-seq-stride-258": (lambda: _seq_stride_2(1, 64, 1, 1, 256), "simt"),
     "fp32-d256-misaligned-base": (lambda: _misaligned(1, 64, 16, 16, 256), "simt"),
@@ -407,13 +454,25 @@ ROUTES = {
         lambda: tuple(x[..., ::2] for x in _contiguous(2, 64, 8, 2, 256, torch.float32)), "simt"),
     "bf16-d128": (lambda: _contiguous(2, 64, 8, 2, 128), "sm90"),
     "bf16-d256": (lambda: _contiguous(2, 64, 8, 2, 256), "sm90"),
-    "bf16-d72": (lambda: _contiguous(2, 64, 8, 2, 72), "simt"),
-    "bf16-d96": (lambda: _contiguous(1, 64, 32, 32, 96), "simt"),
+    "bf16-d72": (lambda: _contiguous(2, 64, 8, 2, 72), "sm90"),
+    "bf16-d96": (lambda: _contiguous(1, 64, 32, 32, 96), "sm90"),
     "fp16-d64": (lambda: _contiguous(2, 64, 8, 2, 64, torch.float16), "sm90"),
     "fp16-seq-stride-not-8": (lambda: _seq_stride_4(2, 64, 1, 1, 128, torch.float16), "simt"),
     "mixed-fp32-bf16": (
         lambda: (*_contiguous(2, 64, 8, 2, 128, torch.float32)[:2],
                  _contiguous(2, 64, 8, 2, 128)[2]), "simt"),
+    # Head dims between the instances, zero-padded onto the next one up;
+    # the same head dims with strides or a base TMA refuses stay on simt.
+    **{f"{name}-d{d}": (lambda d=d, dtype=dtype: _contiguous(2, 64, 8, 2, d, dtype), variant)
+       for name, dtype, variant in (("fp32", torch.float32, "sm90_fp32"),
+                                    ("bf16", torch.bfloat16, "sm90"),
+                                    ("fp16", torch.float16, "sm90"))
+       for d in (8, 40, 136, 248)},
+    "fp32-d96-seq-stride-98": (lambda: _seq_stride_2(1, 64, 1, 1, 96), "simt"),
+    "bf16-d96-seq-stride-98": (lambda: _seq_stride_2(1, 64, 1, 1, 96, torch.bfloat16), "simt"),
+    "fp16-d40-seq-stride-44": (lambda: _seq_stride_4(1, 64, 1, 1, 40, torch.float16), "simt"),
+    "fp32-d40-misaligned-base": (lambda: _misaligned(1, 64, 4, 4, 40), "simt"),
+    "bf16-d96-misaligned-base": (lambda: _misaligned(1, 64, 4, 4, 96, torch.bfloat16), "simt"),
 }
 
 
@@ -425,6 +484,83 @@ def test_flash_variant_three_way_route(case):
     assert fa.flash_variant(q, k, v) == want
     assert fa.sm90_eligible(q, k, v) is (want == "sm90")
     assert fa.sm90_fp32_eligible(q, k, v) is (want == "sm90_fp32")
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_padded_head_dim(d):
+    """The instance a head dim runs on: the next of 64, 128 and 256."""
+    want = 64 if d <= 64 else 128 if d <= 128 else 256
+    assert fa.padded_head_dim(d) == want
+    assert fa._tensor_core_shape(*_contiguous(1, 8, 2, 2, d), fa.SM90_DTYPES)
+
+
+def test_padded_head_dim_refuses_what_no_kernel_takes():
+    for d in (0, 4, 12, 100, 264):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.padded_head_dim(d)
+        assert not fa._tensor_core_shape(*_contiguous(1, 8, 2, 2, d), fa.SM90_DTYPES)
+
+
+def _zero_padded(x, width):
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+# (dtype, split): the sm90 twin in bf16 (p rounded to bf16), its unrounded
+# fp32 form, and the sm90_fp32 twin (3xTF32).
+PADDED_TWINS = {"bf16": ("bfloat16", None), "fp32": ("float32", None),
+                "fp32-tf32x3": ("float32", "tf32x3")}
+
+
+@pytest.mark.parametrize("d", [8, 40, 72, 96, 136, 200, 248])
+@pytest.mark.parametrize("twin", PADDED_TWINS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_zero_padded_twin_equals_unpadded(causal, twin, d):
+    """The kernels' padded arithmetic on the CPU: q, k, v zero-padded to the
+    instance's head dim, with the real d's scale, give the unpadded twin's
+    m and l and, sliced back to d, its acc, within the fp32 tolerance
+    (1e-5 + 1e-4 |want|, acc on o's scale); the padded columns of acc are
+    zero."""
+    dtype, split = PADDED_TWINS[twin]
+    q, k, v = to_torch(inputs(40 + d, 1, 70, 8, 2, d, dtype, sk=150), dtype)
+    width = fa.padded_head_dim(d)
+    kwargs = {"_round_p": split is None and dtype != "float32", "split": split}
+    want = fa.stats_blockwise_reference(q, k, v, causal, **kwargs)
+    got = fa.stats_blockwise_reference(*(_zero_padded(x, width) for x in (q, k, v)), causal,
+                                       scale=1.0 / math.sqrt(d), **kwargs)
+    assert got[0].shape[-1] == width
+    assert not got[0][..., d:].any()
+    scale = want[2][..., None].numpy()
+    assert _fp32_within(got[0][..., :d].numpy(), want[0].numpy(), scale) == 0
+    assert _fp32_within(got[1].numpy(), want[1].numpy()) == 0
+    assert _fp32_within(got[2].numpy(), want[2].numpy()) == 0
+
+
+@pytest.mark.parametrize("d", [40, 96, 136])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_padded_twin_matches_pallas_kernel(causal, dtype, d):
+    """At head dims the kernels pad, each kernel's twin against the JAX
+    package's Pallas kernel in interpret mode: the sm90 twin on bf16 inputs
+    within the bound of ``test_blockwise_reference_matches_reference`` (p
+    rounded to bf16), the sm90_fp32 twin (3xTF32) on fp32 inputs within the
+    fp32 tolerances."""
+    h, hk = HEADS["gqa"]
+    arrays = inputs(50 + d, 2, 128, h, hk, d, dtype)
+    q, k, v = to_torch(arrays, dtype)
+    want = [np.asarray(w) for w in ref.flash_attention_stats(
+        *to_jax(arrays, "float32"), causal_diag=causal, interpret=True)]
+    if dtype == "float32":
+        got = fa.stats_blockwise_reference(q, k, v, causal, _round_p=False, split="tf32x3")
+        assert _fp32_within(got[0].numpy(), want[0], want[2][..., None]) == 0
+        assert _fp32_within(got[1].numpy(), want[1]) == 0
+        assert _fp32_within(got[2].numpy(), want[2]) == 0
+        return
+    acc, m, l = fa.stats_blockwise_reference(q, k, v, causal)
+    np.testing.assert_allclose(m.numpy(), want[1], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l.numpy(), want[2], rtol=2e-5, atol=2e-5)
+    o, want_o = acc.numpy() / l.numpy()[..., None], want[0] / want[2][..., None]
+    bound = 1e-5 + 2.0**-8 * p_abs_v_over_l(arrays, causal)
+    assert np.all(np.abs(o - want_o) <= bound), float(np.max(np.abs(o - want_o) - bound))
 
 
 def test_tf32_split_rounds_to_nearest_ties_away():
@@ -518,21 +654,22 @@ def _conditional_chain(src, name):
 
 def test_sm90_fp32_tiling_matches_kernel_source():
     """SM90_FP32_BLOCK_K repeats the fp32 kernel's Tiling<D>::kBK, and
-    SM90_FP32_HEAD_DIMS the head dims its entry point takes; the twin's
-    default k-tile is the kernel's at each of them."""
-    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_sm90_fp32.cu").read_text()
+    SM90_FP32_HEAD_DIMS the instances its entry point's head-dim check
+    (every d % 8 == 0 up to 256) and padded dispatch reach; the twin's
+    default k-tile is the kernel's at each of them and at the head dims
+    padded to them."""
+    src = _kernel_source("flash_attention_sm90_fp32.cu")
     block_k = _conditional_chain(src, "kBK")
     assert {d: block_k(d) for d in fa.SM90_FP32_HEAD_DIMS} == fa.SM90_FP32_BLOCK_K
-    dims = re.search(r"if \(((?:d != \d+(?: && )?)+)\) return kBadHeadDim;", src)
-    assert dims is not None
-    assert tuple(sorted(int(x) for x in re.findall(r"\d+", dims.group(1)))) == \
-        fa.SM90_FP32_HEAD_DIMS
-    dispatched = {int(x) for x in re.findall(r"if \(c\.d == (\d+)\) return launch<", src)}
-    assert dispatched | {min(fa.SM90_FP32_HEAD_DIMS)} == set(fa.SM90_FP32_HEAD_DIMS)
-    for d in fa.SM90_FP32_HEAD_DIMS:
+    largest, multiple = _head_dim_check(src)
+    assert (largest, multiple) == (fa.MAX_HEAD_DIM, 8)
+    rule = _dispatch_rule(src)
+    assert {rule(d) for d in range(multiple, largest + 1, multiple)} == \
+        set(fa.SM90_FP32_HEAD_DIMS)
+    for d in fa.SM90_FP32_HEAD_DIMS + (40, 96, 136):
         q, k, v = to_torch(inputs(18, 1, 40, 2, 2, d, sk=300), "float32")
         got = fa.stats_blockwise_reference(q, k, v, _round_p=False, split="tf32x3")
-        want = fa.stats_blockwise_reference(q, k, v, False, fa.SM90_FP32_BLOCK_K[d],
+        want = fa.stats_blockwise_reference(q, k, v, False, fa.SM90_FP32_BLOCK_K[rule(d)],
                                             _round_p=False, split="tf32x3")
         for g, w in zip(got, want):
             assert torch.equal(g, w)

@@ -11,6 +11,7 @@ bf16 ulps (rtol 2**-6) plus 1e-3 absolute, since both packages round fp32
 results that differ in their last bits to bf16.
 """
 
+import importlib
 import types
 
 import jax
@@ -86,6 +87,22 @@ def test_single_rank_ring_degenerates_to_dense(port_runs):
     want = jax.nn.dot_product_attention(q, k, v, is_causal=True)
     np.testing.assert_allclose(port_runs[0]["ring-sp1-causal"]["out"], np.asarray(want),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+def test_ring_blocks_at_d96_route_to_tensor_cores(dtype):
+    """The per-rank blocks ``ring_attention_sharded`` hands the flash kernel
+    at Phi-3-mini width (d = 96) are contiguous chunks, which the tensor-core
+    kernels take zero-padded on their d = 128 instances; the same blocks cut
+    from rows of d + 2 (strides TMA refuses) go to simt."""
+    fa = importlib.import_module("torchstore_tpu_torch.ops.flash_attention")
+    x = torch.zeros(1, 64, 32, 98, dtype=dtype)
+    chunk = x[..., :96].narrow(1, 16, 16).contiguous()
+    want = "sm90_fp32" if dtype == torch.float32 else "sm90"
+    assert fa.flash_variant(chunk, chunk, chunk) == want
+    assert fa.padded_head_dim(chunk.shape[3]) == 128
+    rowpad = x[..., :96]
+    assert fa.flash_variant(rowpad, rowpad, rowpad) == "simt"
 
 
 def test_fused_causal_needs_equal_lengths():

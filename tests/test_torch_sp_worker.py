@@ -46,6 +46,10 @@ ATTENTION_CASES = [
 ] + [
     ("ring-auto-bf16", 3, (2, 64, 4, 4, 16), "ring", "auto", False, "bfloat16"),
     ("ring-sp1-causal", 4, (2, 32, 4, 4, 16), "ring_sp1", "auto", True, "float32"),
+    # Phi-3-mini's head dim, which the card runs zero-padded on the d = 128
+    # instances of the tensor-core kernels.
+    ("ring-auto-causal-d96", 5, (1, 64, 4, 2, 96), "ring", "auto", True, "float32"),
+    ("ring-auto-bf16-d96", 6, (1, 64, 4, 4, 96), "ring", "auto", False, "bfloat16"),
 ] + [
     (f"ulysses-{'causal' if causal else 'full'}-{heads}", 11, shape, "ulysses", None, causal,
      "float32")

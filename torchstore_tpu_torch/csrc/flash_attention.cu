@@ -15,11 +15,12 @@
 // Bound: operations. At the main path's shapes (b=1, h=32, hk=8, d=128,
 // sq = sk = 8192, bf16) the two products take 4 b h sq sk d = 1.1e12 FLOP
 // against ~0.2 GB of input and output, ~5000 FLOP per byte, far above the
-// card's ~295: only the tensor cores could reach the bound. bf16 and fp16
-// calls at head dims 64, 128 and 256 run on the tensor cores in
-// flash_attention_sm90.cu; this kernel takes the rest (fp32, other head dims,
-// strides TMA refuses) and does its math in fp32 on the CUDA cores, far below
-// the tensor-core bound.
+// card's ~295: only the tensor cores could reach the bound. Every call whose
+// strides and base TMA takes runs on the tensor cores (bf16 and fp16 in
+// flash_attention_sm90.cu, fp32 in flash_attention_sm90_fp32.cu, each at any
+// head dim d <= 256 with d % 8 == 0); this kernel takes the calls whose
+// strides or base TMA refuses and does its math in fp32 on the CUDA cores,
+// far below the tensor-core bound.
 //
 // Design. The TPU ran a sequential grid (b*h, q-block, k-block) and carried
 // the softmax state in VMEM scratch across the k-blocks. Here one thread

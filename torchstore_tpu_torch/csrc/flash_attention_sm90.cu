@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernel torchstore_tpu/ops/flash_attention.py::_kernel,
 // launched by _flash_call (pl.pallas_call, :205), for bf16 or fp16 q/k/v
-// with head dim d in {64, 128, 256}, in both of its modes:
+// with any head dim d <= 256 with d % 8 == 0, in both of its modes:
 //   EMIT_STATS = true  (flash_attention_stats, ring attention's per-hop body):
 //     the unnormalized fp32 accumulator acc (b, h, sq, d) = sum_k p v and the
 //     running max m and denominator l (b, h, sq), fp32;
@@ -13,8 +13,8 @@
 // Scores are fp32 q.k^T times 1/sqrt(d). ``causal`` masks row >= col in the
 // call's own coordinates with the reference's finite NEG_INF = -1e30;
 // columns past sk take no part in the max or the sum; rows past sq are never
-// stored; GQA maps q head i to kv head i / (h / hk) with no repeat. Other
-// shapes and types run on the fp32 kernel in flash_attention.cu.
+// stored; GQA maps q head i to kv head i / (h / hk) with no repeat. Strides
+// TMA refuses run on the fp32 kernel in flash_attention.cu.
 //
 // Bound: operations. At b=1, h=32, hk=8, d=128, sq = sk = 8192 (or h=16,
 // hk=16, d=256: the same h.d) the two products take 4 b h sq sk d = 1.1e12
@@ -59,6 +59,14 @@
 // (no transpose or copy), built on the host at each call with
 // cuTensorMapEncodeTiled fetched through cudaGetDriverEntryPoint (no -lcuda);
 // boxes past the sequence ends fill with zeros.
+// Head dims between the instances' (64, 128, 256) run on the next one up,
+// D, with d zero-padded to D: the maps' innermost dimension is the real d,
+// so a box that crosses d reads zeros past it; the boxes that lie wholly
+// past d are never loaded (the barriers expect only the loaded boxes'
+// bytes), and every thread zeroes them in shared memory once, before the
+// first wgmma. Zero columns of q and k add nothing to q.k^T and zero
+// columns of v make output columns that are never stored; the scale is the
+// caller's 1/sqrt(d) of the real d, and the epilogue stores d columns.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (torchstore_tpu_torch/ops/flash_attention.py). The launch goes
@@ -96,6 +104,7 @@ struct Params {
   float* m;   // (b, h, sq), stats mode only
   float* l;
   int h, hk, sq, sk;
+  int d;  // the real head dim, d <= D, d % 8 == 0
   int causal;
   float scale;
 };
@@ -167,6 +176,17 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile(
       "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
       : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Zeroes ``bytes`` (a multiple of 16) of shared memory from ``addr`` with
+// every thread of the block.
+__device__ __forceinline__ void zero_smem(uint32_t addr, int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += kThreads * 16)
+    asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};" ::"r"(addr + i), "r"(0) : "memory");
 }
 
 // Wait until the barrier's phase with this parity has completed.
@@ -342,6 +362,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q_last = min(q0 + kBQ, p.sq) - 1;
   int n_tiles = (p.sk + kBK - 1) / kBK;
   if (p.causal) n_tiles = min(n_tiles, q_last / kBK + 1);
+  // 64-column boxes of a tile that hold some of the d columns; the rest of
+  // the D / 64 lie wholly past d and stay zero.
+  const int n_boxes = (p.d + 63) / 64;
 
   if (threadIdx.x == 0) {
     mbar_init(bar(L::kQFull), 1);
@@ -351,6 +374,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(bar(L::kEmpty + s), kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (n_boxes < D / 64) {
+    zero_smem(base + L::kQ + n_boxes * L::kQBox, L::kQTile - n_boxes * L::kQBox);
+    for (int t = 0; t < 2 * kStages; ++t)  // the k tiles, then the v tiles
+      zero_smem(base + L::kK + t * L::kKTile + n_boxes * L::kKBox,
+                L::kKTile - n_boxes * L::kKBox);
+    fence_proxy_async();  // visible to the wgmmas that read them
   }
   __syncthreads();
 
@@ -363,21 +393,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (threadIdx.x == 0) {
       constexpr int kBoxes = D / 64;
-      mbar_expect_tx(bar(L::kQFull), L::kQTile);
+      const uint32_t tile_bytes = n_boxes * L::kKBox;
+      mbar_expect_tx(bar(L::kQFull), n_boxes * L::kQBox);
+#pragma unroll
       for (int x = 0; x < kBoxes; ++x)
-        tma_load(base + L::kQ + x * L::kQBox, &tm_q, bar(L::kQFull), 64 * x, q0, head, bi);
+        if (x < n_boxes)
+          tma_load(base + L::kQ + x * L::kQBox, &tm_q, bar(L::kQFull), 64 * x, q0, head, bi);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         const uint32_t phase = (t / kStages) & 1;
         mbar_wait(bar(L::kEmpty + s), phase ^ 1);  // the first round passes at once
-        mbar_expect_tx(bar(L::kKFull + s), L::kKTile);
+        mbar_expect_tx(bar(L::kKFull + s), tile_bytes);
+#pragma unroll
         for (int x = 0; x < kBoxes; ++x)
-          tma_load(base + L::kK + s * L::kKTile + x * L::kKBox, &tm_k, bar(L::kKFull + s),
-                   64 * x, t * kBK, kvh, bi);
-        mbar_expect_tx(bar(L::kVFull + s), L::kKTile);
+          if (x < n_boxes)
+            tma_load(base + L::kK + s * L::kKTile + x * L::kKBox, &tm_k, bar(L::kKFull + s),
+                     64 * x, t * kBK, kvh, bi);
+        mbar_expect_tx(bar(L::kVFull + s), tile_bytes);
+#pragma unroll
         for (int x = 0; x < kBoxes; ++x)
-          tma_load(base + L::kV + s * L::kKTile + x * L::kKBox, &tm_v, bar(L::kVFull + s),
-                   64 * x, t * kBK, kvh, bi);
+          if (x < n_boxes)
+            tma_load(base + L::kV + s * L::kKTile + x * L::kKBox, &tm_v, bar(L::kVFull + s),
+                     64 * x, t * kBK, kvh, bi);
       }
     }
   } else {
@@ -512,28 +549,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     // Epilogue: o[4j + 2r + e] is row row0 + 8r, column 8j + 2 quad + e.
+    // Rows are d long; the 8-column groups j >= d / 8 are padding.
+    const int d_groups = p.d / 8;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= p.sq) continue;
       const int64_t stat_row = (int64_t)bh * p.sq + row;  // (b, h, sq) row
       if (EMIT_STATS) {
-        float* acc = static_cast<float*>(p.out) + stat_row * D;
+        float* acc = static_cast<float*>(p.out) + stat_row * p.d;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(acc + 8 * j + 2 * quad) =
-              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+          if (j < d_groups)
+            *reinterpret_cast<float2*>(acc + 8 * j + 2 * quad) =
+                make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
         if (quad == 0) {
           p.m[stat_row] = m_r[r];
           p.l[stat_row] = l_r[r];
         }
       } else {
         const float denom = fmaxf(l_r[r], kFloor);
-        T* out = static_cast<T*>(p.out) + (((int64_t)bi * p.sq + row) * p.h + head) * D;
+        T* out = static_cast<T*>(p.out) + (((int64_t)bi * p.sq + row) * p.h + head) * p.d;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * quad) =
-              Elem<T>::pack(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+          if (j < d_groups)
+            *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * quad) =
+                Elem<T>::pack(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
       }
     }
   }
@@ -563,7 +604,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A rank-4 (d, s, h, b) map of 16-bit values with 64 x ``rows`` boxes,
-// 128-byte swizzle, zero fill past the ends. Strides in elements.
+// 128-byte swizzle, zero fill past the ends (past d as well as past s).
+// Strides in elements.
 bool make_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
               int d, int s, int heads, int b, int64_t sb, int64_t ss, int64_t sh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)b};
@@ -593,11 +635,11 @@ int launch(const Call& c, const Params& p, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kNoDriver;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, Elem<T>::kMap, c.q, D, c.sq, c.h, c.b, c.q_sb, c.q_ss, c.q_sh,
+  if (!make_map(encode, &tq, Elem<T>::kMap, c.q, c.d, c.sq, c.h, c.b, c.q_sb, c.q_ss, c.q_sh,
                 kBQ) ||
-      !make_map(encode, &tk, Elem<T>::kMap, c.k, D, c.sk, c.hk, c.b, c.k_sb, c.k_ss, c.k_sh,
+      !make_map(encode, &tk, Elem<T>::kMap, c.k, c.d, c.sk, c.hk, c.b, c.k_sb, c.k_ss, c.k_sh,
                 L::kBK) ||
-      !make_map(encode, &tv, Elem<T>::kMap, c.v, D, c.sk, c.hk, c.b, c.v_sb, c.v_ss, c.v_sh,
+      !make_map(encode, &tv, Elem<T>::kMap, c.v, c.d, c.sk, c.hk, c.b, c.v_sb, c.v_ss, c.v_sh,
                 L::kBK))
     return kBadTensorMap;
   auto kernel = flash_sm90_kernel<T, D, EMIT_STATS>;
@@ -609,10 +651,12 @@ int launch(const Call& c, const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The instance of the next head dim up: flash_attention.py's
+// padded_head_dim repeats the rule.
 template <typename T, bool EMIT_STATS>
 int dispatch_d(const Call& c, const Params& p, cudaStream_t stream) {
-  if (c.d == 256) return launch<T, 256, EMIT_STATS>(c, p, stream);
-  if (c.d == 128) return launch<T, 128, EMIT_STATS>(c, p, stream);
+  if (c.d > 128) return launch<T, 256, EMIT_STATS>(c, p, stream);
+  if (c.d > 64) return launch<T, 128, EMIT_STATS>(c, p, stream);
   return launch<T, 64, EMIT_STATS>(c, p, stream);
 }
 
@@ -634,14 +678,14 @@ extern "C" int tst_flash_sm90(const void* q, const void* k, const void* v, void*
                               int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
                               void* stream) {
   if (kind != 1 && kind != 2) return kBadKind;
-  if (d != 64 && d != 128 && d != 256) return kBadHeadDim;
+  if (d <= 0 || d > 256 || d % 8 != 0) return kBadHeadDim;
   if (b <= 0 || h <= 0 || hk <= 0 || h % hk != 0 || sq <= 0 || sk <= 0 ||
       (sq + kBQ - 1) / kBQ > 65535)
     return kBadShape;
   if (!tma_ok(q, q_sb, q_ss, q_sh) || !tma_ok(k, k_sb, k_ss, k_sh) || !tma_ok(v, v_sb, v_ss, v_sh))
     return kBadLayout;
   const Call c{q, k, v, b, h, hk, sq, sk, d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  const Params p{out, m, l, h, hk, sq, sk, causal, scale};
+  const Params p{out, m, l, h, hk, sq, sk, d, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return kind == 1 ? dispatch_mode<__nv_bfloat16>(c, p, emit_stats != 0, s)
                    : dispatch_mode<__half>(c, p, emit_stats != 0, s);

@@ -4,8 +4,8 @@
 // and two at d = 64 and 128, two and one at d = 256).
 //
 // Replaces the TPU kernel torchstore_tpu/ops/flash_attention.py::_kernel,
-// launched by _flash_call (pl.pallas_call, :205), for fp32 q/k/v with head
-// dim d in {64, 128, 256}, in both of its modes:
+// launched by _flash_call (pl.pallas_call, :205), for fp32 q/k/v with any
+// head dim d <= 256 with d % 8 == 0, in both of its modes:
 //   EMIT_STATS = true  (flash_attention_stats, ring attention's per-hop body):
 //     the unnormalized fp32 accumulator acc (b, h, sq, d) = sum_k p v and the
 //     running max m and denominator l (b, h, sq);
@@ -15,8 +15,8 @@
 // masks row >= col in the call's own coordinates with the reference's finite
 // NEG_INF = -1e30; columns past sk take no part in the max or the sum; rows
 // past sq are never stored; GQA maps q head i to kv head i / (h / hk) with
-// no repeat. bf16 and fp16 calls run in flash_attention_sm90.cu; fp32 at
-// other head dims and strides TMA refuses run in flash_attention.cu.
+// no repeat. bf16 and fp16 calls run in flash_attention_sm90.cu; fp32 with
+// strides TMA refuses runs in flash_attention.cu.
 //
 // Bound: operations. At b=1, h=32, hk=8, d=128, sq = sk = 8192 the two
 // products take 4 b h sq sk d = 1.1e12 FLOP against ~0.34 GB of fp32 input
@@ -112,6 +112,16 @@
 // (no transpose or copy), built on the host at each call with
 // cuTensorMapEncodeTiled fetched through cudaGetDriverEntryPoint (no -lcuda);
 // boxes past the sequence ends fill with zeros.
+// Head dims between the instances' (64, 128, 256) run on the next one up,
+// D, with d zero-padded to D: the maps' innermost dimension is the real d,
+// so a box that crosses d reads zeros past it; the boxes that lie wholly
+// past d (at d = 96 under D = 128, the fourth of 32 columns) are never
+// loaded (the barriers expect only the loaded boxes' bytes), and every
+// thread zeroes them once, before the first load: raw q, and in each stage
+// raw k (split in place into zero hi and lo) and raw v (transposed into
+// zero rows of v^T). Zero columns of q and k add nothing to q.k^T and zero
+// columns of v make output columns that are never stored; the scale is the
+// caller's 1/sqrt(d) of the real d, and the epilogue stores d columns.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (torchstore_tpu_torch/ops/flash_attention.py). The launch goes
@@ -146,6 +156,7 @@ struct Params {
   float* m;    // (b, h, sq), stats mode only
   float* l;
   int h, hk, sq, sk;
+  int d;  // the real head dim, d <= D, d % 8 == 0
   int causal;
   float scale;
 };
@@ -282,6 +293,12 @@ __device__ __forceinline__ void sts4(uint32_t addr, uint32_t a, uint32_t b, uint
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(a), "r"(b), "r"(c),
                "r"(d)
                : "memory");
+}
+
+// Zeroes ``bytes`` (a multiple of 16) of shared memory from ``addr`` with
+// every thread of the block.
+__device__ __forceinline__ void zero_smem(uint32_t addr, int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += kThreads * 16) sts4(addr + i, 0, 0, 0, 0);
 }
 
 // x = hi + lo to TF32 precision: hi = tf32(x) rounded to nearest (ties away
@@ -555,6 +572,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q_last = min(q0 + kBQ, p.sq) - 1;
   int n_tiles = (p.sk + kBK - 1) / kBK;
   if (p.causal) n_tiles = min(n_tiles, q_last / kBK + 1);
+  // 32-column boxes of a tile that hold some of the d columns; the rest of
+  // the kBoxes lie wholly past d and stay zero.
+  const int n_boxes = (p.d + kBoxCols - 1) / kBoxCols;
 
   if (threadIdx.x == 0) {
     mbar_init(bar(L::kQFull), 1);
@@ -570,6 +590,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if (n_boxes < kBoxes) {
+    zero_smem(base + L::kQ + n_boxes * L::kQBox, L::kQTile - n_boxes * L::kQBox);
+    for (int s = 0; s < kStages; ++s) {
+      zero_smem(stage_at(s) + L::kKh + n_boxes * L::kKBox, L::kKTile - n_boxes * L::kKBox);
+      zero_smem(stage_at(s) + L::kVraw + n_boxes * L::kKBox, L::kKTile - n_boxes * L::kKBox);
+    }
+    fence_proxy_async();  // visible to the wgmmas that read them
+  }
   __syncthreads();
 
   if (threadIdx.x < L::kTransformers) {
@@ -577,11 +605,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     // split and transpose each landed stage.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     const int tid = threadIdx.x;
+    const uint32_t tile_bytes = n_boxes * L::kKBox;
     if (tid == 0) {
-      mbar_expect_tx(bar(L::kQFull), L::kQTile);
+      mbar_expect_tx(bar(L::kQFull), n_boxes * L::kQBox);
+#pragma unroll
       for (int x = 0; x < kBoxes; ++x)
-        tma_load(base + L::kQ + x * L::kQBox, &tm_q, bar(L::kQFull), kBoxCols * x, q0, head,
-                 bi);
+        if (x < n_boxes)
+          tma_load(base + L::kQ + x * L::kQBox, &tm_q, bar(L::kQFull), kBoxCols * x, q0, head,
+                   bi);
     }
     if constexpr (kStages == 1) {
       // One stage refilled by halves: raw k lands in k hi once S of the tile
@@ -591,9 +622,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       // Tile t of k or v (D/32 boxes of kBK rows) to ``dst``, its bytes
       // completing on barrier ``full``.
       auto load = [&](const CUtensorMap* map, uint32_t dst, int full, int t) {
-        mbar_expect_tx(bar(full), L::kKTile);
+        mbar_expect_tx(bar(full), tile_bytes);
+#pragma unroll
         for (int x = 0; x < kBoxes; ++x)
-          tma_load(dst + x * L::kKBox, map, bar(full), kBoxCols * x, t * kBK, kvh, bi);
+          if (x < n_boxes)
+            tma_load(dst + x * L::kKBox, map, bar(full), kBoxCols * x, t * kBK, kvh, bi);
       };
       auto load_k = [&](int t) { load(&tm_k, stage + L::kKh, L::kRawFull, t); };
       auto load_v = [&](int t) { load(&tm_v, stage + L::kVraw, L::kVRawFull, t); };
@@ -627,8 +660,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto issue = [&](int t) {
       const int s = t % kStages;
       mbar_wait(bar(L::kEmpty + s), ((t / kStages) & 1) ^ 1);  // the first round passes at once
-      mbar_expect_tx(bar(L::kRawFull + s), 2 * L::kKTile);
+      mbar_expect_tx(bar(L::kRawFull + s), 2 * tile_bytes);
+#pragma unroll
       for (int x = 0; x < kBoxes; ++x) {
+        if (x >= n_boxes) continue;
         tma_load(stage_at(s) + L::kKh + x * L::kKBox, &tm_k, bar(L::kRawFull + s),
                  kBoxCols * x, t * kBK, kvh, bi);
         tma_load(stage_at(s) + L::kVraw + x * L::kKBox, &tm_v, bar(L::kRawFull + s),
@@ -777,28 +812,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     // Epilogue: o[4j + 2r + e] is row row0 + 8r, column 8j + 2 quad + e.
+    // Rows are d long; the 8-column groups j >= d / 8 are padding.
+    const int d_groups = p.d / 8;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= p.sq) continue;
       const int64_t stat_row = (int64_t)bh * p.sq + row;  // (b, h, sq) row
       if (EMIT_STATS) {
-        float* acc = p.out + stat_row * D;
+        float* acc = p.out + stat_row * p.d;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(acc + 8 * j + 2 * quad) =
-              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+          if (j < d_groups)
+            *reinterpret_cast<float2*>(acc + 8 * j + 2 * quad) =
+                make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
         if (quad == 0) {
           p.m[stat_row] = m_r[r];
           p.l[stat_row] = l_r[r];
         }
       } else {
         const float denom = fmaxf(l_r[r], kFloor);
-        float* out = p.out + (((int64_t)bi * p.sq + row) * p.h + head) * D;
+        float* out = p.out + (((int64_t)bi * p.sq + row) * p.h + head) * p.d;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(out + 8 * j + 2 * quad) =
-              make_float2(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+          if (j < d_groups)
+            *reinterpret_cast<float2*>(out + 8 * j + 2 * quad) =
+                make_float2(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
       }
     }
   }
@@ -828,7 +867,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A rank-4 (d, s, h, b) map of fp32 values with 32 x ``rows`` boxes,
-// 128-byte swizzle, zero fill past the ends. Strides in elements.
+// 128-byte swizzle, zero fill past the ends (past d as well as past s).
+// Strides in elements.
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int s, int heads,
               int b, int64_t sb, int64_t ss, int64_t sh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)b};
@@ -860,9 +900,9 @@ int launch(const Call& c, const Params& p, cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kNoDriver;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, c.q, D, c.sq, c.h, c.b, c.q_sb, c.q_ss, c.q_sh, L::kBQ) ||
-      !make_map(encode, &tk, c.k, D, c.sk, c.hk, c.b, c.k_sb, c.k_ss, c.k_sh, L::kBK) ||
-      !make_map(encode, &tv, c.v, D, c.sk, c.hk, c.b, c.v_sb, c.v_ss, c.v_sh, L::kBK))
+  if (!make_map(encode, &tq, c.q, c.d, c.sq, c.h, c.b, c.q_sb, c.q_ss, c.q_sh, L::kBQ) ||
+      !make_map(encode, &tk, c.k, c.d, c.sk, c.hk, c.b, c.k_sb, c.k_ss, c.k_sh, L::kBK) ||
+      !make_map(encode, &tv, c.v, c.d, c.sk, c.hk, c.b, c.v_sb, c.v_ss, c.v_sh, L::kBK))
     return kBadTensorMap;
   auto kernel = flash_sm90_fp32_kernel<D, EMIT_STATS>;
   cudaError_t err =
@@ -873,10 +913,12 @@ int launch(const Call& c, const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The instance of the next head dim up: flash_attention.py's
+// padded_head_dim repeats the rule.
 template <bool EMIT_STATS>
 int dispatch_d(const Call& c, const Params& p, cudaStream_t stream) {
-  if (c.d == 256) return launch<256, EMIT_STATS>(c, p, stream);
-  if (c.d == 128) return launch<128, EMIT_STATS>(c, p, stream);
+  if (c.d > 128) return launch<256, EMIT_STATS>(c, p, stream);
+  if (c.d > 64) return launch<128, EMIT_STATS>(c, p, stream);
   return launch<64, EMIT_STATS>(c, p, stream);
 }
 
@@ -893,12 +935,12 @@ extern "C" int tst_flash_sm90_fp32(const void* q, const void* k, const void* v, 
                                    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                    float scale, void* stream) {
   if (kind != 0) return kBadKind;
-  if (d != 64 && d != 128 && d != 256) return kBadHeadDim;
+  if (d <= 0 || d > 256 || d % 8 != 0) return kBadHeadDim;
   if (b <= 0 || h <= 0 || hk <= 0 || h % hk != 0 || sq <= 0 || sk <= 0) return kBadShape;
   if (!tma_ok(q, q_sb, q_ss, q_sh) || !tma_ok(k, k_sb, k_ss, k_sh) || !tma_ok(v, v_sb, v_ss, v_sh))
     return kBadLayout;
   const Call c{q, k, v, b, h, hk, sq, sk, d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  const Params p{static_cast<float*>(out), m, l, h, hk, sq, sk, causal, scale};
+  const Params p{static_cast<float*>(out), m, l, h, hk, sq, sk, d, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return emit_stats != 0 ? dispatch_d<true>(c, p, s) : dispatch_d<false>(c, p, s);
 }

@@ -16,20 +16,24 @@ stats flag in each), picked by shape (``sm90_eligible``, then
 ``sm90_fp32_eligible``), never as a fallback after a failure:
 
 - ``csrc/flash_attention_sm90.cu`` (variant ``"sm90"``): bf16 or fp16
-  q/k/v with head_dim 64, 128 or 256 whose strides TMA accepts. ``wgmma``
-  in the input type for both products, p rounded to that type before P.V
-  as FlashAttention and SDPA do, over k-tiles of ``SM90_BLOCK_K[d]`` keys;
+  q/k/v whose strides TMA accepts. ``wgmma`` in the input type for both
+  products, p rounded to that type before P.V as FlashAttention and SDPA
+  do, over k-tiles of ``SM90_BLOCK_K[padded_head_dim(d)]`` keys;
   ``stats_blockwise_reference`` repeats its arithmetic in plain PyTorch.
 - ``csrc/flash_attention_sm90_fp32.cu`` (variant ``"sm90_fp32"``): fp32
-  q/k/v with head_dim 64, 128 or 256 whose strides TMA accepts. TF32
-  ``wgmma`` for both products with a 3xTF32 split (hi = tf32(x), lo =
-  tf32(x - hi), lo.lo dropped), over k-tiles of ``SM90_FP32_BLOCK_K[d]``
-  keys; ``stats_blockwise_reference(split="tf32x3", _round_p=False)``
-  repeats its arithmetic.
-- ``csrc/flash_attention.cu`` (variant ``"simt"``): every other call (other
-  head dims up to 256 with d % 8 == 0, in any of the three types, and
-  strides TMA refuses), fp32 math on the CUDA cores; it reads fp32, bf16 and
+  q/k/v whose strides TMA accepts. TF32 ``wgmma`` for both products with a
+  3xTF32 split (hi = tf32(x), lo = tf32(x - hi), lo.lo dropped), over
+  k-tiles of ``SM90_FP32_BLOCK_K[padded_head_dim(d)]`` keys;
+  ``stats_blockwise_reference(split="tf32x3", _round_p=False)`` repeats its
+  arithmetic.
+- ``csrc/flash_attention.cu`` (variant ``"simt"``): the calls whose strides
+  or base TMA refuses, fp32 math on the CUDA cores; it reads fp32, bf16 and
   fp16.
+
+Every head dim d <= 256 with d % 8 == 0 runs on the two tensor-core
+kernels: each has instances at 64, 128 and 256, and a call runs on the next
+one up (``padded_head_dim``) with d zero-padded there (the kernel's tensor
+maps read zeros past d), the scale 1/sqrt(d) of the real d.
 
 Both take any sequence lengths (they mask ragged edges); the JAX kernel
 needed tiling lengths. ``flash_stats_eligible`` keeps the JAX package's
@@ -60,19 +64,30 @@ _ERRORS = {
     -5: "tensor map refused", -6: "cuTensorMapEncodeTiled not found",
 }
 SM90_DTYPES = (torch.bfloat16, torch.float16)
+# The head dims of each tensor-core kernel's compiled instances; other head
+# dims run on the next one up (``padded_head_dim``).
 SM90_HEAD_DIMS = (64, 128, 256)
-# Keys per k-tile of the sm90 kernel at each head_dim (``Tiling<D>`` in the
-# .cu file): at d = 256 q and two stages of 128-key k and v tiles would not
-# fit in a block's shared memory.
+# Keys per k-tile of the sm90 kernel's instance at each head_dim
+# (``Tiling<D>`` in the .cu file): at d = 256 q and two stages of 128-key k
+# and v tiles would not fit in a block's shared memory.
 SM90_BLOCK_K = {64: 128, 128: 128, 256: 64}
 SM90_FP32_HEAD_DIMS = (64, 128, 256)
-# Keys per k-tile of the sm90_fp32 kernel (``Tiling<D>`` in its .cu file):
-# two stages of k and v^T split into hi and lo beside q fit in a block's
-# shared memory only at 32 keys at d = 128; at d = 256 one stage of 32 keys
-# beside 64 q rows.
+# Keys per k-tile of the sm90_fp32 kernel's instances (``Tiling<D>`` in its
+# .cu file): two stages of k and v^T split into hi and lo beside q fit in a
+# block's shared memory only at 32 keys at d = 128; at d = 256 one stage of
+# 32 keys beside 64 q rows.
 SM90_FP32_BLOCK_K = {64: 64, 128: 32, 256: 32}
 # Bits of an fp32 value that TF32 drops (the low 13 of the mantissa).
 _TF32_DROPPED = 0x1FFF
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim of the tensor-core instance a call at head dim ``d``
+    runs on (both kernels' ``dispatch_d``): 64 up to 64, 128 up to 128,
+    else 256, d zero-padded to it. Takes d % 8 == 0, 0 < d <= 256."""
+    if d <= 0 or d > MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"the flash kernels take head_dim <= 256 with d % 8 == 0, got {d}")
+    return next(x for x in SM90_HEAD_DIMS if d <= x)
 
 
 def _pick_block(s: int, cap: int = 256) -> "int | None":
@@ -164,28 +179,32 @@ def _product(eq, a, b, split):
 
 def stats_blockwise_reference(q, k, v, causal_diag: bool = False,
                               block_k: "int | None" = None, *, _round_p: bool = True,
-                              split: "str | None" = None):
+                              split: "str | None" = None, scale: "float | None" = None):
     """Plain PyTorch that repeats the sm90 kernels' arithmetic: an online
     softmax over k-tiles of ``block_k`` keys, ``l`` summed from the fp32
     ``p``, the same masks. The sm90 kernel's twin (the default): tiles of its
-    own ``SM90_BLOCK_K[d]`` keys, ``p`` rounded to q's dtype before P.V
-    (``_round_p=False`` keeps it fp32, which makes this ``stats_reference``
-    summed in another order). The sm90_fp32 kernel's twin:
+    own ``SM90_BLOCK_K[padded_head_dim(d)]`` keys, ``p`` rounded to q's
+    dtype before P.V (``_round_p=False`` keeps it fp32, which makes this
+    ``stats_reference`` summed in another order). The sm90_fp32 kernel's twin:
     ``split="tf32x3"`` with ``_round_p=False`` on fp32 inputs, tiles of
-    ``SM90_FP32_BLOCK_K[d]`` keys by default, both products as its three
-    TF32 passes (``tf32_split`` of q, k, p and v). Returns ``(acc, m, l)``
-    like ``stats_reference``. The tests and ``chip_smoke.py`` hold the
-    kernels against it; no path uses it."""
+    ``SM90_FP32_BLOCK_K[padded_head_dim(d)]`` keys by default, both
+    products as its three TF32 passes (``tf32_split`` of q, k, p and v).
+    The default tile is the instance's at every d. ``scale`` (default
+    1/sqrt(d)) is the kernels' own argument: q, k, v zero-padded to the
+    instance's head dim with the real d's scale give the same values, as
+    the kernels' zero padding does. Returns ``(acc, m, l)`` like
+    ``stats_reference``. The tests and ``chip_smoke.py`` hold the kernels
+    against it; no path uses it."""
     if split not in (None, "tf32x3"):
         raise ValueError(f"split is None or 'tf32x3', got {split!r}")
     if split is not None and _round_p:
         raise ValueError("split='tf32x3' keeps p in fp32: pass _round_p=False")
     b, sq, h, d = q.shape
     if block_k is None:
-        block_k = (SM90_FP32_BLOCK_K if split else SM90_BLOCK_K).get(d, 128)
+        block_k = (SM90_FP32_BLOCK_K if split else SM90_BLOCK_K)[padded_head_dim(d)]
     sk, hk = k.shape[1], k.shape[2]
     g = h // hk
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf = q.transpose(1, 2).float()  # (b, h, sq, d)
     kf = k.transpose(1, 2).float().repeat_interleave(g, dim=1)
     vf = v.transpose(1, 2).float().repeat_interleave(g, dim=1)
@@ -239,31 +258,38 @@ def _tma_takes(x: torch.Tensor, multiple: int) -> bool:
     return all(st > 0 and st % multiple == 0 for st in _tma_strides(x))
 
 
-def _tensor_core_shape(q, k, v, dtypes, head_dims) -> bool:
+def _tensor_core_shape(q, k, v, dtypes) -> bool:
     """q, k, v all of one type in ``dtypes``, (b, s, h, d) with kv of one
-    shape, d in ``head_dims`` and h % hk == 0."""
+    shape, 0 < d <= 256 with d % 8 == 0 (``padded_head_dim`` takes it) and
+    h % hk == 0."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in dtypes:
         return False
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         return False
-    return q.shape[3] in head_dims and k.shape[3] == q.shape[3] and q.shape[2] % k.shape[2] == 0
+    d = q.shape[3]
+    return (0 < d <= MAX_HEAD_DIM and d % 8 == 0 and k.shape[3] == d
+            and q.shape[2] % k.shape[2] == 0)
 
 
 def sm90_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """The first variant rule: the sm90 kernel takes bf16 or fp16 q, k, v
-    (all of one type) with head_dim 64, 128 or 256, h % hk == 0, and what
-    TMA accepts: 16-byte aligned base pointers, a unit head_dim stride and
-    every other stride a positive multiple of 8 elements."""
-    return (_tensor_core_shape(q, k, v, SM90_DTYPES, SM90_HEAD_DIMS)
+    (all of one type) with head_dim d <= 256, d % 8 == 0 (on the instance of
+    ``padded_head_dim(d)``), h % hk == 0, and what TMA accepts: 16-byte
+    aligned base pointers, a unit head_dim stride and every other stride a
+    positive multiple of 8 elements."""
+    return (_tensor_core_shape(q, k, v, SM90_DTYPES)
             and all(_tma_takes(x, 8) for x in (q, k, v)))
 
 
 def sm90_fp32_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """The second variant rule: the sm90_fp32 kernel takes fp32 q, k, v with
-    head_dim 64, 128 or 256, h % hk == 0, 16-byte aligned base pointers, a unit
-    head_dim stride and every other stride a positive multiple of 4
-    elements. Every call that neither rule takes runs on the simt kernel."""
-    return (_tensor_core_shape(q, k, v, (torch.float32,), SM90_FP32_HEAD_DIMS)
+    """The second variant rule: the sm90_fp32 kernel takes fp32 q, k, v
+    with head_dim d <= 256, d % 8 == 0 (on the instance of
+    ``padded_head_dim(d)``), h % hk == 0, 16-byte aligned base pointers, a
+    unit head_dim stride and every other stride a positive multiple of 4
+    elements. Every call that neither rule takes runs on the simt kernel:
+    within the shapes the kernels take, those whose strides or base TMA
+    refuses."""
+    return (_tensor_core_shape(q, k, v, (torch.float32,))
             and all(_tma_takes(x, 4) for x in (q, k, v)))
 
 
