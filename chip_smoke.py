@@ -34,7 +34,10 @@ and direct_device keep full depth:
                   tensors of the Llama-3-8B state dict, beside its memory
                   bound, the plain version and a loop of x.to();
 5. main         - the weight-sync round trip at Llama-3-8B width through the
-                  port's entry points: initialize, a buffered put/get, a
+                  port's entry points, on the default config (the
+                  automatic prewarm hint off unless
+                  TORCHSTORE_TORCH_PREWARM_AUTO=1 turns it on; its state
+                  is printed): initialize, a buffered put/get, a
                   direct publish/pull on the host rung (the device rung
                   switched off, ``rung`` printed per direct step, so the
                   records of earlier runs stay comparable), a refresh after
@@ -55,6 +58,26 @@ and direct_device keep full depth:
                   casting step, equal to the planner's chunk count, no cast
                   outside the kernel (cast_fallbacks 0); the reputs make no
                   cold segment; no segment or process is left;
+5a. provision   - cold-start provisioning (after main, whose tmpfs is free
+                  then): on a fresh store with prewarm_auto off, at full
+                  depth, (a) tst.prewarm of the 291 fp32 tensors on the card
+                  with transfer_dtype=bf16 (ok, no error, the provisioned
+                  bytes the put's 16.06 GB bf16 or the clamp reported, the
+                  twin set as large; its seconds, the page-locking's apart),
+                  (b) the first put_state_dict in bf16 (no segment created
+                  by the volume, no miss, no cold segment, K1 launches = the
+                  planner's chunks; its GB/s beside main's first put), (c)
+                  the first get into bf16 targets on the card, bit-equal to
+                  the cast source, then after the training step's gap a
+                  reput of the updated source on the twins (no segment
+                  created, no miss, no cold segment, K1 = chunks) and its
+                  get bit-equal; prewarm + put + reput beside main's put +
+                  reput; at TIME_CAP_LAYERS, (d) WeightPublisher.register
+                  then the first publish with no cold segment, acquired
+                  bit-equal, (e) on a store with the automatic hint on the
+                  first put fires one automatic prewarm and a second put of
+                  the same signature none and makes no cold segment; no
+                  segment or process is left;
 6. reshard      - the same state dict put in an FSDP trainer's layout (8
                   ranks, Shard(0) of every tensor: 2328 shards, views of the
                   fp32 source on the card) and fetched by 4 tensor-parallel
@@ -374,7 +397,7 @@ except ImportError:  # alone in a directory: main() finds no package and fails
     _Actor, _endpoint = object, (lambda fn: fn)
 
 ALL_PHASES = (
-    "device", "build", "parity", "timing", "main", "reshard", "quant", "channel",
+    "device", "build", "parity", "timing", "main", "provision", "reshard", "quant", "channel",
     "flash_parity", "flash_timing", "ring", "model", "rl", "direct_device", "tiering", "healing",
     "runtime", "bulk", "landing", "spmd", "kernels",
 )
@@ -895,6 +918,8 @@ def main() -> int:
             res = phase_timing(torch, staging)
         elif phase == "main":
             res = phase_main(torch, staging)
+        elif phase == "provision":
+            res = phase_provision(torch, staging, results)
         elif phase == "reshard":
             res = phase_reshard(torch, staging)
         elif phase == "quant":
@@ -1121,7 +1146,9 @@ async def _main_path(torch, staging, layers: int, dev, geometry=None) -> dict:
     t0 = time.perf_counter()
     # The direct steps stay on the host rung that earlier records measured
     # (the device rung is the direct_device phase's).
-    await tst.initialize(config=tst.StoreConfig(ici_enabled=False))
+    config = tst.StoreConfig(ici_enabled=False)
+    out["prewarm_auto"] = config.prewarm_auto
+    await tst.initialize(config=config)
     timings["initialize_s"] = time.perf_counter() - t0
     pids = [p.pid for p in multiprocessing.active_children()]  # volume + controller
     client = tst.client()
@@ -1291,6 +1318,259 @@ def phase_main(torch, staging) -> dict:
     res = asyncio.run(_main_path(torch, staging, layers, torch.device("cuda", 0)))
     res["phase"] = "main"
     res["sizing"] = sizing
+    return res
+
+
+# --------------------------------------------------------------------------
+# provision: cold-start provisioning ahead of the first sync
+# --------------------------------------------------------------------------
+
+
+def plan_provision_layers() -> tuple[int, dict]:
+    """Depth whose two bf16 sets, the provisioned one and its twins (the
+    rotation the reput draws), fit in /dev/shm and host memory as main's
+    copies do. Widths never change."""
+    from torchstore_tpu_torch.workloads import LLAMA3_8B, llama_shapes
+
+    geo = dict(LLAMA3_8B)
+    per_layer = sum(math.prod(s) for s in _leaves(llama_shapes(**{**geo, "layers": 1})["layers"]))
+    outer = sum(math.prod(s) for s in _leaves({**llama_shapes(**{**geo, "layers": 0}),
+                                               "layers": {}}))
+    budget = 0.8 * min(shm_free_bytes(), mem_available_bytes())
+    need = lambda n: 2 * 2 * (outer + n * per_layer)  # noqa: E731 - two bf16 sets
+    layers = geo["layers"]
+    while layers > 1 and need(layers) > budget:
+        layers -= 1
+    return layers, {"budget_bytes": int(budget), "needed_bytes": need(layers)}
+
+
+async def _provision_leg_full(torch, staging, tst, layers: int, dev, geometry) -> dict:
+    """Legs (a)-(c) on a fresh store with the automatic hint off."""
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2323)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers,
+                           **(geometry or {}))
+    wire = 2 * sum(t.numel() for t in _leaves(src))
+    chunks = len(staging.plan_chunks(list(_leaves(src)), bf16))
+    targets = _bf16_zeros_like(torch, src, dev)
+    out: dict = {"layers": layers, "tensors": sum(1 for _ in _leaves(src)), "wire_bytes": wire,
+                 "chunks": chunks}
+    await tst.initialize(store_name="provision", config=tst.StoreConfig(prewarm_auto=False))
+    client = tst.client("provision")
+    try:
+        pinned = client.shm_stats()["pin_seconds"]
+        launched = staging.cast_kernel.launches
+        t0 = time.perf_counter()
+        report = await tst.prewarm(src, store_name="provision", transfer_dtype=bf16)
+        out["prewarm_s"] = time.perf_counter() - t0
+        out["prewarm_pin_s"] = client.shm_stats()["pin_seconds"] - pinned
+        out["prewarm_launches"] = staging.cast_kernel.launches - launched
+        out["report"] = {**report, "transports": sorted(set(report.get("transports",
+                                                                       {}).values()))}
+        before = await _pool_counts(client)
+        launched = staging.cast_kernel.launches
+        t0 = time.perf_counter()
+        await tst.put_state_dict("policy", src, transfer_dtype=bf16, store_name="provision")
+        torch.cuda.synchronize()
+        out["put_s"] = time.perf_counter() - t0
+        after = await _pool_counts(client)
+        out["put_launches"] = staging.cast_kernel.launches - launched
+        out["put_pool"] = {k: after[k] - before[k] for k in after if k != "warming"}
+        t0 = time.perf_counter()
+        await tst.get_state_dict("policy", targets, store_name="provision")
+        torch.cuda.synchronize()
+        out["get_s"] = time.perf_counter() - t0
+        bad = [i for i, (t, s) in enumerate(_pairs(targets, src)) if not torch.equal(t, s.to(bf16))]
+        out["get_mismatched"] = len(bad)
+        # The training step's gap, as main's reputs take it: the volume's
+        # twins populated, the client's attachments of them made and locked.
+        out["reput_warm_wait_s"] = await _wait_warm(client)
+        out["reput_pin_wait_s"] = await client.wait_pinned()
+        for t in _leaves(src):
+            t.add_(1.0)  # the training step, in place
+        before = await _pool_counts(client)
+        launched = staging.cast_kernel.launches
+        t0 = time.perf_counter()
+        await tst.put_state_dict("policy", src, transfer_dtype=bf16, store_name="provision")
+        torch.cuda.synchronize()
+        out["reput_s"] = time.perf_counter() - t0
+        after = await _pool_counts(client)
+        out["reput_launches"] = staging.cast_kernel.launches - launched
+        out["reput_pool"] = {k: after[k] - before[k] for k in after if k != "warming"}
+        t0 = time.perf_counter()
+        await tst.get_state_dict("policy", targets, store_name="provision")
+        torch.cuda.synchronize()
+        out["reget_s"] = time.perf_counter() - t0
+        rebad = [i for i, (t, s) in enumerate(_pairs(targets, src))
+                 if not torch.equal(t, s.to(bf16))]
+        out["reget_mismatched"] = len(rebad)
+    finally:
+        await tst.shutdown("provision")
+    out["gb_per_s"] = {step: wire / out[f"{step}_s"] / 1e9
+                       for step in ("put", "get", "reput", "reget")}
+    out["prewarm_put_reput_s"] = out["prewarm_s"] + out["put_s"] + out["reput_s"]
+    pool, repool = out["put_pool"], out["reput_pool"]
+    out["ok"] = (
+        report["ok"] and report["errors"] == {}
+        and report["bytes"] + report["clamped_bytes"] == wire
+        and report["rotation_bytes"] == report["bytes"]
+        and out["prewarm_launches"] == 0
+        and pool["volume_created"] == 0 and pool["miss"] == 0 and pool["cold_create"] == 0
+        and repool["volume_created"] == 0 and repool["miss"] == 0
+        and repool["cold_create"] == 0
+        and (dev.type != "cuda" or out["put_launches"] == out["reput_launches"] == chunks)
+        and not bad and not rebad
+    )
+    return out
+
+
+async def _provision_leg_channel(torch, staging, tst, layers: int, dev, geometry) -> dict:
+    """Leg (d): register, then the first publish of a channel, with no cold
+    segment; acquired bit-equal."""
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2324)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers,
+                           **(geometry or {}))
+    targets = _bf16_zeros_like(torch, src, dev)
+    out: dict = {"layers": layers, "chunks": len(staging.plan_chunks(list(_leaves(src)), bf16))}
+    await tst.initialize(store_name="provision_chan",
+                         config=tst.StoreConfig(prewarm_auto=False))
+    client = tst.client("provision_chan")
+    try:
+        pub = tst.WeightPublisher("policy", store_name="provision_chan")
+        sub = tst.WeightSubscriber("policy", store_name="provision_chan")
+        t0 = time.perf_counter()
+        report = await pub.register(src, transfer_dtype=bf16)
+        out["register_s"] = time.perf_counter() - t0
+        out["register"] = {k: report[k] for k in ("ok", "segments", "bytes", "clamped_bytes",
+                                                  "pre_attached", "errors")}
+        before = await _pool_counts(client)
+        launched = staging.cast_kernel.launches
+        t0 = time.perf_counter()
+        version = await pub.publish(src, transfer_dtype=bf16)
+        torch.cuda.synchronize()
+        out["publish_s"] = time.perf_counter() - t0
+        out["publish_launches"] = staging.cast_kernel.launches - launched
+        after = await _pool_counts(client)
+        out["publish_pool"] = {k: after[k] - before[k] for k in after if k != "warming"}
+        _, got = await sub.acquire(targets, timeout=600)
+        torch.cuda.synchronize()
+        bad = [i for i, (t, s) in enumerate(_pairs(targets, src)) if not torch.equal(t, s.to(bf16))]
+        out.update({"version": version, "acquired": got, "mismatched": len(bad)})
+    finally:
+        await tst.shutdown("provision_chan")
+    pool = out["publish_pool"]
+    out["ok"] = (report["ok"] and report["segments"] > 0 and got == version and not bad
+                 and pool["volume_created"] == 0 and pool["miss"] == 0
+                 and pool["cold_create"] == 0
+                 and (dev.type != "cuda" or out["publish_launches"] == out["chunks"]))
+    return out
+
+
+async def _provision_leg_auto(torch, staging, tst, layers: int, dev, geometry) -> dict:
+    """Leg (e): on a store with the automatic hint on, the first put fires
+    one automatic prewarm and a second put of the same signature none, on
+    the twins the first announced."""
+    from torchstore_tpu_torch.provision import executors
+    from torchstore_tpu_torch.workloads import llama_state_dict
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2325)
+    src = llama_state_dict(gen, device=dev, dtype=torch.float32, layers=layers,
+                           **(geometry or {}))
+    targets = _bf16_zeros_like(torch, src, dev)
+    wire = 2 * sum(t.numel() for t in _leaves(src))
+    out: dict = {"layers": layers}
+    await tst.initialize(store_name="provision_auto", config=tst.StoreConfig(prewarm_auto=True))
+    client = tst.client("provision_auto")
+    launched = staging.cast_kernel.launches
+    try:
+        runs = []
+        for step in ("put", "put2"):
+            if step == "put2":
+                for t in _leaves(src):
+                    t.add_(1.0)  # the training step, in place
+                out["warm_wait_s"] = await _wait_warm(client)
+                out["pin_wait_s"] = await client.wait_pinned()
+            before, n = await _pool_counts(client), executors.RUNS.total()
+            t0 = time.perf_counter()
+            await tst.put_state_dict("policy", src, transfer_dtype=bf16,
+                                     store_name="provision_auto")
+            torch.cuda.synchronize()
+            out[f"{step}_s"] = time.perf_counter() - t0
+            after = await _pool_counts(client)
+            out[f"{step}_pool"] = {k: after[k] - before[k] for k in after if k != "warming"}
+            runs.append(executors.RUNS.total() - n)
+        await tst.get_state_dict("policy", targets, store_name="provision_auto")
+        torch.cuda.synchronize()
+        bad = [i for i, (t, s) in enumerate(_pairs(targets, src)) if not torch.equal(t, s.to(bf16))]
+    finally:
+        await tst.shutdown("provision_auto")
+    out.update({"auto_runs": runs, "mismatched": len(bad),
+                "launches": staging.cast_kernel.launches - launched,
+                "gb_per_s": {s: wire / out[f"{s}_s"] / 1e9 for s in ("put", "put2")}})
+    put2 = out["put2_pool"]
+    out["ok"] = (runs == [1, 0] and out["put_pool"]["miss"] == 0 and not bad
+                 and put2["miss"] == 0 and put2["cold_create"] == 0
+                 and put2["volume_created"] == 0)
+    return out
+
+
+async def _provision_path(torch, staging, layers: int, capped: int, dev,
+                          geometry=None) -> dict:
+    import torchstore_tpu_torch as tst
+    from torchstore_tpu_torch.transport.shared_memory import PREFIX, SHM_DIR
+
+    staging.cast_kernel.launches = 0  # count this path's launches only
+    staging.cast_kernel.fallbacks = 0
+    known = {p.pid for p in multiprocessing.active_children()}
+    pids = set()
+    legs = {}
+    for name, leg, depth in (("full", _provision_leg_full, layers),
+                             ("channel", _provision_leg_channel, capped),
+                             ("auto", _provision_leg_auto, capped)):
+        legs[name] = await leg(torch, staging, tst, depth, dev, geometry)
+        pids |= {p.pid for p in multiprocessing.active_children()} - known
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    await asyncio.sleep(0.5)
+    alive = [p.pid for p in multiprocessing.active_children() if p.pid not in known]
+    own = pids | {os.getpid()}
+    leaked = [n for n in os.listdir(SHM_DIR)
+              if n.startswith(PREFIX) and int(n[len(PREFIX):].split("_")[0]) in own]
+    launches_by_leg = {"full": legs["full"]["put_launches"] + legs["full"]["reput_launches"],
+                       "channel": legs["channel"]["publish_launches"],
+                       "auto": legs["auto"]["launches"]}
+    return {**legs, "launches": staging.cast_kernel.launches,
+            "launches_by_leg": launches_by_leg, "cast_fallbacks": staging.cast_kernel.fallbacks,
+            "processes_left": alive, "segments_left": leaked[:5],
+            "ok": (all(leg["ok"] for leg in legs.values()) and not alive and not leaked
+                   and staging.cast_kernel.fallbacks == 0)}
+
+
+def phase_provision(torch, staging, results: dict) -> dict:
+    layers, plan = plan_provision_layers()
+    if layers < LAYERS:
+        emit({"reduced": {"provision_layers": layers, "of": LAYERS}, **plan})
+    capped = time_capped("provision_legs_d_e", LAYERS)
+    res = asyncio.run(_provision_path(torch, staging, layers, capped, torch.device("cuda", 0)))
+    res["phase"] = "provision"
+    res["plan"] = plan
+    if "main" in results:  # main's first put and reput, from the same run
+        main = results["main"]
+        res["main_put_gb_per_s"] = main["gb_per_s"]["put"]
+        res["main_put_reput_s"] = main["timings"]["put_s"] + main["timings"]["reput_s"]
+        res["main_prewarm_auto"] = main["prewarm_auto"]
+    res["nvidia_smi"] = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"])
     return res
 
 
@@ -5840,6 +6120,8 @@ def phase_kernels(results: dict) -> dict:
     # K1's launches on each path that casts, each path's counts set to 0
     # just before it ran and read just after.
     by_path = {"main": main["launches"]}
+    if "provision" in results:
+        by_path["provision"] = results["provision"]["launches"]
     if "reshard" in results:
         by_path["reshard"] = sum(results["reshard"]["launches_by_step"].values())
     if "channel" in results:
@@ -5875,6 +6157,10 @@ def phase_kernels(results: dict) -> dict:
         "library": "a Python loop of x.to(torch.bfloat16)",
         "per": f"one publish: cast_group over the {publish['tensors']} fp32 tensors of the "
                f"Llama-3-8B state dict; launches over the main phase's run, per step {steps}"
+               + (f"; on provision: the prewarmed first put and its reput, the registered "
+                  f"channel's first "
+                  f"publish and the auto-hinted store's two puts, per leg "
+                  f"{results['provision']['launches_by_leg']}" if "provision" in results else "")
                + (f"; on reshard (8 FSDP ranks) {results['reshard']['launches_by_step']}"
                   if "reshard" in results else "")
                + ("; on channel: 5 barrier publishes and one streamed publish of a fragment "

@@ -111,7 +111,7 @@ async def test_prewarm_weighs_the_transfer_dtype_and_skips_the_device_rung(store
     try:
         report = await tst.prewarm(sd, store_name=store, direct=True,
                                    transfer_dtype=torch.bfloat16)
-        assert report["local_segments"] == 2 and report["bytes"] == 2000 + 80
+        assert report["local_segments"] == 2 and report["local_bytes"] == 2000 + 80
         local_pool().clear()
         monkeypatch.setattr(dws, "device_rung_eligible", lambda shards, config: True)
         report = await tst.prewarm(sd, store_name=store, direct=True)
@@ -124,5 +124,8 @@ async def test_prewarm_weighs_the_transfer_dtype_and_skips_the_device_rung(store
 async def test_prewarm_is_advisory_and_direct_only(store):
     report = await tst.prewarm({"w": torch.zeros(4)}, store_name=store, acquire_key="never")
     assert report["ok"] is False and "preplan" in report["errors"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        await tst.prewarm({"w": torch.zeros(4)}, store_name=store)
+    # Without direct=, the store's volumes are provisioned (ported with
+    # A11.3): one segment for the one tensor, nothing local.
+    report = await tst.prewarm({"w": torch.zeros(4)}, store_name=store)
+    assert report["ok"] and report["errors"] == {}
+    assert (report["segments"], report["bytes"], report["local_segments"]) == (1, 16, 0)

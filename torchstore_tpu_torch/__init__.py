@@ -90,6 +90,7 @@ from torchstore_tpu_torch.api import (
 from torchstore_tpu_torch.client import Shard
 from torchstore_tpu_torch.config import RetryPolicy
 from torchstore_tpu_torch.config import StoreConfig
+from torchstore_tpu_torch.provision import StateDictManifest
 from torchstore_tpu_torch.state_dict_utils import (
     DeltaDecoder,
     DeltaEncoder,
@@ -115,6 +116,7 @@ __all__ = [
     "RetryPolicy",
     "Shard",
     "SingletonStrategy",
+    "StateDictManifest",
     "StoreConfig",
     "TensorSlice",
     "WeightPublisher",

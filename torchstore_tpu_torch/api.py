@@ -26,7 +26,9 @@ would). ``config.auth_secret`` turns on the HMAC challenge on every
 listener; it is one per process. ``inject_fault`` / ``clear_faults`` arm
 fault points in running processes, ``metrics_snapshot`` returns this
 process's registry and ``collect_trace`` merges the per-process trace
-files.
+files. ``prewarm`` provisions the store's volumes (pools, dials), the
+device engine and the direct path ahead of the first sync
+(``provision/``).
 """
 
 from __future__ import annotations
@@ -359,67 +361,71 @@ async def get_state_dict(
 
 
 async def prewarm(
-    state_dict: Any,
+    state_dict_or_manifest: Any,
     store_name: str = DEFAULT_STORE,
     transfer_dtype: Optional[torch.dtype] = None,
     direct: bool = False,
     acquire_key: Optional[str] = None,
 ) -> dict:
-    """Provision the direct path ahead of its first sync. ``acquire_key``
-    (with ``state_dict`` as the acquire's targets): build and cache the
-    dest's transfer plan of that direct-pushed key, dial its sources and
-    attach their same-host staging, so the first ``get_state_dict(...,
-    direct=True)`` starts at the data movement. ``direct=True``: create and
-    pre-fault the client-local ``/dev/shm`` staging a direct source's
-    ``register`` draws (one segment per tensor, in ``transfer_dtype`` for
-    floating leaves); when the leaves would take the device rung, which
-    stages on the card, make the device engine ready instead. Advisory: a failure is logged and reported
-    (``ok``, ``errors``), never raised. Provisioning the store's volumes
-    (the manifest, pool reservations, dials) is not ported."""
-    from torchstore_tpu_torch.provision.pool import local_pool
+    """Cold-start provisioning: size and warm every layer the first sync of
+    this working set touches, before its first byte moves.
+
+    Takes a state dict (nested; tensors, DTensors, ``Shard`` leaves and
+    tensors on the ``meta`` device: only metadata is read, nothing leaves a
+    card) or a ``StateDictManifest``. The planner fans the manifest out
+    over the put's volumes (replicas included), reserves tmpfs through the
+    controller (concurrent prewarms cannot oversubscribe /dev/shm), then
+    provisions each rung: a shared-memory volume pre-creates its pool's
+    segments (huge pages advised, prefaulted) and the client attaches them
+    (page-locked for a working set on a card), and the volume makes the
+    twin set the second put draws, populated in the background and
+    announced to the first put (``rotation_segments``); a bulk volume has its main
+    connection, and the stripe set for payloads above the striping
+    threshold, dialed; a working set on cards has the device engine made
+    ready. ``transfer_dtype`` weighs floating leaves in it, as the put
+    casts them.
+
+    ``direct=True`` also creates and pre-faults the client-local staging a
+    direct source's ``register`` draws (the device engine instead when the
+    leaves take the device rung). ``acquire_key`` (with the state dict as
+    the acquire's targets) builds and caches the dest's transfer plan of
+    that direct-pushed key, dials its sources and attaches their same-host
+    staging, so the first ``get_state_dict(..., direct=True)`` starts at
+    the data movement.
+
+    Advisory: it never raises and never fails the sync after it. A failed
+    stage is logged, counted in ``ts_prewarm_errors_total`` and named in
+    the report's ``errors``, and the lazy path serves. Returns the report
+    (``ok``, ``segments``, ``bytes``, ``dials``, ``granted_bytes``,
+    ``clamped_bytes``, ``errors``, ...)."""
+    from torchstore_tpu_torch import provision
 
     def advisory_failure(stage: str, exc: Exception) -> dict:
-        logger.warning("prewarm %s failed: %s; the lazy path will serve", stage, exc)
-        return {"ok": False, "errors": {stage: str(exc)}}
+        report = {"ok": False, "errors": {}}
+        provision.executors.fail(report, stage, exc)
+        return report
 
+    try:
+        c = client(store_name)
+    except Exception as exc:  # noqa: BLE001 - advisory, never raises
+        return advisory_failure("client", exc)
     if acquire_key is not None:
         try:
-            return await state_dict_utils.preplan_direct(client(store_name), acquire_key,
-                                                         state_dict)
+            return await state_dict_utils.preplan_direct(c, acquire_key, state_dict_or_manifest)
         except Exception as exc:  # noqa: BLE001 - advisory, never raises
             return advisory_failure("preplan", exc)
-    if not direct:
-        raise NotImplementedError(
-            "prewarm of the store's volumes (manifest, pool reservations, dials) is not "
-            "ported yet; see ROADMAP.md, queue A, item A11"
-        )
+    flat = None
     try:
-        from torchstore_tpu_torch.direct_weight_sync import _local_shard, device_rung_eligible
-
-        flat, _ = state_dict_utils.flatten_state_dict(state_dict)
-        shards = {k: _local_shard(v) for k, v in flat.items()}
-        if device_rung_eligible(shards, client(store_name).config):
-            from torchstore_tpu_torch.transport.device_transfer import prewarm_engine
-
-            return {"ok": True, "errors": {}, "local_segments": 0, "bytes": 0, "device": True,
-                    "device_server": prewarm_engine()}
-        sizes: dict[int, int] = {}
-        for shard in shards.values():
-            if shard is None:
-                continue
-            t = shard[1]
-            dtype = transfer_dtype if transfer_dtype is not None and t.is_floating_point() \
-                else t.dtype
-            size = t.numel() * torch.empty((), dtype=dtype).element_size()
-            sizes[size] = sizes.get(size, 0) + 1
-        result = await asyncio.get_running_loop().run_in_executor(
-            None, local_pool().provision, sizes)
-    except Exception as exc:  # noqa: BLE001 - advisory, never raises
-        return advisory_failure("local_staging", exc)
-    if result.get("error"):
-        return advisory_failure("local_staging", RuntimeError(result["error"]))
-    return {"ok": True, "errors": {}, "local_segments": result["created"],
-            "bytes": result["bytes"], "clamped_bytes": result["clamped_bytes"]}
+        if isinstance(state_dict_or_manifest, provision.StateDictManifest):
+            manifest = state_dict_or_manifest
+        else:
+            flat, _ = state_dict_utils.flatten_state_dict(state_dict_or_manifest)
+            manifest = provision.StateDictManifest.from_state_dict(
+                flat, transfer_dtype=transfer_dtype)
+    except Exception as exc:  # noqa: BLE001 - advisory: the sync itself
+        # surfaces real problems (a duplicate flat key) loudly.
+        return advisory_failure("manifest", exc)
+    return await provision.prewarm_manifest(c, manifest, direct=direct, flat=flat)
 
 
 def state_dict_stream(

@@ -307,9 +307,10 @@ class LocalClient:
         return self._ctx.get_cache(BulkClientCache).stats()
 
     async def wait_pinned(self) -> float:
-        """Wait until the attachments queued for page-locking are locked
-        (e.g. at a step boundary, so the next sync copies pinned pages);
-        returns the seconds waited."""
+        """Wait until the spares a put announced are attached and the
+        attachments queued for page-locking are locked (e.g. at a step
+        boundary, so the next sync copies pinned pages); returns the
+        seconds waited."""
         return await self._ctx.get_cache(ShmClientCache).wait_pinned()
 
     def _observe_epoch(self, epoch: int) -> None:

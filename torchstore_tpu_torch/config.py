@@ -61,6 +61,8 @@ ENV_RECLAIM_DELAYS = ENV_PREFIX + "RECLAIM_DELAYS"
 ENV_HEALTH_INTERVAL_S = ENV_PREFIX + "HEALTH_INTERVAL_S"
 ENV_HEALTH_MISS_THRESHOLD = ENV_PREFIX + "HEALTH_MISS_THRESHOLD"
 ENV_AUTO_REPAIR = ENV_PREFIX + "AUTO_REPAIR"
+ENV_PREWARM_AUTO = ENV_PREFIX + "PREWARM_AUTO"
+ENV_PREWARM_AUTO_MIN_BYTES = ENV_PREFIX + "PREWARM_AUTO_MIN_BYTES"
 
 
 @dataclass(frozen=True)
@@ -180,6 +182,12 @@ ENV_REGISTRY: tuple[EnvVar, ...] = (
     EnvVar(ENV_AUTO_REPAIR, "bool", True,
            "A quarantine re-replicates every key the volume held that keeps a healthy copy "
            "onto healthy volumes, volume to volume (off: until repair())."),
+    # --- cold-start provisioning (prewarm)
+    EnvVar(ENV_PREWARM_AUTO, "bool", False,
+           "put_state_dict derives a manifest and provisions pools and dials before the "
+           "first data-plane puts of a large working set."),
+    EnvVar(ENV_PREWARM_AUTO_MIN_BYTES, "int", 32 << 20,
+           "Working sets below this many bytes skip the automatic prewarm hint."),
     # --- faults and retries
     EnvVar(ENV_PREFIX + "FAULTPOINTS", "str", None,
            "Fault points armed at start: name=action[:count=N][:prob=P][:delay_ms=D];..."),
@@ -418,7 +426,16 @@ class StoreConfig:
     ``bulk_tcp_enabled``: a volume on another host is reached over the
     bulk TCP rung (striped transfers on connections of their own), else
     over RPC frames. The native host copies are gated per process, by
-    ``TORCHSTORE_TORCH_USE_NATIVE`` alone (``native.enabled``)."""
+    ``TORCHSTORE_TORCH_USE_NATIVE`` alone (``native.enabled``).
+
+    ``prewarm_auto``: the first ``put_state_dict`` of a working set of at
+    least ``prewarm_auto_min_bytes`` provisions the volumes' pools and the
+    bulk dials before its data-plane puts (once per size signature per
+    client; advisory). Off by default, where the reference has it on: the
+    hint runs on the put's critical path, and making the segments there
+    costs what the cold put's own making does (PERF.md, Findings). An
+    explicit ``prewarm`` or ``WeightPublisher.register`` ahead of the first
+    sync is what takes that cost off it."""
 
     rpc_timeout: float = field(default_factory=lambda: _env_float(ENV_RPC_TIMEOUT, 300.0))
     shm_enabled: bool = field(default_factory=lambda: _env_bool(ENV_SHM_ENABLED, True))
@@ -451,6 +468,10 @@ class StoreConfig:
     retry: RetryPolicy = field(default_factory=RetryPolicy.from_env)
     bulk_tcp_enabled: bool = field(
         default_factory=lambda: _env_bool(ENV_BULK_TCP_ENABLED, True)
+    )
+    prewarm_auto: bool = field(default_factory=lambda: _env_bool(ENV_PREWARM_AUTO, False))
+    prewarm_auto_min_bytes: int = field(
+        default_factory=lambda: _env_int(ENV_PREWARM_AUTO_MIN_BYTES, 32 << 20)
     )
 
 

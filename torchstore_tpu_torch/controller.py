@@ -34,7 +34,10 @@ sweep that moved any volume, a flight-recorder dump per quarantine), and a
 quarantine starts an auto-repair pass that copies the volume's keys onto
 healthy volumes (``TORCHSTORE_TORCH_AUTO_REPAIR``). ``volume_health``
 reads the supervisor's view; ``replace_volume`` swaps a repair's fresh
-volume in for a dead one. The relay, control, autoscale and mirror engines
+volume in for a dead one. ``reserve_prewarm`` / ``release_prewarm`` grant
+prewarms tmpfs capacity against the volumes' headroom, netted per host
+(co-located volumes share one ``/dev/shm``), with a TTL for a crashed
+prewarmer. The relay, control, autoscale and mirror engines
 of the reference are not part of this port yet. The controller never sees
 tensor bytes: only ``Request.meta_only()`` copies.
 """
@@ -81,6 +84,12 @@ _QUARANTINES = obs_metrics.counter(
 PING_TIMEOUT_BOUNDS = (0.5, 5.0)
 # Seconds a quarantine's post-mortem waits for each volume's ring.
 FLIGHT_FETCH_S = 2.0
+_PREWARM_RESERVED = obs_metrics.gauge(
+    "ts_prewarm_reserved_bytes",
+    "tmpfs bytes held by outstanding prewarm capacity reservations, per volume",
+)
+# Seconds the controller waits for a volume's capacity view.
+CAPACITY_RPC_S = 10.0
 
 
 class Controller(Actor):
@@ -122,6 +131,11 @@ class Controller(Actor):
         # not stack passes), and the report of each volume's last pass.
         self._repairing: set[str] = set()
         self._repair_reports: dict[str, dict] = {}
+        # Prewarm capacity reservations: id -> (monotonic expiry, {volume:
+        # granted bytes}). Grants count against the volumes' tmpfs headroom,
+        # so concurrent prewarms cannot oversubscribe /dev/shm; a crashed
+        # prewarmer's reservation expires by its TTL.
+        self._prewarm_reservations: dict[str, tuple[float, dict[str, int]]] = {}
         obs_recorder.recorder().arm_exit_dump()
 
     def _bump_epoch(self) -> int:
@@ -886,6 +900,95 @@ class Controller(Actor):
     async def list_faults(self) -> list:
         return faults.armed()
 
+    # ---- prewarm capacity reservations ----------------------------------------
+
+    def _outstanding_prewarm(self) -> dict[str, int]:
+        outstanding: dict[str, int] = {}
+        for _, grants in self._prewarm_reservations.values():
+            for vid, nbytes in grants.items():
+                outstanding[vid] = outstanding.get(vid, 0) + nbytes
+        return outstanding
+
+    def _expire_prewarm(self) -> None:
+        """Drop reservations past their TTL and set the reserved-bytes gauge
+        of every volume."""
+        now = time.monotonic()
+        for rid in [r for r, (expiry, _) in self._prewarm_reservations.items() if expiry <= now]:
+            del self._prewarm_reservations[rid]
+        outstanding = {vid: 0 for vid in self.volume_refs}
+        outstanding.update(self._outstanding_prewarm())
+        for vid, nbytes in outstanding.items():
+            _PREWARM_RESERVED.set(nbytes, volume=vid)
+
+    @endpoint
+    async def reserve_prewarm(self, reservation_id: str, asks: dict[str, int],
+                              ttl_s: float = 120.0, config=None) -> dict[str, Any]:
+        """Grant tmpfs capacity to a prewarm: per asked volume ``min(ask,
+        headroom - outstanding grants)``, the headroom the smaller of the
+        pool cap's room (per volume) and /dev/shm's free bytes (per host:
+        co-located volumes share one tmpfs, so their grants are netted
+        against one budget). ``config`` (the prewarming client's) rides to
+        the volumes' capacity views. An unreachable volume grants 0 and is
+        named in ``errors``. Returns ``{"grants": {vid: bytes}, "errors":
+        {vid: reason}}``."""
+        self._expire_prewarm()
+        outstanding = self._outstanding_prewarm()
+        # A placeholder at the full ask before the capacity RPCs: endpoints
+        # run concurrently, and two reservers computing headroom against
+        # the same outstanding set would both be granted it. Pessimistic (a
+        # concurrent peer may be under-granted); replaced by the grants.
+        self._prewarm_reservations[reservation_id] = (
+            time.monotonic() + ttl_s, {vid: int(n) for vid, n in asks.items()})
+
+        async def capacity(vid: str):
+            ref = self.volume_refs.get(vid)
+            if ref is None:
+                return vid, None, "unknown volume"
+            try:
+                info = await asyncio.wait_for(ref.shm_capacity.call_one(config),
+                                              timeout=CAPACITY_RPC_S)
+                return vid, info, None
+            except Exception as exc:  # noqa: BLE001 - reported, not raised
+                return vid, None, f"{type(exc).__name__}: {exc}"
+
+        try:
+            results = await asyncio.gather(*(capacity(vid) for vid in sorted(asks)))
+        except BaseException:
+            self._prewarm_reservations.pop(reservation_id, None)
+            raise
+        host_of = lambda vid: self.volume_hostnames.get(vid, vid)  # noqa: E731
+        host_budget: dict[str, int] = {}
+        for vid, info, _ in results:
+            if info is not None and info.get("shm"):
+                avail = int(info["available_bytes"])
+                host = host_of(vid)
+                host_budget[host] = min(host_budget.get(host, avail), avail)
+        for vid, nbytes in outstanding.items():
+            if host_of(vid) in host_budget:
+                host_budget[host_of(vid)] = max(0, host_budget[host_of(vid)] - nbytes)
+        granted: dict[str, int] = {}
+        errors: dict[str, str] = {}
+        for vid, info, err in results:
+            if info is None or not info.get("shm"):
+                granted[vid] = 0
+                errors[vid] = err or "shm unavailable on volume"
+                continue
+            cap_room = max(0, int(info["pool_cap"]) - int(info["pool_bytes"]))
+            cap_room -= outstanding.get(vid, 0)
+            grant = max(0, min(int(asks[vid]), cap_room, host_budget.get(host_of(vid), 0)))
+            host_budget[host_of(vid)] = host_budget.get(host_of(vid), 0) - grant
+            granted[vid] = grant
+        self._prewarm_reservations[reservation_id] = (time.monotonic() + ttl_s, dict(granted))
+        self._expire_prewarm()
+        return {"grants": granted, "errors": errors}
+
+    @endpoint
+    async def release_prewarm(self, reservation_id: str) -> None:
+        """Drop a reservation once its provisioning landed (the pool holds
+        the bytes now) or was abandoned. Idempotent."""
+        self._prewarm_reservations.pop(reservation_id, None)
+        self._expire_prewarm()
+
     @endpoint
     async def teardown(self) -> None:
         """Reset every volume and forget the index and the leases."""
@@ -898,6 +1001,8 @@ class Controller(Actor):
         self._health_tasks.clear()
         self._repairing.clear()
         self._leases.clear()
+        self._prewarm_reservations.clear()
+        self._expire_prewarm()  # the reserved-bytes gauges read 0 too
         results = await asyncio.gather(
             *(ref.reset.call_one() for ref in self.volume_refs.values()),
             return_exceptions=True,

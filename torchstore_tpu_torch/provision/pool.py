@@ -11,23 +11,12 @@ returning None means the source creates the segment as before.
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.transport import shared_memory as shm
 
 logger = get_logger("torchstore_tpu_torch.provision.pool")
-
-# Left free in /dev/shm beyond the pool's half of what is available.
-_MARGIN_BYTES = 256 << 20
-
-
-def shm_available_bytes() -> int:
-    """Bytes /dev/shm can still take."""
-    stat = os.statvfs(shm.SHM_DIR)
-    return stat.f_frsize * stat.f_bavail
-
 
 class LocalSegmentPool:
     def __init__(self) -> None:
@@ -46,7 +35,7 @@ class LocalSegmentPool:
         ``register``. Synchronous: call it from an executor thread."""
         if not shm.is_available():
             return {"created": 0, "bytes": 0, "clamped_bytes": 0, "error": "shm unavailable"}
-        budget = max(0, (shm_available_bytes() - _MARGIN_BYTES) // 2)
+        budget = max(0, (shm.shm_available_bytes() - shm.PROVISION_MARGIN_BYTES) // 2)
         created = created_bytes = clamped_bytes = 0
         for size, count in sorted(sizes.items(), reverse=True):
             size = max(int(size), 1)

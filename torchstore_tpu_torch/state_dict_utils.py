@@ -1298,6 +1298,15 @@ async def put_state_dict(
                                                              config=config)
         marker["quant"] = quant_meta
     tracker.track_step("flatten")
+    if plan is None:
+        # The automatic provisioning hint: the first put of a large working
+        # set provisions pools and dials for what it puts (cast or encoded
+        # already) before its data-plane puts; once per size signature per
+        # client, never failing the put. A cached plan skips even the check.
+        from torchstore_tpu_torch.provision import maybe_auto_prewarm
+
+        await maybe_auto_prewarm(client, flat)
+        tracker.track_step("prewarm_hint")
     if flat:
         # An unchanged delta key is absent from ``flat``: an all-unchanged
         # publish puts the marker alone.

@@ -37,8 +37,11 @@ plane of auto-repair): over the bulk rung when it is on, else RPC frames,
 landed in pooled segments. ``TORCHSTORE_TORCH_VOLUME_ID`` forces the id (a
 repair's replacement takes the dead volume's). ``flight_record`` hands the
 controller this process's recorder ring for a quarantine's post-mortem.
-The one-sided planes (A10), relay hops (A11.1) and the traffic ledger's
-peer cells (A12) are later work.
+``shm_capacity`` and ``provision_shm`` serve prewarm's
+shared-memory leg: the capacity view the controller grants against, and
+the pool pre-sized with prefaulted segments before the first put. The
+one-sided planes (A10), relay hops (A11.1) and the traffic ledger's peer
+cells (A12) are later work.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from torchstore_tpu_torch.config import ENV_STORAGE_DIR, ENV_VOLUME_ID, default_
 from torchstore_tpu_torch.logging import get_logger
 from torchstore_tpu_torch.observability import metrics as obs_metrics
 from torchstore_tpu_torch.observability import recorder as obs_recorder
+from torchstore_tpu_torch.observability.tracing import span
 from torchstore_tpu_torch.runtime import Actor, endpoint
 from torchstore_tpu_torch.transport import bulk, landing, shared_memory
 from torchstore_tpu_torch.transport.buffers import Served, TransportBuffer, TransportContext
@@ -691,6 +695,49 @@ class StorageVolume(Actor):
             out["bulk"] = bulk_cache.stats()
         out["metrics"] = obs_metrics.metrics_snapshot()
         return out
+
+    # ---- cold-start provisioning --------------------------------------------
+
+    @endpoint
+    async def shm_capacity(self, config=None) -> dict:
+        """Capacity view for the controller's prewarm reservations: the
+        bytes /dev/shm has free, and the pool's cap and fill. ``config``
+        (the prewarming client's, forwarded by the controller) is adopted
+        first, so the grant sees the pool cap the later ``provision_shm``
+        runs under."""
+        out = {"shm": shared_memory.is_available(), "available_bytes": 0, "pool_cap": 0,
+               "pool_bytes": 0}
+        if not out["shm"]:
+            return out
+        cache = self.ctx.get_cache(shared_memory.ShmServerCache)
+        cache.adopt_config(config)
+        # Twins not populated yet hold no tmpfs pages, but will.
+        out["available_bytes"] = max(
+            0, shared_memory.shm_available_bytes() - cache.unpopulated_bytes())
+        out["pool_cap"] = cache.pool_cap
+        out["pool_bytes"] = cache.spare_bytes()
+        return out
+
+    @endpoint
+    async def provision_shm(self, sizes: dict, config=None) -> dict:
+        """Prewarm's shared-memory leg on the volume: create and prefault
+        ``{size: count}`` segments into the free pool, so the first put of
+        the provisioned working set is offered every segment instead of
+        creating them cold, and name the twin set the rotation after it
+        draws (``ShmServerCache.provision``). The client's config carries
+        the pool cap, as on the put path."""
+        if not shared_memory.is_available():
+            return {"created": 0, "bytes": 0, "error": "shm unavailable"}
+        cache = self.ctx.get_cache(shared_memory.ShmServerCache)
+        cache.adopt_config(config)
+        with span("provision.shm_pool", volume=self.volume_id, sizes=len(sizes),
+                  nbytes=sum(int(s) * int(c) for s, c in sizes.items())):
+            result = await cache.provision({int(s): int(c) for s, c in sizes.items()})
+        if result["created"]:
+            logger.info("provisioned %d segment(s) / %d bytes into volume %s's pool (%d "
+                        "already pooled, %d bytes clamped)", result["created"], result["bytes"],
+                        self.volume_id, result["already_pooled"], result["clamped_bytes"])
+        return result
 
     # ---- fault injection ---------------------------------------------------
 

@@ -35,6 +35,13 @@ goes through it, and a spare a put from a card announced, in the
 background between its copies, so a warm rotation copies at pinned rates
 and no put or get waits for a registration.
 
+A prewarm pre-sizes the volume's free pool for a manifest
+(``ShmServerCache.provision``: huge pages advised, pages prefaulted) and
+the client attaches what it made (``pre_attach_segments``), so the first
+put of that working set is offered every segment. Each provisioned segment
+has a twin, populated in the background, that its first put announces as a
+spare: the second put finds the rotation's other set warm too.
+
 Segment names start with ``tst_shm_``, never ``ts_shm_``: the reference's
 orphan reaper and leak checks match its own prefix only.
 """
@@ -82,6 +89,8 @@ SMALL_INLINE_BYTES = 64 * 1024
 STAGED_TTL_S = 120.0  # staged-get segments a crashed client never unlinked
 RETIRED_TTL_S = 600.0  # leased-then-replaced segments never released
 RESERVED_TTL_S = 60.0  # handshake offers whose put never arrived
+# /dev/shm left free by provisioning, for other tenants and the live set.
+PROVISION_MARGIN_BYTES = 256 << 20
 
 # Handshake-reply key of the batch's arena offer; request indices are >= 0.
 ARENA_OFFER_KEY = -1
@@ -142,6 +151,17 @@ def reap_orphaned_segments() -> int:
     return reaped
 
 
+def shm_available_bytes() -> int:
+    """Bytes /dev/shm can still take (0 when unreadable). Provisioning
+    clamps to it: a write past a full tmpfs is a SIGBUS, not an
+    exception."""
+    try:
+        stat = os.statvfs(SHM_DIR)
+    except OSError:
+        return 0
+    return stat.f_frsize * stat.f_bavail
+
+
 def _new_name() -> str:
     return f"{PREFIX}{os.getpid()}_{uuid.uuid4().hex[:12]}"
 
@@ -163,6 +183,7 @@ class ShmSegment:
         self.busy = 0  # copies in flight through this attachment
         self.dropped = False  # left the client's cache: unpin once idle, never pin
         self.was_live = False  # on a volume: backed an entry before it was pooled
+        self.provisioned = False  # on a volume: made by a prewarm, not taken yet
 
     @staticmethod
     def path(name: str) -> str:
@@ -196,16 +217,42 @@ class ShmSegment:
     def create_provisioned(cls, size: int, nthreads: int = 0) -> "ShmSegment":
         """Cold-start provisioning variant of ``create_warm`` (the prewarm
         path, off the first sync's critical path): mapped without
-        MAP_POPULATE, then every page prefaulted by the native library's
-        threads (``nthreads`` 0: by size). With the library off, as
-        ``create_warm``."""
-        if not native.enabled():
-            return cls.create_warm(size)
+        MAP_POPULATE, advised onto transparent huge pages while untouched
+        (the advice must precede the faults), then every page prefaulted by
+        the native library's threads (``nthreads`` 0: by size), or by one
+        stride touch with the library off."""
         seg = cls.create(size, populate=False)
-        if size:
-            native.prefault(torch.frombuffer(seg.mmap, dtype=torch.uint8).data_ptr(), size,
-                            nthreads)
+        if not size:
+            return seg
+        seg.madvise_hugepage()
+        base = torch.frombuffer(seg.mmap, dtype=torch.uint8)
+        if not native.prefault(base.data_ptr(), size, nthreads):
+            base[::4096].zero_()
         return seg
+
+    def populate(self) -> None:
+        """Allocate every page of the segment without writing one: a second
+        mapping with MAP_POPULATE, closed at once (the pages stay in the
+        file). Safe while another process copies into the segment, which
+        a prefault's writes are not."""
+        if not self._POPULATE or not self.size:
+            return
+        try:
+            ShmSegment.attach(self.name, self.size, populate=True).mmap.close()
+        except OSError:
+            pass  # unlinked meanwhile
+
+    def madvise_hugepage(self) -> None:
+        """Ask for transparent huge pages behind the mapping (fewer TLB
+        misses on the copies). Fail-open: a kernel without huge pages on
+        tmpfs leaves plain pages."""
+        advice = getattr(mmap, "MADV_HUGEPAGE", None)
+        if advice is None or self.size == 0:
+            return
+        try:
+            self.mmap.madvise(advice)
+        except (OSError, ValueError):
+            pass
 
     @classmethod
     def attach(
@@ -305,8 +352,9 @@ class _Entry:
 class ShmServerCache(TransportCache):
     """Volume side: live entries and their segments, read leases, retired
     (leased, then replaced) segments, the free pool of warm segments under
-    ``pool_cap``, handshake reservations and announced spares, staged-get
-    segments, background warm-ups, and the pool's counters."""
+    ``pool_cap``, the twins of provisioned segments, handshake reservations
+    and announced spares, staged-get segments, background warm-ups, and the
+    pool's counters."""
 
     def __init__(self) -> None:
         self.by_key: dict[str, dict[Optional[tuple], _Entry]] = {}
@@ -323,6 +371,10 @@ class ShmServerCache(TransportCache):
         self.reserved: dict[str, tuple[ShmSegment, float]] = {}
         self.spare_by_size: dict[int, list[str]] = {}
         self._warming: dict[int, int] = {}  # size -> warm-ups in flight
+        # size -> twins of provisioned segments: the rotation after the
+        # first put of a prewarmed working set draws them (see provision).
+        self.rotation: dict[int, list[ShmSegment]] = {}
+        self._populating: dict[str, int] = {}  # twin -> size, pages not allocated yet
         self._warm_tasks: set = set()
         self._warm_executor: Optional[ThreadPoolExecutor] = None
         self._closed = False
@@ -358,6 +410,10 @@ class ShmServerCache(TransportCache):
                 del self.reserved[name]
                 seg.unlink()
                 self.counts["reaped"] += 1
+                if seg.provisioned:  # its put never came: nor will its twin's
+                    twin = self.take_twin(seg.size)
+                    if twin is not None:
+                        twin.unlink()
                 names = self.spare_by_size.get(seg.size)
                 if names is not None and name in names:
                     names.remove(name)
@@ -452,9 +508,7 @@ class ShmServerCache(TransportCache):
         reserved_by_size: dict[int, int] = {}
         for seg, _ in self.reserved.values():
             reserved_by_size[seg.size] = reserved_by_size.get(seg.size, 0) + 1
-        budget = self.pool_cap - self.free_bytes - sum(
-            size * n for size, n in self._warming.items()
-        )
+        budget = self.pool_cap - self.spare_bytes()
         for size, count in wanted.items():
             have = (
                 len(self.free_by_size.get(size, ()))
@@ -491,6 +545,137 @@ class ShmServerCache(TransportCache):
                 self._warming[size] = left
             else:
                 self._warming.pop(size, None)
+
+    def spare_bytes(self) -> int:
+        """Bytes held for the rotations to come, under ``pool_cap``: the
+        free pool, warm-ups in flight and twins."""
+        return (self.free_bytes + sum(size * n for size, n in self._warming.items())
+                + sum(size * len(twins) for size, twins in self.rotation.items()))
+
+    def unpopulated_bytes(self) -> int:
+        """Bytes of twins whose pages /dev/shm has not allocated yet."""
+        return sum(self._populating.values())
+
+    def take_twin(self, size: int) -> Optional[ShmSegment]:
+        twins = self.rotation.get(size)
+        if not twins:
+            return None
+        twin = twins.pop()
+        if not twins:
+            del self.rotation[size]
+        return twin
+
+    async def provision(self, sizes: dict[int, int]) -> dict:
+        """Pre-size the free pool for a manifest (prewarm's shared-memory
+        leg): for each ``{size: count}``, create and prefault enough
+        segments that the pool can serve that many handshake offers,
+        counting segments pooled, warming or reserved against the want.
+        Largest sizes first, within what ``pool_cap`` leaves and what
+        /dev/shm holds less a margin (a prefault past a full tmpfs is a
+        SIGBUS). Creation and prefault run on executor threads, the pool's
+        bookkeeping back on the loop; a ``clear`` meanwhile unlinks what
+        was made.
+
+        A put never writes into a live segment, so the put after the first
+        needs a second set: each segment made gets a twin within what is
+        left, named now and populated on the warm-up thread, which the
+        first put that takes the segment announces as its spare. Returns
+        the counts and the names of the first set, which the prewarming
+        client attaches."""
+        loop = asyncio.get_running_loop()
+        reserved_by_size: dict[int, int] = {}
+        for seg, _ in self.reserved.values():
+            reserved_by_size[seg.size] = reserved_by_size.get(seg.size, 0) + 1
+        budget = max(0, self.pool_cap - self.spare_bytes())
+        budget = min(budget, max(0, shm_available_bytes() - self.unpopulated_bytes()
+                                 - PROVISION_MARGIN_BYTES))
+        already = clamped_bytes = 0
+        plan: list[int] = []
+        for size in sorted(sizes, reverse=True):
+            count = int(sizes[size])
+            if size <= 0 or count <= 0:
+                continue
+            have = (len(self.free_by_size.get(size, ())) + self._warming.get(size, 0)
+                    + reserved_by_size.get(size, 0))
+            want = max(0, count - have)
+            already += count - want
+            fits = min(want, budget // size)
+            budget -= fits * size
+            clamped_bytes += (want - fits) * size
+            plan.extend([size] * fits)
+        made = await asyncio.gather(
+            *(loop.run_in_executor(None, ShmSegment.create_provisioned, size) for size in plan),
+            return_exceptions=True,
+        )
+        created = created_bytes = errors = 0
+        names: list[tuple[str, int]] = []
+        for seg in made:
+            if isinstance(seg, BaseException):
+                errors += 1
+                logger.warning("shm provisioning of a segment failed: %r", seg)
+                continue
+            if self._closed:
+                seg.unlink()  # cleared meanwhile: leak nothing
+                continue
+            seg.provisioned = True
+            self._add_free(seg)
+            created += 1
+            created_bytes += seg.size
+            names.append((seg.name, seg.size))
+        self.counts["created"] += created
+        # Pool-cap evictions of _add_free may have unlinked some already.
+        names = [(n, size) for n, size in names if n in self.free]
+        twins = await self._make_twins(sorted((size for _, size in names), reverse=True),
+                                       budget)
+        return {"created": created, "bytes": created_bytes, "already_pooled": already,
+                "clamped_bytes": clamped_bytes, "errors": errors, "names": names,
+                "rotation": len(twins), "rotation_bytes": sum(t.size for t in twins)}
+
+    async def _make_twins(self, sizes: list[int], budget: int) -> list[ShmSegment]:
+        """One unpopulated twin per size, largest first within ``budget``,
+        kept in ``rotation``; their pages are allocated in the background."""
+        fits = []
+        for size in sizes:
+            if size <= budget:
+                budget -= size
+                fits.append(size)
+        if not fits:
+            return []
+        try:
+            twins = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: [ShmSegment.create(size, populate=False) for size in fits])
+        except OSError as exc:
+            logger.warning("shm provisioning of the rotation's twins failed: %r", exc)
+            return []
+        if self._closed:
+            for twin in twins:
+                twin.unlink()
+            return []
+        for twin in twins:
+            self.rotation.setdefault(twin.size, []).append(twin)
+            self._populating[twin.name] = twin.size
+        self.counts["created"] += len(twins)
+        spawn_logged(self._populate_twins(twins), name="shm.populate_twins",
+                     tasks=self._warm_tasks, log=logger)
+        return twins
+
+    async def _populate_twins(self, twins: list[ShmSegment]) -> None:
+        """Allocate the twins' pages one at a time on the warm-up thread,
+        which leaves the cores to the puts meanwhile. A twin announced
+        already may be copied into as this runs: the populate writes
+        nothing."""
+        loop = asyncio.get_running_loop()
+        if self._warm_executor is None:
+            self._warm_executor = ThreadPoolExecutor(WARM_THREADS, "tst-shm-warm")
+        try:
+            for twin in twins:
+                if self._closed:
+                    break
+                await loop.run_in_executor(self._warm_executor, twin.populate)
+                self._populating.pop(twin.name, None)
+        finally:
+            for twin in twins:
+                self._populating.pop(twin.name, None)
 
     async def wait_warmups(self) -> None:
         """Wait for the warm-ups in flight (after ``clear`` they unlink
@@ -567,7 +752,8 @@ class ShmServerCache(TransportCache):
             "reserved_segments": len(self.reserved),
             "read_leases": sum(self.grants.values()),
             "staged": len(self.staged),
-            "warming": sum(self._warming.values()),
+            "warming": sum(self._warming.values()) + len(self._populating),
+            "rotation_segments": sum(len(twins) for twins in self.rotation.values()),
             "offers": {k: self.counts[k] for k in ("spare", "pooled", "miss")},
             "segments_created": self.counts["created"],
             "segments_recycled": self.counts["recycled"],
@@ -588,8 +774,10 @@ class ShmServerCache(TransportCache):
         segs += [seg for seg, _ in self.retired.values()]
         segs += [seg for seg, _ in self.reserved.values()]
         segs += list(self.free.values())
+        segs += [twin for twins in self.rotation.values() for twin in twins]
         for seg in segs:
             seg.unlink()
+        self.rotation.clear()
         self.staged.clear()
         self.retired.clear()
         self.reserved.clear()
@@ -672,29 +860,34 @@ class ShmClientCache(TransportCache):
         the next handshake's offers of them find their attachments; with
         ``pin`` (the put copied from a card) page-lock them too, so the
         next rotation copies at the DMA rate."""
-        loop = asyncio.get_running_loop()
         self.evict_stale_pre_attached()
-
-        async def one(name: str, size: int) -> None:
-            seg = self.segments.get(name)
-            if seg is None:
-                try:
-                    seg = await loop.run_in_executor(
-                        None, ShmSegment.attach, name, size, False, True
-                    )
-                except OSError:
-                    return  # reaped or reset meanwhile
-                if name in self.segments:  # an attach on the loop won
-                    seg = self.segments[name]
-                else:
-                    self.segments[name] = seg
-                    self._pre_attached[name] = time.monotonic()
-            if pin:
-                self.schedule_pin([seg])
-
         for name, size in spares:
-            spawn_logged(one(name, size), name="shm.pre_attach", tasks=self._pre_attach_tasks,
-                         log=logger)
+            spawn_logged(self._attach_spare(name, size, pin), name="shm.pre_attach",
+                         tasks=self._pre_attach_tasks, log=logger)
+
+    async def _attach_spare(self, name: str, size: int, pin: bool) -> int:
+        """Attach one offered-to-be segment (populated) on an executor
+        thread, and queue it for page-locking with ``pin``; 1 when it made
+        a fresh attachment."""
+        fresh = 0
+        seg = self.segments.get(name)
+        if seg is None:
+            try:
+                seg = await asyncio.get_running_loop().run_in_executor(
+                    None, ShmSegment.attach, name, size, False, True
+                )
+            except OSError:
+                return 0  # reaped or reset meanwhile
+            if name in self.segments:  # an attach on the loop won
+                seg.mmap.close()
+                seg = self.segments[name]
+            else:
+                self.segments[name] = seg
+                self._pre_attached[name] = time.monotonic()
+                fresh = 1
+        if pin:
+            self.schedule_pin([seg])
+        return fresh
 
     def evict_stale_pre_attached(self) -> None:
         """Drop spares never offered within the volume's reservation TTL: it
@@ -782,8 +975,11 @@ class ShmClientCache(TransportCache):
             return len(self._pin_queue) + self._pinning
 
     async def wait_pinned(self) -> float:
-        """Wait until every queued page-lock ran; returns the seconds."""
+        """Wait until the announced spares are attached and every queued
+        page-lock ran; returns the seconds."""
         t0 = time.perf_counter()
+        while self._pre_attach_tasks:
+            await asyncio.gather(*list(self._pre_attach_tasks), return_exceptions=True)
         while self._pin_queue or self._pinning:
             await asyncio.sleep(0.01)
         self.raise_pin_error()
@@ -871,6 +1067,21 @@ class ShmClientCache(TransportCache):
         self.pending.clear()
         self.unacked.clear()
         self.seq.clear()
+
+
+async def pre_attach_segments(volume, names: list[tuple[str, int]], pin: bool = False) -> int:
+    """Prewarm's client half of the shared-memory leg: attach the segments
+    the volume provisioned (populated, so the first put's copies take no
+    page-table faults) into this client's cache and wait for it, so the
+    first put's offers find their attachments; with ``pin`` (a working set
+    on a card) queue them for page-locking too (``ShmClientCache.
+    wait_pinned`` waits for it). Tracked as pre-attached spares: one not
+    offered within the reservation TTL is dropped and attached again
+    lazily. Returns the fresh attachments."""
+    cache: ShmClientCache = volume.transport_context.get_cache(ShmClientCache)
+    cache.evict_stale_pre_attached()
+    fresh = await asyncio.gather(*(cache._attach_spare(n, size, pin) for n, size in names))
+    return sum(fresh)
 
 
 class SharedMemoryTransportBuffer(TransportBuffer):
@@ -1158,20 +1369,33 @@ class SharedMemoryTransportBuffer(TransportBuffer):
             cache.schedule_warm(cold_sizes)
             for size in cold_sizes:
                 seg = cache.take_free(size)
-                if seg is None:
-                    continue
-                cache.reserved[seg.name] = (seg, time.monotonic())
-                cache.spare_by_size.setdefault(size, []).append(seg.name)
-                cache.counts["spares_announced"] += 1
-                self.spares.append((seg.name, size))
+                if seg is not None:
+                    self._announce(cache, seg)
         return out
+
+    def _announce(self, cache: ShmServerCache, seg: ShmSegment) -> None:
+        """Reserve ``seg`` for the next rotation and name it in the put
+        reply, so the client attaches it off the critical path and the next
+        handshake offers exactly it."""
+        cache.reserved[seg.name] = (seg, time.monotonic())
+        cache.spare_by_size.setdefault(seg.size, []).append(seg.name)
+        cache.counts["spares_announced"] += 1
+        self.spares.append((seg.name, seg.size))
 
     def _adopt(self, cache: ShmServerCache, name: str, size: int, cold: list[int]) -> ShmSegment:
         """The segment a put landed in: a reserved offer as it is, or a cold
-        client segment attached and renamed to this volume."""
+        client segment attached and renamed to this volume. A provisioned
+        segment's first put announces its twin: the live set then draws
+        nothing from the pool, and the next put would miss."""
         reserved = cache.reserved.pop(name, None)
         if reserved is not None:
-            return reserved[0]
+            seg = reserved[0]
+            if seg.provisioned:
+                seg.provisioned = False
+                twin = cache.take_twin(seg.size)
+                if twin is not None:
+                    self._announce(cache, twin)
+            return seg
         seg = ShmSegment.attach(name, size)
         seg.rename_to_owner()
         self.renames[name] = seg.name

@@ -27,9 +27,10 @@ crashed publisher's partial skip leased versions (the controller refuses
 to delete them anyway), leased versions leave GC's ``keep`` window, and a
 resumed publisher numbers past a leased survivor.
 
-Not in this port yet, each raising ``NotImplementedError``: ``register``
-(provisioning, ROADMAP A11) and the relay (``relay=`` / ``relay_volume=``,
-A11).
+``WeightPublisher.register(sd)`` provisions the store for the channel's
+working set before the first publish (``provision/``). Not in this port
+yet, raising ``NotImplementedError``: the relay (``relay=`` /
+``relay_volume=``, ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -151,8 +152,35 @@ class WeightPublisher:
 
     async def register(self, state_dict: Any, transfer_dtype=None, direct: bool = False) -> dict:
         """Provision the store for this channel's working set before the
-        first publish."""
-        raise _not_ported("WeightPublisher.register (provisioning)", "A11")
+        first publish: a manifest of the state dict (metadata only) sized as
+        the publish puts it (``transfer_dtype``, or the fused blobs of this
+        channel's quantization), then the volumes' pools, the connections
+        and, with ``direct=True``, the client-local staging a direct source
+        draws (``provision.prewarm_manifest``). Call it while the trainer
+        still loads or compiles, so the first publish lands in prefaulted
+        segments. Advisory: a failure is reported in the returned dict,
+        never raised, and the first publish takes the lazy path."""
+        from torchstore_tpu_torch import provision
+
+        try:
+            client = self._resolve_client()
+            # A quantized channel provisions for its blobs (the scale slots
+            # included), not for the full-precision tensors.
+            quant = None
+            if transfer_dtype is None:
+                quant = self._resolve_quant(client, None)
+                if quant == "none":
+                    quant = None
+            manifest = provision.as_manifest(state_dict, transfer_dtype=transfer_dtype,
+                                             transfer_quant=quant,
+                                             quant_block=client.config.quant_block)
+        except Exception as exc:  # noqa: BLE001 - advisory: the first publish
+            # surfaces real problems loudly; register never does.
+            logger.warning("channel %s register failed (%s); the first publish takes the "
+                           "lazy path", self.name, exc)
+            return {"ok": False, "errors": {"register": str(exc)}}
+        with span("weight_channel.register", channel=self.name, nbytes=manifest.total_bytes):
+            return await provision.prewarm_manifest(client, manifest, direct=direct)
 
     async def _resolve_next_version(self, client) -> int:
         """Resume after the channel's LATEST (a restarted publisher must not
